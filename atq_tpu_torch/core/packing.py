@@ -1,0 +1,55 @@
+"""Planar 2-bit ternary packing (PyTorch port of atq_tpu/core/packing.py).
+
+Encoding: -1 -> 00, 0 -> 01, +1 -> 10. The K axis is zero-padded to a
+multiple of ``k_align`` (512) and split into 4 contiguous quarters of
+``kq = K_pad / 4`` bytes; byte b of a row holds the values of columns
+(b, kq+b, 2kq+b, 3kq+b) in bit fields (0-1, 2-3, 4-5, 6-7). The bytes are
+identical to ``atq_tpu.core.packing.pack_planar``.
+
+The reference-format ``flat``, the ``rows`` and the int32 ``planar32``
+layouts come with the serving slice (ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+import torch
+
+_TERNARY = (-1.0, 0.0, 1.0)
+
+
+def _check_ternary(ternary_weights: torch.Tensor) -> None:
+    """Raise unless every value is -1, 0 or +1 (the validation of the
+    reference packer). Reads the values back to the host: export-time
+    use only."""
+    allowed = torch.tensor(_TERNARY, dtype=ternary_weights.dtype,
+                           device=ternary_weights.device)
+    if not bool(torch.isin(ternary_weights, allowed).all()):
+        raise ValueError("Input must contain only ternary values (-1, 0, 1)")
+
+
+def pack_planar(ternary_weights: torch.Tensor,
+                k_align: int = 512) -> torch.Tensor:
+    """Pack a 2-D ternary (N, K) matrix into (N, K_pad/4) uint8 planes."""
+    if ternary_weights.ndim != 2:
+        raise ValueError(f"pack_planar takes a 2-D (N, K) matrix, got shape "
+                         f"{tuple(ternary_weights.shape)}")
+    _check_ternary(ternary_weights)
+    out_features, in_features = ternary_weights.shape
+    k_pad = (-in_features) % k_align
+    w = torch.nn.functional.pad(ternary_weights, (0, k_pad), value=0.0)
+    kq = w.shape[1] // 4
+    quarters = (w + 1).to(torch.uint8).reshape(out_features, 4, kq)
+    return (quarters[:, 0]
+            | (quarters[:, 1] << 2)
+            | (quarters[:, 2] << 4)
+            | (quarters[:, 3] << 6)).contiguous()
+
+
+def unpack_planar(packed: torch.Tensor, in_features: int,
+                  dtype=torch.float32) -> torch.Tensor:
+    """Inverse of :func:`pack_planar` (drops the K padding)."""
+    shifts = torch.tensor([0, 2, 4, 6], dtype=torch.uint8,
+                          device=packed.device)
+    quarters = (packed[:, None, :] >> shifts[None, :, None]) & 0x3
+    full = quarters.reshape(packed.shape[0], -1)
+    return full[:, :in_features].to(dtype) - 1.0

@@ -1,0 +1,78 @@
+"""The port stands alone: importing every ``atq_tpu_torch`` module pulls in
+neither JAX nor the JAX package, and its entry points refuse to fall back
+to the CPU when no device is requested and no GPU is present."""
+
+import os
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+PKG = REPO / "atq_tpu_torch"
+
+_SCRIPT = r"""
+import importlib, pkgutil, sys
+import atq_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(atq_tpu_torch.__path__,
+                                                "atq_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "flax", "atq_tpu"))
+print(len(names), "modules;", "leaked:", bad)
+assert not bad, bad
+"""
+
+
+def test_importing_every_module_leaves_jax_out():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _SCRIPT], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    assert "leaked: []" in out.stdout
+
+
+def test_no_source_imports_jax_or_the_jax_package():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|flax|atq_tpu)(\.|\s|$)",
+                         re.MULTILINE)
+    files = sorted(PKG.rglob("*.py")) + [REPO / "chip_smoke.py"]
+    offenders = [str(f.relative_to(REPO)) for f in files
+                 if pattern.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def _entry_points():
+    from atq_tpu_torch.models.image_classifier import ATQImageClassifier
+    from atq_tpu_torch.serve.packed_model import pack_quantized_layer
+    from atq_tpu_torch.utils.platform import resolve_device
+
+    return [
+        lambda: resolve_device(),
+        lambda: ATQImageClassifier(),
+        lambda: pack_quantized_layer({"weight": torch.zeros(8, 8).numpy(),
+                                      "alpha": torch.ones(1).numpy()}),
+    ]
+
+
+@pytest.mark.parametrize("which", range(3))
+def test_entry_points_without_device_raise_on_a_cpu_only_host(which):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    with pytest.raises(RuntimeError, match="no GPU"):
+        _entry_points()[which]()
+
+
+def test_serving_cli_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from atq_tpu_torch.serve.__main__ import build_parser, build_server
+
+    assert build_parser().parse_args(
+        ["--task", "classification", "--checkpoint", "x"]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        build_server(["--task", "classification", "--checkpoint",
+                      str(tmp_path / "missing.npz")])
