@@ -1,10 +1,11 @@
-"""PyTorch/CUDA port of the ATQ classification serving path.
+"""PyTorch/CUDA port of ATQ: classification serving and training.
 
 A second package beside ``atq_tpu`` (the JAX reference, left untouched).
 It mirrors the JAX package's module paths (``core``, ``ops``, ``nn``,
-``models``, ``serve``) and imports only ``torch`` and ``numpy``: never
-``jax`` nor anything under ``atq_tpu``. The two TPU kernels on the path
-(the order-statistic threshold and the packed 2-bit ternary matmul) are
+``models``, ``data``, ``train``, ``serve``) and imports only ``torch`` and
+``numpy``: never ``jax`` nor anything under ``atq_tpu``. The TPU kernels on
+these paths (the order-statistic threshold, the packed 2-bit ternary matmul
+and the fused ternarize+blend matmul's forward, dx and dW/dalpha) are
 hand-written CUDA kernels for Hopper (``csrc/``), built at first use.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;

@@ -53,3 +53,21 @@ def unpack_planar(packed: torch.Tensor, in_features: int,
     quarters = (packed[:, None, :] >> shifts[None, :, None]) & 0x3
     full = quarters.reshape(packed.shape[0], -1)
     return full[:, :in_features].to(dtype) - 1.0
+
+
+class TernaryBitPacking:
+    """The part of the JAX package's packing class that training reports
+    use (``train.py --bit-packing``)."""
+
+    @staticmethod
+    def compute_memory_savings(original_tensor) -> dict:
+        """Theoretical savings of 2-bit packing against float32."""
+        n = int(original_tensor.numel())
+        original_bytes = n * 4
+        packed_bytes = (n * 2 + 7) // 8
+        return {
+            "original_bytes": original_bytes,
+            "packed_bytes": packed_bytes,
+            "compression_ratio": original_bytes / packed_bytes,
+            "memory_reduction": 1.0 - (packed_bytes / original_bytes),
+        }

@@ -17,8 +17,20 @@ call; smaller ones use ``torch.sort``, as the JAX side uses ``jnp.sort``.
 Every step stays on the tensor's device: the rank is a device value and
 nothing here synchronises with the host.
 
-Only the forward passes are ported here; the gradient rules (STE, TTQ)
-come with the training slice.
+Gradient rules, as in the JAX package:
+
+- parity (:func:`adaptive_ternary_quantization`): the ternary pattern is
+  built by ``torch.where`` from constant branches, so the latent weight
+  gets no gradient through it (JAX's exact zeros); the optimal alpha, when
+  no alpha is given, stays differentiable in the weights;
+- STE (:func:`ternarize_ste`): ``_STEIdentity`` passes the upstream
+  gradient straight to the latent weight;
+- TTQ (:func:`ternarize_ttq`): ``_TTQCombine`` gives the scales their
+  side's mean gradient and the weights the scale-weighted straight-through
+  gradient.
+
+The threshold runs on the detached weight: it only feeds strict compares,
+and the order-statistic kernel is a launch outside autograd.
 """
 
 from __future__ import annotations
@@ -49,7 +61,9 @@ def _threshold_rank(n: int, sparsity_target, device):
 
 def ternary_threshold(weights: torch.Tensor, threshold_factor: float = 0.05,
                       sparsity_target=0.3) -> torch.Tensor:
-    """The quantizer's sparsity-targeted threshold as a 0-d tensor."""
+    """The quantizer's sparsity-targeted threshold as a 0-d tensor (no
+    gradient: it is computed from the detached weights)."""
+    weights = weights.detach()
     dtype = weights.dtype
     abs_w = weights.abs()
     flat = abs_w.reshape(-1)
@@ -99,23 +113,62 @@ def adaptive_ternary_quantization(weights: torch.Tensor, alpha=None,
     return w_ternary, optimal_alpha
 
 
+class _STEIdentity(torch.autograd.Function):
+    """Forward: the ternary pattern. Backward: the upstream gradient goes
+    to the latent weights unchanged (quantize.py:373-388)."""
+
+    @staticmethod
+    def forward(ctx, weights, w_ternary):
+        return w_ternary
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
 def ternarize_ste(weights: torch.Tensor, alpha=None,
                   threshold_factor: float = 0.05, sparsity_target=0.3):
-    """Forward of the straight-through variant: identical to
-    :func:`adaptive_ternary_quantization` (the STE changes only the
-    backward pass, which comes with the training slice)."""
-    return adaptive_ternary_quantization(weights, alpha, threshold_factor,
-                                         sparsity_target)
+    """ATQ with a straight-through estimator: the forward is identical to
+    :func:`adaptive_ternary_quantization`; in the backward the latent
+    weights receive the full upstream gradient."""
+    w_ternary, alpha = adaptive_ternary_quantization(
+        weights, alpha, threshold_factor, sparsity_target)
+    return _STEIdentity.apply(weights, w_ternary), alpha
+
+
+class _TTQCombine(torch.autograd.Function):
+    """``pos·wp − neg·wn`` with the TTQ gradient rule (quantize.py:411-440):
+    the latent weights get ``g·(pos·wp + neg·wn + dead)`` with
+    ``dead = 1 − pos − neg``, and the scales their side's gradient,
+    mean-normalized: ``Σ g·pos / max(Σ pos, 1)`` and
+    ``−Σ g·neg / max(Σ neg, 1)``."""
+
+    @staticmethod
+    def forward(ctx, weights, pos, neg, wp, wn):
+        ctx.save_for_backward(pos, neg, wp, wn)
+        return pos * wp - neg * wn
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, neg, wp, wn = ctx.saved_tensors
+        dead = 1.0 - pos - neg
+        dw = g * (pos * wp + neg * wn + dead)
+        n_pos = torch.clamp(torch.sum(pos), min=1.0)
+        n_neg = torch.clamp(torch.sum(neg), min=1.0)
+        dwp = (torch.sum(g * pos) / n_pos).reshape(wp.shape)
+        dwn = (-torch.sum(g * neg) / n_neg).reshape(wn.shape)
+        return dw, None, None, dwp, dwn
 
 
 def ternarize_ttq(weights: torch.Tensor, wp: torch.Tensor, wn: torch.Tensor,
                   threshold_factor: float = 0.05, sparsity_target=0.3):
-    """Trained Ternary Quantization forward: ``wp·[w>t] − wn·[w<−t]``
-    (scales folded in; callers must not multiply by alpha again)."""
+    """Trained Ternary Quantization: ``wp·[w>t] − wn·[w<−t]`` (scales
+    folded in; callers must not multiply by alpha again), with the TTQ
+    backward of :class:`_TTQCombine`."""
     threshold = ternary_threshold(weights, threshold_factor, sparsity_target)
     pos = (weights > threshold).to(weights.dtype)
     neg = (weights < -threshold).to(weights.dtype)
-    return pos * wp - neg * wn
+    return _TTQCombine.apply(weights, pos, neg, wp, wn)
 
 
 def ternary_distribution(w_ternary: torch.Tensor) -> dict:

@@ -1,4 +1,5 @@
-"""Quantized linear layers, eval forward (port of atq_tpu/nn/layers.py).
+"""Quantized linear layers and selective gradient routing (port of
+atq_tpu/nn/layers.py).
 
 - :class:`TernaryLinear` and :class:`ResidualPrecisionBoostLinear` keep the
   JAX layers' state under the same names: ``weight`` (out, in), ``alpha``
@@ -7,9 +8,16 @@
   keeps in its 'quant' collection.
 - A layer with a ``packed_entry`` (serve/packed_model.py) serves from its
   2-bit planes, as the JAX layers do when a 'packed' collection is present.
-- Only the forward is ported; the gradient modes' backward rules come with
-  the training slice. ``grad_mode`` selects the forward: 'parity' and
-  'ste' share it, 'ttq' uses the two learned scales.
+- ``grad_mode`` selects the backward rule: 'parity' (the reference's: the
+  latent weight of a TernaryLinear gets no gradient, an RPB layer's only on
+  its masked entries), 'ste' (straight-through) or 'ttq' (two learned
+  scales, core/quantize.py).
+- The fused path (``fused=True``, or ``ATQ_FUSED=1`` when ``fused`` is
+  None, the JAX rule) computes the threshold on the detached weight and
+  runs ternarize + blend + matmul as one op (ops/fused_linear.py): on the
+  card its forward, dx and dW/dalpha are the CUDA kernels of
+  ``csrc/fused_linear.cu``. It covers 'parity' and 'ste'; 'ttq' always
+  takes the dense path, as in JAX.
 
 Parameters are drawn on the CPU from an explicit ``torch.Generator`` and
 then moved to the layer's device.
@@ -18,6 +26,7 @@ then moved to the layer's device.
 from __future__ import annotations
 
 import math
+import os
 from typing import Optional
 
 import torch
@@ -25,6 +34,7 @@ from torch import nn
 
 from atq_tpu_torch.core.quantize import (
     adaptive_ternary_quantization,
+    ternarize_ste,
     ternarize_ttq,
     ternary_threshold,
 )
@@ -38,12 +48,62 @@ DEFAULT_SPARSITY = 0.3
 GRAD_MODES = ("parity", "ste", "ttq")
 
 
+def _use_fused(fused: Optional[bool]) -> bool:
+    """The layer's fused flag: an explicit ``fused`` wins, otherwise
+    ``ATQ_FUSED == "1"`` (default "0", dense), as in the JAX package."""
+    if fused is not None:
+        return fused
+    return os.environ.get("ATQ_FUSED", "0") == "1"
+
+
 def apply_selective_routing(x, threshold: float = 0.05,
                             importance_factor: float = 0.3):
     """Identity pass-through, as in the JAX package (the reference's
     applied routing function returns its input unchanged)."""
     del threshold, importance_factor
     return x
+
+
+class _RoutedIdentity(torch.autograd.Function):
+    """Identity forward; the backward keeps the gradient only where |x|
+    is above its k-th smallest value, k = int((1 − importance) · n)
+    (layers.py:127-151, torch.kthvalue semantics, 1-indexed)."""
+
+    @staticmethod
+    def forward(ctx, x, importance_factor: float):
+        ctx.save_for_backward(x)
+        ctx.importance_factor = importance_factor
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        importance = x.abs()
+        n = importance.numel()
+        k = int((1.0 - ctx.importance_factor) * n)
+        if k < n:
+            threshold = torch.sort(importance.reshape(-1)).values[max(k - 1,
+                                                                      0)]
+        else:
+            threshold = torch.zeros((), dtype=x.dtype, device=x.device)
+        return g * (importance > threshold).to(g.dtype), None
+
+
+def selective_gradient_routing(x, threshold: float = 0.05,
+                               importance_factor: float = 0.3):
+    """Full routing variant: identity forward, backward masks the gradient
+    to the top ``importance_factor`` fraction of activations by |x|. Not on
+    the parity path (the reference never calls it)."""
+    del threshold  # unused by the reference backward as well
+    return _RoutedIdentity.apply(x, importance_factor)
+
+
+def _quantize(weight, alpha, sparsity_target, grad_mode: str):
+    if grad_mode == "ste":
+        return ternarize_ste(weight, alpha=alpha,
+                             sparsity_target=sparsity_target)
+    return adaptive_ternary_quantization(weight, alpha=alpha,
+                                         sparsity_target=sparsity_target)
 
 
 def _ttq_scale(weight: torch.Tensor, sparsity_target, positive: bool):
@@ -80,13 +140,15 @@ class _QuantizedLinear(nn.Module):
     """State shared by the two layers: weight, alpha, bias, TTQ scales."""
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool,
-                 grad_mode: str, generator: Optional[torch.Generator]):
+                 grad_mode: str, fused: Optional[bool],
+                 generator: Optional[torch.Generator]):
         super().__init__()
         if grad_mode not in GRAD_MODES:
             raise ValueError(f"grad_mode must be one of {GRAD_MODES}")
         self.in_features = in_features
         self.out_features = out_features
         self.grad_mode = grad_mode
+        self.fused = fused
         weight = torch.empty(out_features, in_features)
         kaiming_uniform_torch_(weight, math.sqrt(5), generator=generator)
         self.weight = nn.Parameter(weight)
@@ -107,11 +169,19 @@ class _QuantizedLinear(nn.Module):
             self.wn = nn.Parameter(_ttq_scale(self.weight, sparsity_target,
                                               False))
 
+    def _fused_forward(self, x, sparsity_target, mask=None):
+        from atq_tpu_torch.ops.fused_linear import fused_quantized_linear
+
+        thr = ternary_threshold(self.weight, sparsity_target=sparsity_target)
+        y = fused_quantized_linear(x, self.weight, self.alpha, thr, mask=mask,
+                                   grad_mode=self.grad_mode)
+        return self._add_bias(y)
+
+    def _add_bias(self, y):
+        return y if self.bias is None else y + self.bias
+
     def _finish(self, x, w_eff):
-        y = torch.matmul(x, w_eff.T)
-        if self.bias is not None:
-            y = y + self.bias
-        return y
+        return self._add_bias(torch.matmul(x, w_eff.T))
 
 
 class TernaryLinear(_QuantizedLinear):
@@ -120,9 +190,10 @@ class TernaryLinear(_QuantizedLinear):
 
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True, grad_mode: str = "parity",
-                 device=None, generator: Optional[torch.Generator] = None):
+                 fused: Optional[bool] = None, device=None,
+                 generator: Optional[torch.Generator] = None):
         super().__init__(in_features, out_features, use_bias, grad_mode,
-                         generator)
+                         fused, generator)
         if grad_mode == "ttq":
             self._init_ttq(DEFAULT_SPARSITY)
         self.to(resolve_device(device))
@@ -133,10 +204,11 @@ class TernaryLinear(_QuantizedLinear):
         if self.grad_mode == "ttq":
             w_eff = ternarize_ttq(self.weight, self.wp, self.wn,
                                   sparsity_target=DEFAULT_SPARSITY)
+        elif _use_fused(self.fused):
+            return self._fused_forward(x, DEFAULT_SPARSITY)
         else:
-            w_t, a = adaptive_ternary_quantization(
-                self.weight, alpha=self.alpha,
-                sparsity_target=DEFAULT_SPARSITY)
+            w_t, a = _quantize(self.weight, self.alpha, DEFAULT_SPARSITY,
+                               self.grad_mode)
             w_eff = w_t * a
         return self._finish(x, w_eff)
 
@@ -149,10 +221,10 @@ class ResidualPrecisionBoostLinear(_QuantizedLinear):
     def __init__(self, in_features: int, out_features: int,
                  precision_ratio: float = 0.05, use_bias: bool = True,
                  sparsity_target: float = DEFAULT_SPARSITY,
-                 grad_mode: str = "parity", device=None,
-                 generator: Optional[torch.Generator] = None):
+                 grad_mode: str = "parity", fused: Optional[bool] = None,
+                 device=None, generator: Optional[torch.Generator] = None):
         super().__init__(in_features, out_features, use_bias, grad_mode,
-                         generator)
+                         fused, generator)
         self.precision_ratio = precision_ratio
         self.register_buffer("precision_mask",
                              _precision_mask(self.weight.detach(),
@@ -167,14 +239,17 @@ class ResidualPrecisionBoostLinear(_QuantizedLinear):
     def forward(self, x):
         if self.packed_entry is not None:
             return _packed_forward(self.packed_entry, x, self.out_features)
+        if self.grad_mode != "ttq" and _use_fused(self.fused):
+            # The bool buffer goes to the kernels as it lies (read as uint8).
+            return self._fused_forward(x, self.sparsity_target,
+                                       mask=self.precision_mask)
         mask = self.precision_mask.to(self.weight.dtype)
         if self.grad_mode == "ttq":
             w_t = ternarize_ttq(self.weight, self.wp, self.wn,
                                 sparsity_target=self.sparsity_target)
             w_mixed = w_t * (1.0 - mask) + self.weight * mask
         else:
-            w_t, a = adaptive_ternary_quantization(
-                self.weight, alpha=self.alpha,
-                sparsity_target=self.sparsity_target)
+            w_t, a = _quantize(self.weight, self.alpha, self.sparsity_target,
+                               self.grad_mode)
             w_mixed = w_t * a * (1.0 - mask) + self.weight * mask
         return self._finish(x, w_mixed)

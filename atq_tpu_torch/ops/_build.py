@@ -62,6 +62,16 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.atq_ternary_matmul.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32,
                                        i32, i32, vp]
     lib.atq_ternary_matmul.restype = i32
+    lib.atq_fused_dwda_partials.argtypes = [i32, i32]
+    lib.atq_fused_dwda_partials.restype = i32
+    lib.atq_fused_forward.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i32,
+                                      i32, i32, i32, vp]
+    lib.atq_fused_forward.restype = i32
+    lib.atq_fused_dx.argtypes = [i32, vp, vp, vp, vp, vp, i32, i32, i32, vp]
+    lib.atq_fused_dx.restype = i32
+    lib.atq_fused_dwda.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i32,
+                                   i32, i32, i32, vp]
+    lib.atq_fused_dwda.restype = i32
     return lib
 
 

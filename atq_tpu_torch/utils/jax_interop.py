@@ -15,7 +15,11 @@ module's ``state_dict``:
   ``wn`` pass through under the same names.
 
 With it a checkpoint written by ``train.py`` serves on the port unchanged,
-and tests feed both packages one init.
+a checkpoint written by the port's trainer serves on the JAX package, and
+tests feed both packages one init. :func:`from_jax_train_state` and
+:func:`to_jax_train_state` carry the classifier trainer's pair of models
+(the ATQ student and the full-precision teacher, whose flax ``Dense``
+kernels are transposed like any 2-D kernel).
 """
 
 from __future__ import annotations
@@ -80,7 +84,7 @@ def from_jax_variables(tree: Dict) -> Dict[str, torch.Tensor]:
         *mod, name = path
         if name not in _BN_STATS:
             raise KeyError(f"unexpected batch_stats leaf {'/'.join(path)}")
-        sd[".".join(mod + [_BN_STATS[name]])] = torch.as_tensor(
+        sd[".".join(mod + [_BN_STATS[name]])] = torch.tensor(
             np.asarray(leaf, np.float32))
         bn_modules.add(tuple(mod))
     for mod in bn_modules:
@@ -102,8 +106,7 @@ def from_jax_variables(tree: Dict) -> Dict[str, torch.Tensor]:
             else:
                 raise ValueError(f"kernel {'/'.join(path)} of shape "
                                  f"{a.shape}")
-        sd[".".join(mod + [name])] = torch.as_tensor(
-            np.ascontiguousarray(a))
+        sd[".".join(mod + [name])] = torch.tensor(np.ascontiguousarray(a))
     for path, leaf in _leaves(tree.get("quant", {})):
         *mod, name = path
         if name not in _QUANT:
@@ -113,7 +116,7 @@ def from_jax_variables(tree: Dict) -> Dict[str, torch.Tensor]:
             a = a.astype(bool)
         else:
             a = a.astype(np.float32)
-        sd[".".join(mod + [name])] = torch.as_tensor(a)
+        sd[".".join(mod + [name])] = torch.tensor(a)
     return sd
 
 
@@ -153,3 +156,34 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
             else:
                 put("params", mod, name, a)
     return {k: v for k, v in out.items() if v}
+
+
+_ATQ_KEYS = {"params": "atq_params", "quant": "quant",
+             "batch_stats": "atq_batch_stats"}
+_BASE_KEYS = {"params": "base_params", "batch_stats": "base_batch_stats"}
+
+
+def from_jax_train_state(state: Dict):
+    """``(atq_state_dict, base_state_dict)`` from the JAX classifier
+    trainer's state (``atq_params``, ``quant``, ``atq_batch_stats``,
+    ``base_params``, ``base_batch_stats``; numpy leaves). Optimizer state
+    and the step count are not carried."""
+    def pick(keys):
+        return {coll: state[key] for coll, key in keys.items()
+                if key in state}
+
+    return (from_jax_variables(pick(_ATQ_KEYS)),
+            from_jax_variables(pick(_BASE_KEYS)))
+
+
+def to_jax_train_state(atq_state_dict: Dict[str, torch.Tensor],
+                       base_state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """Inverse of :func:`from_jax_train_state`: the JAX trainer's model
+    variables (numpy leaves) from the two port state dicts."""
+    out = {}
+    for sd, keys in ((atq_state_dict, _ATQ_KEYS),
+                     (base_state_dict, _BASE_KEYS)):
+        variables = to_jax_variables(sd)
+        for coll, key in keys.items():
+            out[key] = variables.get(coll, {})
+    return out

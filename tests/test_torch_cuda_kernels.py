@@ -117,3 +117,84 @@ def test_matmul_counts_launches_and_rejects_bad_cuda_input(cuda):
         ternary_matmul_planar(x.double(), planes, 512, avec)
     with pytest.raises(ValueError):  # planes on the CPU, x on the card
         ternary_matmul_planar(x, planes.cpu(), 512, avec)
+
+
+# Fused ternarize+blend matmul (csrc/fused_linear.cu): y, dx, dw within
+# rtol/atol 1e-4 of the plain versions (f32 sums in another order than
+# cuBLAS over K = 3136), dalpha within 1e-4 relative (summed over N·K in
+# another order); the pattern itself is bit-exact by construction.
+FUSED_SHAPES = [(256, 128, 3136), (256, 10, 128), (7, 24, 100),
+                (2304, 128, 3136)]
+
+
+def _fused_inputs(cuda, m, n, k, with_mask, seed=0):
+    from atq_tpu_torch.core.quantize import ternary_threshold
+    from atq_tpu_torch.ops.fused_linear import scalars
+
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(np.maximum(rng.randn(m, k), 0).astype(np.float32))
+    w = torch.from_numpy((rng.randn(n, k) * 0.02).astype(np.float32))
+    g = torch.from_numpy((rng.randn(m, n) * 0.01).astype(np.float32))
+    mask = torch.from_numpy(rng.rand(n, k) < 0.05) if with_mask else None
+    thr = ternary_threshold(w, sparsity_target=0.3)
+    scal = scalars(torch.tensor([0.017]), thr)
+    to = (lambda t: None if t is None else t.to(cuda))
+    return to(x), to(w), to(g), to(mask), to(scal)
+
+
+@pytest.mark.parametrize("mnk", FUSED_SHAPES)
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_fused_linear_kernels_match_plain(cuda, mnk, with_mask):
+    from atq_tpu_torch.ops import fused_linear as fl
+
+    m, n, k = mnk
+    x, w, g, mask, scal = _fused_inputs(cuda, m, n, k, with_mask)
+    torch.testing.assert_close(fl.fused_linear_forward(x, w, mask, scal),
+                               fl.forward_plain(x, w, mask, scal),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fl.fused_linear_dx(g, w, mask, scal),
+                               fl.dx_plain(g, w, mask, scal),
+                               rtol=1e-4, atol=1e-4)
+    for ste in (False, True):
+        dw, da = fl.fused_linear_dwda(g, x, w, mask, scal, ste)
+        dw_p, da_p = fl.dwda_plain(g, x, w, mask, scal, ste)
+        torch.testing.assert_close(dw, dw_p, rtol=1e-4, atol=1e-4)
+        assert abs(da.item() - da_p.item()) <= 1e-4 * abs(da_p.item())
+        if mask is None and not ste:
+            assert not dw.any()  # parity, no mask: exact zeros
+
+
+def test_fused_linear_counts_launches_and_rejects_bad_cuda_input(cuda):
+    from atq_tpu_torch.ops import fused_linear as fl
+
+    x, w, g, mask, scal = _fused_inputs(cuda, 8, 16, 64, True)
+    before = (fl.fused_linear_forward.launches, fl.fused_linear_dx.launches,
+              fl.fused_linear_dwda.launches)
+    fl.fused_linear_forward(x, w, mask, scal)
+    fl.fused_linear_dx(g, w, mask, scal)
+    fl.fused_linear_dwda(g, x, w, mask, scal, True)
+    after = (fl.fused_linear_forward.launches, fl.fused_linear_dx.launches,
+             fl.fused_linear_dwda.launches)
+    assert after == tuple(b + 1 for b in before)
+    with pytest.raises(ValueError):  # no silent fallback for CUDA tensors
+        fl.fused_linear_forward(x.double(), w, mask, scal)
+    with pytest.raises(ValueError):  # weight on the CPU, input on the card
+        fl.fused_linear_dx(g, w.cpu(), mask, scal)
+
+
+def test_fused_autograd_op_on_cuda_equals_cpu(cuda):
+    from atq_tpu_torch.ops.fused_linear import fused_quantized_linear
+
+    x, w, g, mask, scal = _fused_inputs(cuda, 32, 24, 300, True, seed=3)
+    thr, alpha = scal[1].cpu(), torch.tensor([0.017])
+    out = {}
+    for dev in ("cpu", cuda):
+        xs, ws, a = (t.detach().to(dev).clone().requires_grad_()
+                     for t in (x, w, alpha))
+        y = fused_quantized_linear(xs, ws, a, thr.to(dev), mask.to(dev),
+                                   grad_mode="ste")
+        (y * g.to(dev)).sum().backward()
+        out[str(dev)] = [t.detach().cpu() for t in (y, xs.grad, ws.grad,
+                                                    a.grad)]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

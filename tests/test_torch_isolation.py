@@ -1,6 +1,7 @@
-"""The port stands alone: importing every ``atq_tpu_torch`` module pulls in
-neither JAX nor the JAX package, and its entry points refuse to fall back
-to the CPU when no device is requested and no GPU is present."""
+"""The port stands alone: importing every ``atq_tpu_torch`` module (the
+training slice's ``train``, ``data`` and fused-op modules included) pulls
+in neither JAX nor the JAX package, and its entry points refuse to fall
+back to the CPU when no device is requested and no GPU is present."""
 
 import os
 import pathlib
@@ -46,8 +47,15 @@ def test_no_source_imports_jax_or_the_jax_package():
 
 
 def _entry_points():
-    from atq_tpu_torch.models.image_classifier import ATQImageClassifier
+    from atq_tpu_torch.models.image_classifier import (
+        ATQImageClassifier,
+        BaselineCNNClassifier,
+    )
     from atq_tpu_torch.serve.packed_model import pack_quantized_layer
+    from atq_tpu_torch.train.classifier import (
+        ClassifierConfig,
+        train_classifier,
+    )
     from atq_tpu_torch.utils.platform import resolve_device
 
     return [
@@ -55,10 +63,21 @@ def _entry_points():
         lambda: ATQImageClassifier(),
         lambda: pack_quantized_layer({"weight": torch.zeros(8, 8).numpy(),
                                       "alpha": torch.ones(1).numpy()}),
+        lambda: BaselineCNNClassifier(),
+        lambda: train_classifier(ClassifierConfig(), loaders=(None,) * 3),
     ]
 
 
-@pytest.mark.parametrize("which", range(3))
+def test_expected_modules_exist():
+    names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
+    for name in ("train/classifier.py", "train/__main__.py",
+                 "train/schedules_lr.py", "ops/fused_linear.py",
+                 "data/augment.py", "data/prefetch.py", "utils/metrics.py"):
+        assert name in names, name
+    assert (PKG / "csrc" / "fused_linear.cu").exists()
+
+
+@pytest.mark.parametrize("which", range(5))
 def test_entry_points_without_device_raise_on_a_cpu_only_host(which):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
@@ -76,3 +95,15 @@ def test_serving_cli_defaults_to_cuda(tmp_path):
     with pytest.raises(RuntimeError, match="no GPU"):
         build_server(["--task", "classification", "--checkpoint",
                       str(tmp_path / "missing.npz")])
+
+
+def test_training_cli_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from atq_tpu_torch.train.__main__ import build_parser, main
+
+    assert build_parser().parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        main(["--checkpoint-dir", str(tmp_path), "--subset-fraction",
+              "0.01", "--data-dir", str(tmp_path / "data")])
+    assert not (tmp_path / "data").exists()  # raised before any data

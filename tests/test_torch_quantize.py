@@ -121,3 +121,93 @@ def test_ttq_and_distribution_match_jax(shape):
     for key in ("neg", "zero", "pos"):
         assert float(dist_t[key]) == pytest.approx(float(dist_j[key]),
                                                    rel=1e-6)
+
+
+# --- backward rules (parity, STE, TTQ) against JAX's autodiff -------------
+
+import jax  # noqa: E402
+
+
+def _g(shape, seed):
+    return np.random.RandomState(seed).randn(*shape).astype(np.float32)
+
+
+@pytest.mark.parametrize("shape", [(40, 25), (128, 160)])
+def test_ste_gradients_match_jax(shape):
+    w, g = _weights(shape, seed=21), _g(shape, 22)
+    alpha = np.float32([0.05])
+
+    def jloss(w, a):
+        wt, a = jq.ternarize_ste(w, alpha=a, sparsity_target=0.3)
+        return jnp.sum(wt * a * g)
+
+    want = jax.grad(jloss, argnums=(0, 1))(jnp.asarray(w),
+                                           jnp.asarray(alpha))
+    wt_, at_ = (torch.from_numpy(a).requires_grad_() for a in (w, alpha))
+    pat, a = tq.ternarize_ste(wt_, alpha=at_, sparsity_target=0.3)
+    (pat * a * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(wt_.grad.numpy(), np.asarray(want[0]),
+                               rtol=1e-6, atol=1e-7)
+    np.testing.assert_allclose(at_.grad.numpy(), np.asarray(want[1]),
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize("sparsity", [0.3, 1.0])
+@pytest.mark.parametrize("shape", [(50, 40), (128, 200)])
+def test_ttq_gradients_match_jax(shape, sparsity):
+    """Mean-normalized scale gradients, scale-weighted straight-through
+    weight gradients; sparsity 1.0 leaves both sides empty (max(count, 1)
+    keeps the scale gradients at 0)."""
+    w, g = _weights(shape, seed=31), _g(shape, 32)
+    wp, wn = np.float32([0.061]), np.float32([0.043])
+
+    def jloss(w, wp, wn):
+        return jnp.sum(jq.ternarize_ttq(w, wp, wn, sparsity_target=sparsity)
+                       * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(w), jnp.asarray(wp), jnp.asarray(wn))
+    leaves = [torch.from_numpy(a).requires_grad_() for a in (w, wp, wn)]
+    (tq.ternarize_ttq(*leaves, sparsity_target=sparsity)
+     * torch.from_numpy(g)).sum().backward()
+    for leaf, ref in zip(leaves, want):
+        np.testing.assert_allclose(leaf.grad.numpy(), np.asarray(ref),
+                                   rtol=1e-5, atol=1e-7)
+
+
+def test_parity_gradients_match_jax():
+    """Parity: no gradient through the pattern (JAX's exact zeros); with no
+    alpha given, the optimal alpha stays differentiable in the weights."""
+    w, g = _weights((64, 64), seed=41), _g((64, 64), 42)
+    alpha = np.float32([0.05])
+
+    def jloss(w, a):
+        wt, a = jq.adaptive_ternary_quantization(w, alpha=a)
+        return jnp.sum(wt * a * g)
+
+    def jloss_opt(w):
+        wt, a = jq.adaptive_ternary_quantization(w)
+        return jnp.sum(wt * a * g)
+
+    jw = jnp.asarray(w)
+    want_w, want_a = jax.grad(jloss, argnums=(0, 1))(jw, jnp.asarray(alpha))
+    assert not np.asarray(want_w).any()
+    wt_, at_ = (torch.from_numpy(a).requires_grad_() for a in (w, alpha))
+    pat, a = tq.adaptive_ternary_quantization(wt_, alpha=at_)
+    (pat * a * torch.from_numpy(g)).sum().backward()
+    assert wt_.grad is None  # torch's "no gradient" for JAX's zeros
+    np.testing.assert_allclose(at_.grad.numpy(), np.asarray(want_a),
+                               rtol=1e-5)
+
+    wt2 = torch.from_numpy(w).requires_grad_()
+    pat, a = tq.adaptive_ternary_quantization(wt2)
+    (pat * a * torch.from_numpy(g)).sum().backward()
+    np.testing.assert_allclose(wt2.grad.numpy(),
+                               np.asarray(jax.grad(jloss_opt)(jw)),
+                               rtol=1e-5, atol=1e-8)
+
+
+def test_threshold_carries_no_gradient():
+    w = torch.from_numpy(_weights((128, 128), seed=5)).requires_grad_()
+    for s in (0.0, 0.3, 1.0):  # fallback, order statistic, all-zero
+        assert not tq.ternary_threshold(w, sparsity_target=s).requires_grad
