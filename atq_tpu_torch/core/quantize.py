@@ -31,6 +31,13 @@ Gradient rules, as in the JAX package:
 
 The threshold runs on the detached weight: it only feeds strict compares,
 and the order-statistic kernel is a launch outside autograd.
+
+The ``*_batched`` functions take a STACKED weight (L, ...) — L independent
+matrices on a leading axis, the scanned stack's layout — and give each
+layer exactly what the per-layer function gives it: one batched
+order-statistic call (ops/order_stat.py:order_statistic_reductions_batched)
+computes all L thresholds. The sparsity target may be a scalar or an (L,)
+vector; alpha and the TTQ scales may be one value or one per layer.
 """
 
 from __future__ import annotations
@@ -111,6 +118,135 @@ def adaptive_ternary_quantization(weights: torch.Tensor, alpha=None,
         weights.abs().mean(),
     )
     return w_ternary, optimal_alpha
+
+
+def _per_layer(value, lead: int, dtype, device) -> torch.Tensor:
+    """A scalar or (L, ...) value as an (L,) tensor: one value is spread
+    over the layers, otherwise the first element of each layer's slice is
+    taken (as the JAX package's ``reshape(lead, -1)[:, 0]``)."""
+    if not isinstance(value, torch.Tensor):
+        return torch.full((lead,), float(value), dtype=dtype, device=device)
+    value = value.to(device=device, dtype=dtype)
+    if value.numel() == 1:
+        return value.reshape(()).expand(lead)
+    return value.reshape(lead, -1)[:, 0]
+
+
+def ternary_threshold_batched(weights: torch.Tensor,
+                              threshold_factor: float = 0.05,
+                              sparsity_target=0.3) -> torch.Tensor:
+    """Per-layer thresholds (L,) of a stacked (L, ...) weight, each equal
+    to ``ternary_threshold(weights[l], …, sparsity_target[l])`` (no
+    gradient: computed from the detached weights)."""
+    weights = weights.detach()
+    dtype, device = weights.dtype, weights.device
+    lead = weights.shape[0]
+    flat = weights.abs().reshape(lead, -1)
+    n = flat.shape[1]
+    st = _per_layer(sparsity_target, lead, torch.float32, device)
+    idx = torch.floor(st * _scalar(float(n), torch.float32, device)).to(
+        torch.int32)
+    ranks = idx.clamp(0, n - 1)
+
+    if dtype == torch.float32 and n >= _SELECT_MIN_SIZE:
+        from atq_tpu_torch.ops.order_stat import (
+            order_statistic_reductions_batched,
+        )
+
+        thr_at_idx, max_w, sum_w = order_statistic_reductions_batched(
+            flat.contiguous(), ranks)
+        mean_w = sum_w / _scalar(float(n), torch.float32, device)
+    else:
+        sorted_w = torch.sort(flat, dim=1).values
+        thr_at_idx = sorted_w.gather(1, ranks.reshape(-1, 1).long())[:, 0]
+        max_w = sorted_w[:, n - 1]
+        mean_w = flat.mean(dim=1)
+
+    thr_all_zero = max_w.to(dtype) + _scalar(1.0, dtype, device)
+    thr_fallback = _scalar(threshold_factor, dtype, device) * mean_w.to(dtype)
+    return torch.where(idx >= n, thr_all_zero,
+                       torch.where(idx > 0, thr_at_idx.to(dtype),
+                                   thr_fallback))
+
+
+def _bshape(weights):
+    return (weights.shape[0],) + (1,) * (weights.ndim - 1)
+
+
+def adaptive_ternary_quantization_batched(weights: torch.Tensor, alpha=None,
+                                          threshold_factor: float = 0.05,
+                                          sparsity_target=0.3):
+    """Batched :func:`adaptive_ternary_quantization` over a leading layer
+    axis. Returns ``(w_ternary, alpha)`` with alpha shaped (L,): the
+    per-layer optimal alpha, or the given one spread over the layers."""
+    dtype, device = weights.dtype, weights.device
+    lead = weights.shape[0]
+    dims = tuple(range(1, weights.ndim))
+    threshold = ternary_threshold_batched(
+        weights, threshold_factor, sparsity_target).reshape(_bshape(weights))
+    one = torch.ones((), dtype=dtype, device=device)
+    zero = torch.zeros((), dtype=dtype, device=device)
+    w_ternary = torch.where(weights > threshold, one,
+                            torch.where(weights < -threshold, -one, zero))
+    if alpha is not None:
+        return w_ternary, _per_layer(alpha, lead, dtype, device)
+    nonzero = (w_ternary != 0).sum(dim=dims).to(dtype)
+    optimal_alpha = torch.where(
+        nonzero > 0,
+        (weights * w_ternary).sum(dim=dims) / torch.maximum(nonzero, one),
+        weights.abs().mean(dim=dims),
+    )
+    return w_ternary, optimal_alpha
+
+
+def ternarize_ste_batched(weights: torch.Tensor, alpha=None,
+                          threshold_factor: float = 0.05,
+                          sparsity_target=0.3):
+    """Batched :func:`ternarize_ste` (the STE identity is elementwise)."""
+    w_ternary, alpha = adaptive_ternary_quantization_batched(
+        weights, alpha, threshold_factor, sparsity_target)
+    return _STEIdentity.apply(weights, w_ternary), alpha
+
+
+class _TTQCombineBatched(torch.autograd.Function):
+    """:class:`_TTQCombine` per layer of a stacked weight: (L,) scales, and
+    each layer's scale gradients mean-normalized over that layer alone
+    (quantize.py:320-349)."""
+
+    @staticmethod
+    def forward(ctx, weights, pos, neg, wp, wn):
+        ctx.save_for_backward(pos, neg, wp, wn)
+        b = _bshape(pos)
+        return pos * wp.reshape(b) - neg * wn.reshape(b)
+
+    @staticmethod
+    def backward(ctx, g):
+        pos, neg, wp, wn = ctx.saved_tensors
+        b = _bshape(pos)
+        dims = tuple(range(1, pos.ndim))
+        dead = 1.0 - pos - neg
+        dw = g * (pos * wp.reshape(b) + neg * wn.reshape(b) + dead)
+        n_pos = torch.clamp(torch.sum(pos, dim=dims), min=1.0)
+        n_neg = torch.clamp(torch.sum(neg, dim=dims), min=1.0)
+        dwp = (torch.sum(g * pos, dim=dims) / n_pos).reshape(wp.shape)
+        dwn = (-torch.sum(g * neg, dim=dims) / n_neg).reshape(wn.shape)
+        return dw, None, None, dwp, dwn
+
+
+def ternarize_ttq_batched(weights: torch.Tensor, wp, wn,
+                          threshold_factor: float = 0.05,
+                          sparsity_target=0.3):
+    """Batched :func:`ternarize_ttq` over a leading layer axis; ``wp`` and
+    ``wn`` are one value or one per layer."""
+    dtype, device = weights.dtype, weights.device
+    lead = weights.shape[0]
+    threshold = ternary_threshold_batched(
+        weights, threshold_factor, sparsity_target).reshape(_bshape(weights))
+    pos = (weights > threshold).to(dtype)
+    neg = (weights < -threshold).to(dtype)
+    return _TTQCombineBatched.apply(weights, pos, neg,
+                                    _per_layer(wp, lead, dtype, device),
+                                    _per_layer(wn, lead, dtype, device))
 
 
 class _STEIdentity(torch.autograd.Function):

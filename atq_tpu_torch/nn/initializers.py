@@ -7,6 +7,10 @@
 - The feature stack's convolutions and the teacher's dense layers are flax
   ``nn.Conv``/``nn.Dense`` in the JAX models, so they take flax's defaults:
   :func:`lecun_normal_` weights and zero biases.
+- The encoder of the production-shape step (train/scale.py) uses flax's
+  ``nn.Embed`` default (:func:`embed_default_`), ``nn.Dense`` default
+  (:func:`lecun_normal_`, zero bias) and ``nn.LayerNorm`` (ones, zeros);
+  :func:`normal_std_` is the JAX package's ``normal_std``.
 
 The two frameworks draw different numbers from one seed, so cross-checks
 carry weights across (utils/jax_interop.py) rather than re-drawing them;
@@ -62,3 +66,21 @@ def bias_uniform_torch_(tensor: torch.Tensor, fan_in: int,
     """PyTorch's default bias: ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``."""
     bound = 1.0 / math.sqrt(fan_in)
     return tensor.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def normal_std_(tensor: torch.Tensor, std: float = 0.02,
+                generator: Optional[torch.Generator] = None):
+    """``std * N(0, 1)`` (atq_tpu/nn/initializers.py:normal_std)."""
+    return tensor.normal_(0.0, std, generator=generator)
+
+
+@torch.no_grad()
+def embed_default_(tensor: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+    """flax's default ``nn.Embed`` init for a (num_embeddings, features)
+    table: variance_scaling(1, "fan_in", "normal", out_axis=0), whose fan-in
+    is the feature count, so an untruncated normal of std
+    ``sqrt(1 / features)``."""
+    return tensor.normal_(0.0, (1.0 / tensor.shape[1]) ** 0.5,
+                          generator=generator)

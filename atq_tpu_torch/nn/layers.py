@@ -18,6 +18,14 @@ atq_tpu/nn/layers.py).
   card its forward, dx and dW/dalpha are the CUDA kernels of
   ``csrc/fused_linear.cu``. It covers 'parity' and 'ste'; 'ttq' always
   takes the dense path, as in JAX.
+- ``dtype`` is the matmul compute dtype (AMP, as the JAX layers' ``dtype``):
+  the latent weight, the quantizer and alpha stay float32; x and the
+  effective weight are cast at the matmul, and the float32 bias is added
+  after it, so the output promotes to float32 as in JAX. ``ATQ_FUSED=1``
+  does not route such a layer to the float32 fused kernels.
+- ``pre_quantized`` (hoisted quantization, nn/hoist.py): the ``weight`` the
+  layer is given is already the effective weight, and the forward is a
+  plain matmul. The scanned stack runs its layers this way.
 
 Parameters are drawn on the CPU from an explicit ``torch.Generator`` and
 then moved to the layer's device.
@@ -48,12 +56,13 @@ DEFAULT_SPARSITY = 0.3
 GRAD_MODES = ("parity", "ste", "ttq")
 
 
-def _use_fused(fused: Optional[bool]) -> bool:
+def _use_fused(fused: Optional[bool], dtype=None) -> bool:
     """The layer's fused flag: an explicit ``fused`` wins, otherwise
-    ``ATQ_FUSED == "1"`` (default "0", dense), as in the JAX package."""
+    ``ATQ_FUSED == "1"`` (default "0", dense) for a float32 layer only (no
+    AMP ``dtype``), as in the JAX package (nn/layers.py:96-114)."""
     if fused is not None:
         return fused
-    return os.environ.get("ATQ_FUSED", "0") == "1"
+    return os.environ.get("ATQ_FUSED", "0") == "1" and dtype is None
 
 
 def apply_selective_routing(x, threshold: float = 0.05,
@@ -141,7 +150,8 @@ class _QuantizedLinear(nn.Module):
 
     def __init__(self, in_features: int, out_features: int, use_bias: bool,
                  grad_mode: str, fused: Optional[bool],
-                 generator: Optional[torch.Generator]):
+                 generator: Optional[torch.Generator], dtype=None,
+                 pre_quantized: bool = False):
         super().__init__()
         if grad_mode not in GRAD_MODES:
             raise ValueError(f"grad_mode must be one of {GRAD_MODES}")
@@ -149,6 +159,8 @@ class _QuantizedLinear(nn.Module):
         self.out_features = out_features
         self.grad_mode = grad_mode
         self.fused = fused
+        self.dtype = dtype
+        self.pre_quantized = pre_quantized
         weight = torch.empty(out_features, in_features)
         kaiming_uniform_torch_(weight, math.sqrt(5), generator=generator)
         self.weight = nn.Parameter(weight)
@@ -181,6 +193,8 @@ class _QuantizedLinear(nn.Module):
         return y if self.bias is None else y + self.bias
 
     def _finish(self, x, w_eff):
+        if self.dtype is not None:
+            x, w_eff = x.to(self.dtype), w_eff.to(self.dtype)
         return self._add_bias(torch.matmul(x, w_eff.T))
 
 
@@ -191,9 +205,10 @@ class TernaryLinear(_QuantizedLinear):
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True, grad_mode: str = "parity",
                  fused: Optional[bool] = None, device=None,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, dtype=None,
+                 pre_quantized: bool = False):
         super().__init__(in_features, out_features, use_bias, grad_mode,
-                         fused, generator)
+                         fused, generator, dtype, pre_quantized)
         if grad_mode == "ttq":
             self._init_ttq(DEFAULT_SPARSITY)
         self.to(resolve_device(device))
@@ -201,10 +216,12 @@ class TernaryLinear(_QuantizedLinear):
     def forward(self, x):
         if self.packed_entry is not None:
             return _packed_forward(self.packed_entry, x, self.out_features)
+        if self.pre_quantized:
+            return self._finish(x, self.weight)
         if self.grad_mode == "ttq":
             w_eff = ternarize_ttq(self.weight, self.wp, self.wn,
                                   sparsity_target=DEFAULT_SPARSITY)
-        elif _use_fused(self.fused):
+        elif _use_fused(self.fused, self.dtype):
             return self._fused_forward(x, DEFAULT_SPARSITY)
         else:
             w_t, a = _quantize(self.weight, self.alpha, DEFAULT_SPARSITY,
@@ -222,9 +239,10 @@ class ResidualPrecisionBoostLinear(_QuantizedLinear):
                  precision_ratio: float = 0.05, use_bias: bool = True,
                  sparsity_target: float = DEFAULT_SPARSITY,
                  grad_mode: str = "parity", fused: Optional[bool] = None,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 dtype=None, pre_quantized: bool = False):
         super().__init__(in_features, out_features, use_bias, grad_mode,
-                         fused, generator)
+                         fused, generator, dtype, pre_quantized)
         self.precision_ratio = precision_ratio
         self.register_buffer("precision_mask",
                              _precision_mask(self.weight.detach(),
@@ -239,7 +257,9 @@ class ResidualPrecisionBoostLinear(_QuantizedLinear):
     def forward(self, x):
         if self.packed_entry is not None:
             return _packed_forward(self.packed_entry, x, self.out_features)
-        if self.grad_mode != "ttq" and _use_fused(self.fused):
+        if self.pre_quantized:  # the hoisted, mask-blended weight
+            return self._finish(x, self.weight)
+        if self.grad_mode != "ttq" and _use_fused(self.fused, self.dtype):
             # The bool buffer goes to the kernels as it lies (read as uint8).
             return self._fused_forward(x, self.sparsity_target,
                                        mask=self.precision_mask)

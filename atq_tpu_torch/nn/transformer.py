@@ -1,0 +1,258 @@
+"""Ternary transformer encoder layer and scanned stack (port of
+atq_tpu/nn/transformer.py).
+
+- :class:`TernaryTransformerLayer`: pre-norm; every layer is "critical"
+  (attention precision 0.2, FFN linear1/linear2 0.2/0.4); one learnable
+  sigmoid gate (init 0.8) scales both residual branches; exact GELU. The
+  MoE FFN (``moe_experts > 0``) is not ported yet and raises.
+- :class:`ScannedTernaryStack`: L layers whose parameters and 'quant'
+  buffers are kept STACKED, with a leading L axis, under
+  ``scan.layer.*`` as the JAX ``nn.scan`` layout keeps them; the hoisted
+  pass (nn/hoist.py) reads the (L, out, in) tensors as they lie. Each step
+  unbinds them once and runs one layer at a time through
+  ``torch.func.functional_call`` on a structure-only copy of the layer.
+  Remat checkpoints each layer (``torch.utils.checkpoint``,
+  non-reentrant):
+
+  - 'save_quantized' (default): the effective weights are computed outside
+    the checkpointed layer (hoisted for all layers, or per layer), so the
+    backward reuses them and recomputes only the activations;
+  - 'save_dots': the same, and the projection products' outputs are saved
+    too (a selective-checkpoint policy on ``aten.mm``/``aten.addmm``);
+  - 'full': the whole layer, quantizer included, is recomputed.
+
+  Under AMP the carry stays in the compute dtype between layers.
+"""
+
+from __future__ import annotations
+
+import copy
+import functools
+from typing import Dict, Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
+
+from atq_tpu_torch.nn.attention import (
+    LayerNorm32,
+    TernaryMultiheadAttention,
+    _proj,
+)
+from atq_tpu_torch.nn.hoist import effective_weights
+from atq_tpu_torch.nn.layers import _QuantizedLinear
+from atq_tpu_torch.utils.platform import resolve_device
+
+REMAT_POLICIES = ("save_quantized", "save_dots", "full")
+
+
+def _dropout(x, p: float, deterministic: bool):
+    return x if deterministic or p == 0.0 else F.dropout(x, p, training=True)
+
+
+class TernaryTransformerLayer(nn.Module):
+    def __init__(self, embed_dim: int, num_heads: int,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 use_rpb: bool = True, sparsity_target: float = 0.3,
+                 layer_idx: int = 0, grad_mode: str = "parity", dtype=None,
+                 attn_impl: str = "einsum", moe_experts: int = 0,
+                 moe_capacity_factor: float = 1.25,
+                 pre_quantized: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if moe_experts > 0:
+            raise NotImplementedError(
+                "the MoE FFN (moe_experts > 0) is not ported yet")
+        self.dropout = dropout
+        self.layer_idx = layer_idx
+        initial_sparsity = min(0.1, sparsity_target)
+        ratio = 0.2  # every layer is critical (layer_idx >= 0)
+        self.gate = nn.Parameter(torch.full((1,), 0.8))
+        self.norm1 = LayerNorm32(embed_dim)
+        self.self_attn = TernaryMultiheadAttention(
+            embed_dim, num_heads, dropout=dropout, use_rpb=use_rpb,
+            sparsity_target=initial_sparsity, critical_attention=True,
+            grad_mode=grad_mode, dtype=dtype, attn_impl=attn_impl,
+            pre_quantized=pre_quantized, device="cpu", generator=generator)
+        self.norm2 = LayerNorm32(embed_dim)
+        self.linear1 = _proj(use_rpb, embed_dim, dim_feedforward, ratio,
+                             initial_sparsity, grad_mode, dtype,
+                             pre_quantized, generator)
+        self.linear2 = _proj(use_rpb, dim_feedforward, embed_dim, ratio * 2,
+                             initial_sparsity, grad_mode, dtype,
+                             pre_quantized, generator)
+        self.to(resolve_device(device))
+
+    def forward(self, src, src_mask=None, src_key_padding_mask=None,
+                deterministic: bool = True):
+        gate = torch.sigmoid(self.gate)
+        src2 = self.norm1(src)
+        src2 = self.self_attn(src2, src2, src2, attn_mask=src_mask,
+                              key_padding_mask=src_key_padding_mask,
+                              deterministic=deterministic)
+        src = src + _dropout(src2, self.dropout, deterministic) * gate
+        src2 = self.norm2(src)
+        h = F.gelu(self.linear1(src2))
+        h = _dropout(h, self.dropout, deterministic)
+        src2 = self.linear2(h)
+        return src + _dropout(src2, self.dropout, deterministic) * gate
+
+
+def _tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
+    """A module's parameters and buffers by name."""
+    return {**dict(module.named_parameters()), **dict(module.named_buffers())}
+
+
+def structure_copies(layer: nn.Module):
+    """``(plain, pre_quantized)``: two structure-only (meta) copies of a
+    layer, for ``functional_call`` with tensors given per call."""
+    plain = copy.deepcopy(layer).to("meta")
+    preq = copy.deepcopy(plain)
+    for m in preq.modules():
+        if isinstance(m, _QuantizedLinear):
+            m.pre_quantized = True
+    return plain, preq
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def run_layer(plain, preq, tensors, h, kwargs, grad_mode: str, dtype,
+              remat: bool, remat_policy: str, quantized: bool):
+    """One layer on ``tensors`` (its parameters and buffers by name).
+    ``quantized``: the effective weights are already in ``tensors`` (the
+    hoisted pass). Otherwise 'save_quantized' and 'save_dots' under remat
+    quantize here, outside the checkpoint, and run the layer pre-quantized;
+    'full' and no remat run the plain layer, quantizer included."""
+    if not quantized and remat and remat_policy != "full":
+        tensors = {**tensors, **effective_weights(tensors, grad_mode, dtype,
+                                                  batched=False)}
+        quantized = True
+    template = preq if quantized else plain
+
+    def body(t, x):
+        return functional_call(template, t, (x,), kwargs)
+
+    if not remat:
+        return body(tensors, h)
+    if remat_policy == "save_dots":
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        return checkpoint(body, tensors, h, use_reentrant=False,
+                          context_fn=functools.partial(
+                              create_selective_checkpoint_contexts,
+                              _dots_policy))
+    return checkpoint(body, tensors, h, use_reentrant=False)
+
+
+class _Holder(nn.Module):
+    """Owner of the stacked tensors (``scan.layer.*``)."""
+
+
+class ScannedTernaryStack(nn.Module):
+    """``num_layers`` TernaryTransformerLayers with stacked parameters
+    (atq_tpu/nn/transformer.py:133-257). Each layer is initialised as the
+    unrolled layer would be, then the layers' tensors are stacked."""
+
+    def __init__(self, num_layers: int, embed_dim: int, num_heads: int,
+                 dim_feedforward: int = 2048, dropout: float = 0.1,
+                 use_rpb: bool = True, sparsity_target: float = 0.3,
+                 grad_mode: str = "parity", dtype=None,
+                 attn_impl: str = "einsum", remat: bool = True,
+                 remat_policy: str = "save_quantized",
+                 hoist_quant: bool = False, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        if remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy must be one of {REMAT_POLICIES}")
+        self.num_layers = num_layers
+        self.grad_mode, self.dtype = grad_mode, dtype
+        self.remat, self.remat_policy = remat, remat_policy
+        self.hoist_quant = hoist_quant
+        layers = [TernaryTransformerLayer(
+            embed_dim, num_heads, dim_feedforward=dim_feedforward,
+            dropout=dropout, use_rpb=use_rpb,
+            sparsity_target=sparsity_target, layer_idx=0,
+            grad_mode=grad_mode, dtype=dtype, attn_impl=attn_impl,
+            device="cpu", generator=generator) for _ in range(num_layers)]
+        # Structure-only copies: not registered, so never in state_dict().
+        self._templates = structure_copies(layers[0])
+        holder = layers[0]
+        stacked = {name: torch.stack([_tensors(lyr)[name] for lyr in layers])
+                   for name in _tensors(holder)}
+        params = dict(holder.named_parameters())
+        for name, t in stacked.items():
+            *path, leaf = name.split(".")
+            mod = holder.get_submodule(".".join(path))
+            if name in params:
+                setattr(mod, leaf, nn.Parameter(t))
+            else:
+                mod._buffers[leaf] = t
+        self.scan = _Holder()
+        self.scan.layer = holder
+        self.to(resolve_device(device))
+
+    def forward(self, h, src_mask=None, src_key_padding_mask=None,
+                deterministic: bool = True):
+        tensors = _tensors(self.scan.layer)
+        if self.hoist_quant:
+            tensors = {**tensors, **effective_weights(
+                tensors, self.grad_mode, self.dtype, batched=True)}
+        per_layer = {name: t.unbind(0) for name, t in tensors.items()}
+        kwargs = {"src_mask": src_mask,
+                  "src_key_padding_mask": src_key_padding_mask,
+                  "deterministic": deterministic}
+        if self.dtype is not None:
+            h = h.to(self.dtype)
+        plain, preq = self._templates
+        for i in range(self.num_layers):
+            y = run_layer(plain, preq,
+                          {name: ts[i] for name, ts in per_layer.items()},
+                          h, kwargs, self.grad_mode, self.dtype, self.remat,
+                          self.remat_policy, quantized=self.hoist_quant)
+            # The layer returns float32; the carry keeps one dtype.
+            h = y.to(h.dtype)
+        return h
+
+
+def stack_layer_params(state: Dict[str, torch.Tensor], num_layers: int,
+                       prefix: str = "layers_",
+                       dest: str = "layers") -> Dict[str, torch.Tensor]:
+    """Unrolled ``{prefix}{i}.*`` entries of a flat state dict -> the
+    scanned layout ``{dest}.scan.layer.*``, each leaf stacked on a new
+    leading axis (atq_tpu/nn/transformer.py:260-283)."""
+    heads = [f"{prefix}{i}." for i in range(num_layers)]
+    missing = [h[:-1] for h in heads if not any(k.startswith(h)
+                                               for k in state)]
+    if missing:
+        raise ValueError(f"unrolled layer entries missing: {missing}")
+    leaves = sorted(k[len(heads[0]):] for k in state
+                    if k.startswith(heads[0]))
+    out = {k: v for k, v in state.items()
+           if not any(k.startswith(h) for h in heads)}
+    for leaf in leaves:
+        out[f"{dest}.scan.layer.{leaf}"] = torch.stack(
+            [state[h + leaf] for h in heads])
+    return out
+
+
+def unstack_layer_params(state: Dict[str, torch.Tensor], num_layers: int,
+                         prefix: str = "layers_",
+                         dest: str = "layers") -> Dict[str, torch.Tensor]:
+    """Inverse of :func:`stack_layer_params`."""
+    head = f"{dest}.scan.layer."
+    if not any(k.startswith(head) for k in state):
+        raise ValueError(f"no scanned entries '{head}*' in the state dict")
+    out = {k: v for k, v in state.items() if not k.startswith(head)}
+    for k, v in state.items():
+        if k.startswith(head):
+            for i in range(num_layers):
+                out[f"{prefix}{i}.{k[len(head):]}"] = v[i]
+    return out

@@ -55,9 +55,9 @@ def _digest(sources) -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.atq_order_stat_scratch_words.argtypes = [i32]
-    lib.atq_order_stat_scratch_words.restype = i32
-    lib.atq_order_stat.argtypes = [i32, vp, i64, vp, vp, vp, i32, vp]
+    lib.atq_order_stat_scratch_words.argtypes = [i32, i32]
+    lib.atq_order_stat_scratch_words.restype = i64
+    lib.atq_order_stat.argtypes = [i32, vp, i64, i32, vp, vp, vp, i32, vp]
     lib.atq_order_stat.restype = i32
     lib.atq_ternary_matmul.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32,
                                        i32, i32, vp]
@@ -72,6 +72,14 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.atq_fused_dwda.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i32,
                                    i32, i32, i32, vp]
     lib.atq_fused_dwda.restype = i32
+    f32 = ctypes.c_float
+    lib.atq_attention_forward.argtypes = [i32, i32, vp, vp, vp, vp, vp, i32,
+                                          i32, i32, i32, f32, vp]
+    lib.atq_attention_forward.restype = i32
+    lib.atq_attention_backward.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp,
+                                           vp, vp, vp, vp, i32, i32, i32, i32,
+                                           f32, vp]
+    lib.atq_attention_backward.restype = i32
     return lib
 
 

@@ -1,10 +1,13 @@
 """Exact order statistic of |w|, with its max and sum, in one call.
 
-PyTorch counterpart of atq_tpu/ops/order_stat.py (the Pallas kernel
-``_kernel`` behind ``order_statistic_reductions``). On a CUDA tensor the
-wrapper launches the radix-select kernel in ``csrc/order_stat.cu``; on a
-CPU tensor it takes the plain PyTorch version (sort, max, sum). There is
-no other route: a CUDA tensor the kernel cannot take raises.
+PyTorch counterpart of atq_tpu/ops/order_stat.py: the Pallas kernels
+``_kernel`` behind ``order_statistic_reductions`` and ``_batched_kernel``
+behind ``order_statistic_reductions_batched`` (one statistic per row of a
+stacked (L, n) tensor). On a CUDA tensor each wrapper launches the
+radix-select kernel in ``csrc/order_stat.cu`` (the batched one with a row
+index); on a CPU tensor it takes the plain PyTorch version (sort, max,
+sum). There is no other route: a CUDA tensor the kernel cannot take raises.
+Each wrapper counts its own launches.
 
 The JAX side's 12 MiB VMEM budget gate does not apply here: the CUDA
 kernel takes any n below 2^31.
@@ -56,22 +59,72 @@ def order_statistic_reductions(abs_flat: torch.Tensor, rank: torch.Tensor):
         return order_statistic_plain(abs_flat, rank)
     if abs_flat.device.type != "cuda":
         raise ValueError(f"unsupported device {abs_flat.device}")
+    out = _launch(abs_flat.reshape(1, -1), rank.reshape(1).contiguous())
+    order_statistic_reductions.launches += 1
+    return out[0, 0], out[0, 1], out[0, 2]
+
+
+def _launch(rows: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
+    """The radix-select kernel over each row of ``rows`` (L, n); returns
+    (L, 3) float32 ``[stat, max, sum]``."""
     lib = load_library()
-    n = abs_flat.numel()
-    grid = max(1, min(_MAX_GRID, -(-n // (_THREADS * 8))))
-    device = abs_flat.device
-    out = torch.empty(3, dtype=torch.float32, device=device)
-    scratch = torch.empty(lib.atq_order_stat_scratch_words(grid),
+    lead, n = rows.shape
+    blocks = -(-n // (_THREADS * 8))
+    grid = max(1, min(-(-_MAX_GRID // lead), blocks))
+    device = rows.device
+    out = torch.empty((lead, 3), dtype=torch.float32, device=device)
+    scratch = torch.empty(lib.atq_order_stat_scratch_words(grid, lead),
                           dtype=torch.int32, device=device)
-    rank = rank.reshape(1).contiguous()
     check(lib.atq_order_stat(
         device.index if device.index is not None else 0,
-        abs_flat.data_ptr(), n, rank.data_ptr(), out.data_ptr(),
+        rows.data_ptr(), n, lead, ranks.data_ptr(), out.data_ptr(),
         scratch.data_ptr(), grid,
         torch.cuda.current_stream(device).cuda_stream),
         "order_stat kernel")
-    order_statistic_reductions.launches += 1
-    return out[0], out[1], out[2]
+    return out
+
+
+def order_statistic_batched_plain(abs2d: torch.Tensor, ranks: torch.Tensor):
+    """Plain PyTorch version of the batched statistic: a per-row sort and
+    gather, with the per-row max and sum."""
+    stat = torch.sort(abs2d, dim=1).values.gather(
+        1, ranks.reshape(-1, 1).long()).reshape(-1)
+    return stat, abs2d.max(dim=1).values, abs2d.sum(dim=1)
+
+
+def order_statistic_reductions_batched(abs2d: torch.Tensor,
+                                       ranks: torch.Tensor):
+    """Per row ``l`` of a stacked (L, n) non-negative float32 tensor,
+    ``(sorted(abs2d[l])[ranks[l]], max, sum)`` as three (L,) float32
+    tensors, in one fixed sequence of launches whatever L is. ``ranks`` is
+    an (L,) int32 tensor on the same device (each clamped to [0, n-1]).
+    Each statistic is bit-identical to the sort; on CUDA each row's sum is
+    reduced in a fixed order."""
+    if abs2d.dtype != torch.float32 or abs2d.ndim != 2:
+        raise ValueError(f"order_statistic_reductions_batched takes a 2-D "
+                         f"float32 tensor, got {abs2d.dtype} "
+                         f"{tuple(abs2d.shape)}")
+    lead, n = abs2d.shape
+    if not abs2d.is_contiguous():
+        raise ValueError("order_statistic_reductions_batched needs a "
+                         "contiguous tensor")
+    if not 0 < n < 2 ** 31 or not 0 < lead < 2 ** 16:
+        raise ValueError(f"shape {(lead, n)} out of range: 1 <= L < 2^16, "
+                         f"1 <= n < 2^31")
+    if ranks.dtype != torch.int32 or tuple(ranks.shape) != (lead,):
+        raise ValueError(f"ranks must be ({lead},) int32, got {ranks.dtype} "
+                         f"{tuple(ranks.shape)}")
+    if ranks.device != abs2d.device:
+        raise ValueError(f"ranks on {ranks.device}, values on "
+                         f"{abs2d.device}")
+    if abs2d.device.type == "cpu":
+        return order_statistic_batched_plain(abs2d, ranks)
+    if abs2d.device.type != "cuda":
+        raise ValueError(f"unsupported device {abs2d.device}")
+    out = _launch(abs2d, ranks.contiguous())
+    order_statistic_reductions_batched.launches += 1
+    return out[:, 0], out[:, 1], out[:, 2]
 
 
 order_statistic_reductions.launches = 0
+order_statistic_reductions_batched.launches = 0

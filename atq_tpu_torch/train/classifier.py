@@ -160,7 +160,10 @@ class AdamChain:
     - decay: ``g + wd·p`` on the parameters the mask selects (the L2 term
       of torch Adam's ``weight_decay``, before the moments);
     - Adam with bias correction, ``p −= lr(i)·m̂/(√v̂ + eps)`` for update
-      ``i`` from 0.
+      ``i`` from 0;
+    - ``decoupled_weight_decay`` (``optax.adamw``'s order): the update
+      becomes ``m̂/(√v̂ + eps) + wd·p`` before the ``×(−lr)``, on every
+      parameter.
 
     A parameter without a gradient counts as a zero gradient, as in optax
     (so its decay and its moments still apply). Runs on the parameters'
@@ -171,7 +174,8 @@ class AdamChain:
 
     def __init__(self, named_params, schedule: Callable[[int], float],
                  clip_norm: Optional[float] = None, weight_decay: float = 0.0,
-                 decay_mask: Optional[dict] = None):
+                 decay_mask: Optional[dict] = None,
+                 decoupled_weight_decay: float = 0.0):
         named = list(named_params)
         self.params = [p for _, p in named]
         self.schedule = schedule
@@ -180,6 +184,7 @@ class AdamChain:
         self.decay_idx = ([i for i, (n, _) in enumerate(named)
                            if decay_mask is None or decay_mask[n]]
                           if weight_decay else [])
+        self.decoupled_weight_decay = decoupled_weight_decay
         self.mu = [torch.zeros_like(p) for p in self.params]
         self.nu = [torch.zeros_like(p) for p in self.params]
         self._zeros = [None] * len(self.params)
@@ -227,6 +232,9 @@ class AdamChain:
         denom = torch._foreach_sqrt(torch._foreach_div(self.nu, bc2))
         torch._foreach_add_(denom, self.eps)
         updates = torch._foreach_div(torch._foreach_div(self.mu, bc1), denom)
+        if self.decoupled_weight_decay:
+            torch._foreach_add_(updates, self.params,
+                                alpha=self.decoupled_weight_decay)
         torch._foreach_add_(self.params, updates, alpha=-lr)
 
 

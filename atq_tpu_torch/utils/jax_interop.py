@@ -12,7 +12,14 @@ module's ``state_dict``:
   ``weight``/``bias``/``running_mean``/``running_var``;
 - ``quant/<layer>/precision_mask`` and ``sparsity_target`` <-> buffers;
 - quantized layers' ``weight`` (out, in), ``alpha``, ``bias``, ``wp``,
-  ``wn`` pass through under the same names.
+  ``wn`` pass through under the same names;
+- LayerNorm ``scale`` <-> ``weight``; flax ``Embed`` ``embedding`` <->
+  ``weight`` of a module whose name starts with ``Embed`` (flax's
+  auto-name ``Embed_0``);
+- the scanned stack's layout ``<stack>/scan/layer/...`` passes through with
+  its leading layer axis (2-D kernels there would transpose their last two
+  axes), and the stacked bool ``precision_mask`` and (L,)
+  ``sparsity_target`` quant leaves map to buffers of the same shapes.
 
 With it a checkpoint written by ``train.py`` serves on the port unchanged,
 a checkpoint written by the port's trainer serves on the JAX package, and
@@ -97,6 +104,8 @@ def from_jax_variables(tree: Dict) -> Dict[str, torch.Tensor]:
             if name not in _BN_PARAMS:
                 raise KeyError(f"unexpected BatchNorm param {'/'.join(path)}")
             name = _BN_PARAMS[name]
+        elif name in ("scale", "embedding"):  # LayerNorm, Embed
+            name = "weight"
         elif name == "kernel":
             name = "weight"
             if a.ndim == 4:
@@ -138,6 +147,7 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
 
     for mod, leaves in by_module.items():
         is_bn = "running_mean" in leaves
+        lead = 1 if "scan" in mod else 0  # the stacked layer axis
         for name, a in leaves.items():
             if is_bn:
                 if name == "num_batches_tracked":
@@ -148,11 +158,18 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
                     put("params", mod, _BN_PARAMS_INV[name], a)
             elif name in _QUANT:
                 put("quant", mod, name, a)
+            elif name == "weight" and mod and mod[-1].startswith("Embed"):
+                put("params", mod, "embedding", a)
             elif name == "weight" and a.ndim == 4:
                 put("params", mod, "kernel",
                     np.ascontiguousarray(a.transpose(2, 3, 1, 0)))
-            elif name == "weight" and a.ndim == 2 and "alpha" not in leaves:
-                put("params", mod, "kernel", np.ascontiguousarray(a.T))
+            elif name == "weight" and "alpha" not in leaves \
+                    and a.ndim - lead == 1:  # LayerNorm
+                put("params", mod, "scale", a)
+            elif name == "weight" and a.ndim - lead == 2 \
+                    and "alpha" not in leaves:
+                put("params", mod, "kernel",
+                    np.ascontiguousarray(np.swapaxes(a, -1, -2)))
             else:
                 put("params", mod, name, a)
     return {k: v for k, v in out.items() if v}

@@ -46,6 +46,38 @@ Phases, one JSON line each; any failure exits non-zero:
                 no-mask variants run; before it, fused step 0 against dense
                 step 0 on the card, same tolerances.
 
+  encoder_step0 step 0 of the port's QAT step (python -m
+                atq_tpu_torch.train.scale) at bert-base widths (768/3072/12
+                heads) with 2 layers, batch 8, sequence 256, each ternary
+                layer's alpha set to its optimal alpha: --attn fused
+                --hoist in float32 on the card (the batched order statistic
+                and the attention kernels) against the CPU's plain
+                versions, loss within 1e-5 relative and gradients within
+                rtol 1e-4 and 1e-5 of the largest |gradient| (train_dense's
+                rule);
+                then, on the card under AMP, fused+hoisted against
+                einsum+unhoisted: loss within 1e-4, gradients within rtol
+                1e-3 and 1e-3 of the largest (the attention is float32 on
+                both paths and the bf16 products take the same weights, but
+                the two softmaxes sum in another order and a bf16 rounding
+                of an activation may flip).
+  train_encoder that module's main() with --configs bert-base --attn fused
+                --hoist (12 layers, batch 64, sequence 256, AMP, remat
+                save_quantized, AdamW 1e-4): 2 warm-up and 8 timed steps on
+                one batch; ms per step, tokens/s, MFU against the card's
+                bf16 peak, peak memory, the losses (finite, the last below
+                the first), launches per step (batched order statistic 6,
+                attention forward 24 with remat's recompute, backward 12),
+                then the device busy share and top kernels of two traced
+                steps.
+
+The batched order statistic is held bit-exact (sum within 1e-6 relative)
+against a per-row sort at (12, 589,824), (12, 2,359,296) and (3, 16,385)
+with per-row ranks 0, n-1, 0.3n and 1; the attention kernels against their
+plain versions at (64, 12, 256, 64) f32, (8, 8, 50, 16) f32 with a padding
+bias and a fully padded row, (4, 4, 512, 64) f32 and (4, 4, 256, 64) bf16:
+o, dq, dk, dv within rtol/atol 1e-4 (f32) or 2e-2 (bf16).
+
 The fused kernels are held against their plain versions in phase kernels
 at the recipe shapes (256x128x3136, 256x10x128), wider (256x256x3136),
 ragged (7x24x100) and a batch past the JAX package's resident limit
@@ -54,7 +86,8 @@ within rtol/atol 1e-4 (f32 sums in another order than cuBLAS over K =
 3136), dalpha within 1e-4 relative.
 
 Then one line {"kernels": [...]} (launch counts from the main-path phase
-that runs each kernel: serve_dense, serve_packed, train_fused),
+that runs each kernel: serve_dense, serve_packed, train_fused,
+train_encoder),
 the card's name and power limit as nvidia-smi prints them, and the result
 line {"ok": true, "device": {...}}. Without a GPU, or without the rest of
 the repo beside it, the script exits non-zero and prints no result.
@@ -86,6 +119,23 @@ FUSED_SHAPES = ((256, 128, 3136), (256, 10, 128), (256, 256, 3136),
                 (7, 24, 100), (2304, 128, 3136))
 FUSED_TOL = 1e-4  # rtol/atol on y, dx, dw; relative on dalpha
 STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
+# Batched order statistic: bert-base's two stacked weight shapes (q/k/v/out,
+# linear1/linear2) and a ragged one.
+BATCHED_OS_SHAPES = ((12, 589824), (12, 2359296), (3, 16385))
+BERT_SPARSITY = 0.1  # the layers' initial sparsity, min(0.1, 0.3)
+# Attention: bert-base's shape first (the main path's, f32 under AMP).
+ATTN_CASES = (((64, 12, 256, 64), torch.float32, False),
+              ((8, 8, 50, 16), torch.float32, True),
+              ((4, 4, 512, 64), torch.float32, False),
+              ((4, 4, 256, 64), torch.bfloat16, False))
+ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+# Encoder step 0: bert-base widths, 2 layers, batch 8, sequence 256.
+ENCODER_STEP0 = (768, 3072, 12, 2, 256, 8, True, True)
+AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_ATOL = 1e-4, 1e-3, 1e-3
+ENCODER_ARGV = ["--configs", "bert-base", "--attn", "fused", "--hoist",
+                "--steps", "8"]
+ENCODER_PER_STEP = {"batched_order_stat": 6, "fused_attention_fwd": 24,
+                    "fused_attention_bwd": 12}
 RECIPE = ["--use-rpb", "--distill", "--use-l1", "--clip-grad",
           "--batch-size", "256", "--seed", "0"]
 
@@ -289,8 +339,8 @@ def _fused_inputs(gen, m, n, k, with_mask):
                                   thr)
 
 
-def _err(name, got, want):
-    torch.testing.assert_close(got, want, rtol=FUSED_TOL, atol=FUSED_TOL,
+def _err(name, got, want, tol=FUSED_TOL):
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol,
                                msg=lambda m: f"{name}: {m}")
     return (got - want).abs().max().item() if got.numel() else 0.0
 
@@ -358,11 +408,149 @@ def time_fused(gen, m, n, k):
     return out
 
 
+def check_batched_order_stat(gen):
+    from atq_tpu_torch.ops.order_stat import (
+        order_statistic_batched_plain,
+        order_statistic_reductions_batched,
+    )
+
+    max_err, sum_rel_err, cases = 0.0, 0.0, 0
+    for lead, n in BATCHED_OS_SHAPES:
+        x = torch.randn(lead, n, device="cuda", generator=gen).abs()
+        x[0] = torch.randint(0, 8, (n,), device="cuda",
+                             generator=gen).float() / 4  # duplicates
+        picks = [0, n - 1, int(np.floor(np.float32(0.3) * np.float32(n))),
+                 1]
+        ranks = torch.tensor([picks[i % 4] for i in range(lead)],
+                             dtype=torch.int32, device="cuda")
+        got = torch.stack(order_statistic_reductions_batched(x, ranks)).cpu()
+        want = torch.stack(order_statistic_batched_plain(x, ranks)).cpu()
+        if not torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)):
+            raise AssertionError(f"batched order stat ({lead}, {n}): "
+                                 f"{got[0]} != {want[0]}")
+        if not torch.equal(got[1], want[1]):
+            raise AssertionError(f"batched max ({lead}, {n})")
+        rel = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
+        if rel > 1e-6:
+            raise AssertionError(f"batched sum ({lead}, {n}): rel {rel}")
+        max_err = max(max_err, (got[:2] - want[:2]).abs().max().item())
+        sum_rel_err = max(sum_rel_err, rel)
+        cases += lead
+    return max_err, sum_rel_err, cases
+
+
+def _attn_inputs(gen, shape, dtype, with_bias):
+    from atq_tpu_torch.ops.fused_attention import padding_bias
+
+    q, k, v, do = (torch.randn(*shape, device="cuda", generator=gen)
+                   .to(dtype) for _ in range(4))
+    bias = None
+    if with_bias:
+        lengths = torch.randint(1, shape[2] + 1, (shape[0],), device="cuda",
+                                generator=gen)
+        lengths[0] = 0  # one fully padded batch row
+        bias = padding_bias(lengths, shape[2])
+    return q, k, v, do, bias
+
+
+def check_attention(gen):
+    """Forward and backward kernels against their plain versions; o and
+    dq, dk, dv within rtol/atol 1e-4 (float32) or 2e-2 (bfloat16)."""
+    from atq_tpu_torch.ops import fused_attention as fa
+
+    errs = {"fused_attention_fwd": 0.0, "fused_attention_bwd": 0.0}
+    by_case = []
+    for shape, dtype, with_bias in ATTN_CASES:
+        q, k, v, do, bias = _attn_inputs(gen, shape, dtype, with_bias)
+        scale = 1.0 / float(np.sqrt(shape[3]))
+        tol = ATTN_TOL[dtype]
+        o = fa.fused_attention_forward(q, k, v, scale, bias)
+        if not torch.isfinite(o).all():
+            raise AssertionError(f"attention {shape}: non-finite output")
+        case = {"shape": shape, "dtype": str(dtype), "bias": with_bias}
+        case["fwd"] = _err(f"attention fwd {shape} {dtype}", o.float(),
+                           fa.forward_plain(q, k, v, scale, bias).float(),
+                           tol)
+        grads = fa.fused_attention_backward(q, k, v, scale, bias, do)
+        want = fa.backward_plain(q, k, v, scale, bias, do)
+        case["bwd"] = max(_err(f"attention d{n} {shape} {dtype}", a.float(),
+                               b.float(), tol)
+                          for n, a, b in zip("qkv", grads, want))
+        errs["fused_attention_fwd"] = max(errs["fused_attention_fwd"],
+                                          case["fwd"])
+        errs["fused_attention_bwd"] = max(errs["fused_attention_bwd"],
+                                          case["bwd"])
+        by_case.append(case)
+    torch.cuda.synchronize()
+    return errs, by_case
+
+
+def time_batched_order_stat(gen, lead, n):
+    from atq_tpu_torch.ops.order_stat import (
+        order_statistic_batched_plain,
+        order_statistic_reductions_batched,
+    )
+
+    x = torch.randn(lead, n, device="cuda", generator=gen).abs()
+    r = int(np.floor(np.float32(BERT_SPARSITY) * np.float32(n)))
+    ranks = torch.full((lead,), r, dtype=torch.int32, device="cuda")
+    # read x and the ranks, write (stat, max, sum) per row; max and sum
+    b_ms, b_by = bound(4 * lead * n + 4 * lead + 12 * lead, 2 * lead * n)
+    return {"lead": lead, "n": n, "rank": r, "bound_ms": b_ms,
+            "bound_by": b_by,
+            **timed({"kernel": lambda: order_statistic_reductions_batched(
+                x, ranks),
+                "plain": lambda: order_statistic_batched_plain(x, ranks),
+                "library": lambda: torch.kthvalue(x, r + 1, dim=1)})}
+
+
+def time_attention(gen):
+    """bert-base's attention call, (64, 12, 256, 64) float32 without bias:
+    kernels, plain versions, and scaled_dot_product_attention (forward, and
+    forward+backward for the backward row) as the yardstick."""
+    import torch.nn.functional as F
+
+    from atq_tpu_torch.ops import fused_attention as fa
+
+    shape = ATTN_CASES[0][0]
+    b, h, s, d = shape
+    q, k, v, do, _ = _attn_inputs(gen, shape, torch.float32, False)
+    scale = 1.0 / float(np.sqrt(d))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def sdpa_fwd_bwd():
+        o = F.scaled_dot_product_attention(*leaves, scale=scale)
+        return torch.autograd.grad(o, leaves, do)
+
+    elems = b * h * s * d
+    fwd_ms, fwd_by = bound(4 * elems * 4, 4 * s * s * d * b * h)
+    bwd_ms, bwd_by = bound(7 * elems * 4, 10 * s * s * d * b * h)
+    return {
+        "fused_attention_fwd": {
+            "shape": shape, "bound_ms": fwd_ms, "bound_by": fwd_by,
+            **timed({"kernel": lambda: fa.fused_attention_forward(
+                q, k, v, scale),
+                "plain": lambda: fa.forward_plain(q, k, v, scale),
+                "library": lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=scale)})},
+        "fused_attention_bwd": {
+            "shape": shape, "bound_ms": bwd_ms, "bound_by": bwd_by,
+            "library_is": "sdpa forward+backward",
+            **timed({"kernel": lambda: fa.fused_attention_backward(
+                q, k, v, scale, None, do),
+                "plain": lambda: fa.backward_plain(q, k, v, scale, None, do),
+                "library": sdpa_fwd_bwd})},
+    }
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     os_err, os_sum_rel_err, os_cases = check_order_stat(gen)
     mm_err, mm_cases = check_matmul(gen)
     fused_errs, da_rel, fused_cases = check_fused(gen)
+    bos_err, bos_sum_rel, bos_rows = check_batched_order_stat(gen)
+    attn_errs, attn_cases = check_attention(gen)
     timings = {
         "order_stat": [time_order_stat(gen, n) for n in OS_SIZES[:2]],
         "ternary_matmul": [time_matmul(gen, MAX_BATCH, n, k)
@@ -372,15 +560,24 @@ def phase_kernels():
     for shape in FUSED_SHAPES[:2]:  # the recipe's two head layers
         for name, t in time_fused(gen, *shape).items():
             timings.setdefault(name, []).append(t)
+    timings["batched_order_stat"] = [time_batched_order_stat(gen, *shape)
+                                     for shape in BATCHED_OS_SHAPES[:2]]
+    for name, t in time_attention(gen).items():
+        timings[name] = [t]
     emit({"phase": "kernels", "order_stat_cases": os_cases,
           "order_stat_max_abs_err": os_err,  # statistic and max
           "order_stat_sum_max_rel_err": os_sum_rel_err,
           "ternary_matmul_cases": mm_cases,
           "ternary_matmul_max_abs_err": mm_err,
           "fused_cases": fused_cases, "fused_max_abs_err": fused_errs,
-          "fused_dalpha_max_rel_err": da_rel, "timings": timings})
+          "fused_dalpha_max_rel_err": da_rel,
+          "batched_order_stat_rows": bos_rows,
+          "batched_order_stat_max_abs_err": bos_err,  # statistic and max
+          "batched_order_stat_sum_max_rel_err": bos_sum_rel,
+          "attention_cases": attn_cases, "timings": timings})
     return {"order_stat": os_err, "ternary_matmul": mm_err,
-            **fused_errs}, timings
+            "batched_order_stat": bos_err, **fused_errs,
+            **attn_errs}, timings
 
 
 def make_checkpoint(tmpdir):
@@ -725,6 +922,152 @@ def phase_train(name, fused, tmp, batch, step0_ref):
     return launches, step0
 
 
+def _calibrate_alphas(model):
+    """Set each ternary layer's alpha to its optimal alpha, as a trained
+    checkpoint holds it, computed on the CPU from the (identical) weights so
+    both devices get the same values. At the harness's alpha = 1 init the
+    projections reach |q| ~ 100 and the softmax is all but an argmax, where
+    rounding differences of 1e-7 in the scores move the gradients by
+    percents of the largest, card against CPU, on the einsum path as on
+    the fused one."""
+    from atq_tpu_torch.core.quantize import (
+        adaptive_ternary_quantization_batched,
+    )
+
+    stack = model.layers.scan.layer
+    with torch.no_grad():
+        for mod in stack.modules():
+            if hasattr(mod, "alpha") and hasattr(mod, "precision_mask"):
+                _, a = adaptive_ternary_quantization_batched(
+                    mod.weight.cpu(), sparsity_target=mod.sparsity_target.cpu())
+                mod.alpha.copy_(a.reshape(mod.alpha.shape))
+
+
+def _encoder_step0(device, use_amp, attn, hoist):
+    """Loss and every gradient of step 0 of the port's QAT step at
+    ENCODER_STEP0 on ``device``, from the seed-0 init with calibrated
+    alphas."""
+    from atq_tpu_torch.train.scale import build_step
+
+    step, _, state, _ = build_step(*ENCODER_STEP0, use_amp=use_amp,
+                                   attn_impl=attn, hoist_quant=hoist,
+                                   device=device)
+    _calibrate_alphas(state[0])
+    state, loss = step(state)
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             .detach().cpu() for n, p in state[0].named_parameters()}
+    return float(loss), grads
+
+
+def _compare_encoder(what, got, want, loss_rtol, rtol, atol):
+    """Raises past the tolerances (atol relative to the largest
+    |gradient|); returns the largest differences."""
+    loss_rel = abs(got[0] - want[0]) / abs(want[0])
+    if loss_rel > loss_rtol:
+        raise AssertionError(f"{what}: loss {got[0]} vs {want[0]}")
+    top = max(g.abs().max().item() for g in want[1].values())
+    worst, worst_name = 0.0, None
+    for name, g in want[1].items():
+        torch.testing.assert_close(got[1][name], g, rtol=rtol, atol=atol * top,
+                                   msg=lambda m: f"{what} grad {name}: {m}")
+        err = (got[1][name] - g).abs().max().item() / top
+        if err > worst:
+            worst, worst_name = err, name
+    return {"loss": [got[0], want[0]], "loss_rel_diff": loss_rel,
+            "grad_max_abs_diff_over_max": worst, "worst_leaf": worst_name,
+            "grad_max": top, "grad_leaves": len(want[1])}
+
+
+def phase_encoder_step0():
+    """Step 0 at bert-base widths (2 layers, batch 8, sequence 256):
+    fused+hoisted on the card against the CPU's plain versions in float32,
+    then fused+hoisted against einsum+unhoisted on the card under AMP."""
+    from atq_tpu_torch.ops import kernel_launches
+
+    t0 = time.perf_counter()
+    cpu = _encoder_step0("cpu", False, "fused", True)
+    _reset_launches()
+    card = _encoder_step0("cuda", False, "fused", True)
+    launches = kernel_launches()
+    for k in ENCODER_PER_STEP:
+        if not launches[k]:
+            raise AssertionError(f"encoder step 0: {k} never launched")
+    f32 = _compare_encoder("encoder step 0 card vs cpu", card, cpu,
+                           STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL)
+    amp_fused = _encoder_step0("cuda", True, "fused", True)
+    amp_einsum = _encoder_step0("cuda", True, "einsum", False)
+    amp = _compare_encoder("encoder step 0 fused+hoist vs einsum (AMP)",
+                           amp_fused, amp_einsum, AMP_LOSS_RTOL,
+                           AMP_GRAD_RTOL, AMP_GRAD_ATOL)
+    emit({"phase": "encoder_step0", "config": ENCODER_STEP0,
+          "card_vs_cpu_f32": f32, "fused_hoist_vs_einsum_amp": amp,
+          "launches_card_f32": launches,
+          "seconds": time.perf_counter() - t0})
+
+
+def _trace_encoder():
+    """Device busy share and top kernels over two traced steps of the
+    bert-base run, after two untraced ones."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from atq_tpu_torch.train.scale import CONFIGS, build_step
+
+    t0 = time.perf_counter()
+    step, _, state, _ = build_step(*CONFIGS["bert-base"], use_amp=True,
+                                   attn_impl="fused", hoist_quant=True,
+                                   device="cuda")
+    build_s = time.perf_counter() - t0
+    for _ in range(2):
+        state, _ = step(state)
+    torch.cuda.synchronize()
+    steps = 2
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t1 = time.perf_counter()
+        for _ in range(steps):
+            state, _ = step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t1
+    events = prof.key_averages()
+    busy_s = _device_us(events) / 1e6
+    return {"build_s": build_s, "traced_steps": steps, "wall_s": wall,
+            "busy_share": busy_s / wall, **_breakdown(events, steps, top=12)}
+
+
+def phase_train_encoder(tmp):
+    """``python -m atq_tpu_torch.train.scale --configs bert-base --attn
+    fused --hoist``'s main() at full width and depth, counts reset before
+    it and read after it; then a traced pair of steps."""
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.train.scale import main as scale_main
+
+    out = os.path.join(tmp, "scale.json")
+    _reset_launches()
+    t0 = time.perf_counter()
+    rows = scale_main(ENCODER_ARGV + ["--out", out])
+    wall = time.perf_counter() - t0
+    launches = kernel_launches()
+    row = rows[0]
+    if "error" in row:
+        raise AssertionError(f"train_encoder: {row['error']}")
+    losses = row["losses"]
+    if not np.isfinite(losses).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"train_encoder: losses {losses}")
+    per_step = row["launches_per_step"]
+    for k, want in ENCODER_PER_STEP.items():
+        if per_step[k] != want:
+            raise AssertionError(f"train_encoder: {k} {per_step[k]} per "
+                                 f"step, expected {want}")
+    trace = _trace_encoder()
+    emit({"phase": "train_encoder", "argv": ENCODER_ARGV, "wall_s": wall,
+          **{k: row[k] for k in ("ms_per_step", "tokens_per_sec", "mfu_pct",
+                                 "peak_memory_gib", "params_millions",
+                                 "flops_per_step", "losses",
+                                 "launches_per_step", "device")},
+          "launches": launches, "trace": trace})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
@@ -758,6 +1101,8 @@ def main():
                                      cpu_step0)
         fused_launches, _ = phase_train("train_fused", True, tmp, batch,
                                         dense_step0)
+        phase_encoder_step0()
+        encoder_launches = phase_train_encoder(tmp)
 
     sources = {
         "order_stat": ("atq_tpu_torch/csrc/order_stat.cu",
@@ -779,6 +1124,18 @@ def main():
                        "atq_tpu/ops/fused_linear.py:243 (_dwda_kernel), "
                        ":270 (_dwda_kernel_nomask)",
                        fused_launches["fused_dwda"]),
+        "batched_order_stat": ("atq_tpu_torch/csrc/order_stat.cu",
+                               "atq_tpu/ops/order_stat.py:138 "
+                               "(_batched_kernel)",
+                               encoder_launches["batched_order_stat"]),
+        "fused_attention_fwd": ("atq_tpu_torch/csrc/fused_attention.cu",
+                                "atq_tpu/ops/fused_attention.py:49 "
+                                "(_fwd_kernel)",
+                                encoder_launches["fused_attention_fwd"]),
+        "fused_attention_bwd": ("atq_tpu_torch/csrc/fused_attention.cu",
+                                "atq_tpu/ops/fused_attention.py:72 "
+                                "(_bwd_kernel)",
+                                encoder_launches["fused_attention_bwd"]),
     }
     kernels = []
     for name, (src, replaces, launches) in sources.items():

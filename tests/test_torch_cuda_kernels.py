@@ -198,3 +198,121 @@ def test_fused_autograd_op_on_cuda_equals_cpu(cuda):
                                                     a.grad)]
     for got, want in zip(out[str(cuda)], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# Batched order statistic (csrc/order_stat.cu with a row index): every row's
+# statistic and max bit-exact against the per-row sort, each row's sum within
+# rtol 1e-6.
+@pytest.mark.parametrize("lead,n", [(3, 16385), (12, 589824), (2, 2359296)])
+def test_batched_order_stat_bit_exact_vs_plain(cuda, lead, n):
+    from atq_tpu_torch.ops.order_stat import (
+        order_statistic_batched_plain,
+        order_statistic_reductions_batched,
+    )
+
+    rng = np.random.RandomState(lead)
+    x = torch.from_numpy(np.abs(rng.randn(lead, n)).astype(np.float32))
+    x[0] = torch.from_numpy((rng.randint(0, 6, n) / 4.0).astype(np.float32))
+    x = x.to(cuda)
+    picks = [0, n - 1, int(np.floor(np.float32(0.3) * np.float32(n))), 1]
+    ranks = torch.tensor([picks[i % 4] for i in range(lead)],
+                         dtype=torch.int32, device=cuda)
+    before = order_statistic_reductions_batched.launches
+    got = torch.stack(order_statistic_reductions_batched(x, ranks)).cpu()
+    assert order_statistic_reductions_batched.launches == before + 1
+    want = torch.stack(order_statistic_batched_plain(x, ranks)).cpu()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+
+
+def test_batched_order_stat_rejects_bad_cuda_input(cuda):
+    from atq_tpu_torch.ops.order_stat import (
+        order_statistic_reductions_batched,
+    )
+
+    x = torch.rand(4, 20000, device=cuda)
+    ranks = torch.zeros(4, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        order_statistic_reductions_batched(x.double(), ranks)
+    with pytest.raises(ValueError):
+        order_statistic_reductions_batched(x[:, ::2], ranks)
+    with pytest.raises(ValueError):
+        order_statistic_reductions_batched(x, ranks[:3])
+
+
+# Fused attention (csrc/fused_attention.cu) against its plain versions: o,
+# dq, dk, dv within rtol/atol 1e-4 in float32 (f32 sums in another order than
+# cuBLAS over D and S), 2e-2 in bfloat16 (one bf16 rounding of p or dS may
+# land on the other side), as tests/test_fused_attention.py holds the JAX
+# kernel to the einsum path.
+ATTN_CASES = [((8, 8, 50, 16), torch.float32, True),
+              ((4, 4, 256, 64), torch.float32, False),
+              ((2, 2, 512, 128), torch.float32, True),
+              ((4, 4, 256, 64), torch.bfloat16, False)]
+
+
+def _attn_inputs(cuda, shape, dtype, with_bias, seed=0):
+    from atq_tpu_torch.ops.fused_attention import padding_bias
+
+    rng = np.random.RandomState(seed)
+    q, k, v, do = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                   .to(cuda, dtype) for _ in range(4))
+    bias = None
+    if with_bias:
+        lengths = rng.randint(1, shape[2] + 1, shape[0])
+        lengths[0] = 0  # one fully padded batch row
+        bias = padding_bias(torch.from_numpy(lengths).to(cuda), shape[2])
+    return q, k, v, do, bias
+
+
+@pytest.mark.parametrize("shape,dtype,with_bias", ATTN_CASES)
+def test_fused_attention_kernels_match_plain(cuda, shape, dtype, with_bias):
+    from atq_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, do, bias = _attn_inputs(cuda, shape, dtype, with_bias)
+    scale = 1.0 / np.sqrt(shape[3])
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    before = (fa.fused_attention_forward.launches,
+              fa.fused_attention_backward.launches)
+    o = fa.fused_attention_forward(q, k, v, scale, bias)
+    grads = fa.fused_attention_backward(q, k, v, scale, bias, do)
+    assert (fa.fused_attention_forward.launches,
+            fa.fused_attention_backward.launches) == (before[0] + 1,
+                                                      before[1] + 1)
+    assert torch.isfinite(o).all()
+    torch.testing.assert_close(o.float(), fa.forward_plain(
+        q, k, v, scale, bias).float(), rtol=tol, atol=tol)
+    for name, got, want in zip("qkv", grads, fa.backward_plain(
+            q, k, v, scale, bias, do)):
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol, msg=lambda m: f"d{name}: {m}")
+
+
+def test_fused_attention_rejects_bad_cuda_input(cuda):
+    from atq_tpu_torch.ops import fused_attention as fa
+
+    q = torch.randn(2, 2, 16, 8, device=cuda)
+    with pytest.raises(ValueError):  # no silent fallback for CUDA tensors
+        fa.fused_attention_forward(q.double(), q.double(), q.double(), 1.0)
+    with pytest.raises(ValueError):  # past the kernel's sequence limit
+        big = torch.randn(1, 1, 513, 8, device=cuda)
+        fa.fused_attention_forward(big, big, big, 1.0)
+    with pytest.raises(ValueError):
+        fa.fused_attention_forward(q, q.cpu(), q, 1.0)
+
+
+def test_fused_attention_op_on_cuda_equals_cpu(cuda):
+    from atq_tpu_torch.ops.fused_attention import fused_attention
+
+    q, k, v, do, bias = _attn_inputs(cuda, (2, 3, 40, 16), torch.float32,
+                                     True, seed=3)
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.detach().to(dev).clone().requires_grad_()
+                  for t in (q, k, v)]
+        y = fused_attention(*leaves, 0.25, bias.to(dev))
+        (y * do.to(dev)).sum().backward()
+        out[str(dev)] = [y.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)

@@ -172,3 +172,38 @@ def test_rpb_layer_fused_flag_follows_env(monkeypatch, fused):
     assert len(calls) == 1  # exactly one of the two layers went fused
     for a, b in zip(*outs):
         np.testing.assert_allclose(a.numpy(), b.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("layer_cls", ["rpb", "ternary"])
+def test_amp_layer_keeps_the_dense_path_under_atq_fused(monkeypatch,
+                                                        layer_cls):
+    """A layer with a compute dtype (AMP) takes the dense path even with
+    ATQ_FUSED=1: the fused kernels are float32 (atq_tpu/nn/layers.py:96-114,
+    ``and dtype is None``). Its output is the bf16 matmul plus the float32
+    bias, so float32, and equals the same layer with ATQ_FUSED=0."""
+    from atq_tpu.nn.layers import _use_fused as jax_use_fused
+    from atq_tpu_torch.nn.layers import TernaryLinear, _use_fused
+
+    monkeypatch.setenv("ATQ_FUSED", "1")
+    assert _use_fused(None, torch.bfloat16) is False
+    assert jax_use_fused(None, jnp.bfloat16) is False
+    assert _use_fused(None, None) is True and jax_use_fused(None, None)
+    calls = []
+    real = fl.fused_quantized_linear
+    monkeypatch.setattr(fl, "fused_quantized_linear",
+                        lambda *a, **k: calls.append(1) or real(*a, **k))
+    x = torch.from_numpy(np.random.RandomState(8).randn(6, 20).astype(
+        np.float32))
+
+    def build():
+        gen = torch.Generator().manual_seed(0)
+        if layer_cls == "rpb":
+            return ResidualPrecisionBoostLinear(20, 10, dtype=torch.bfloat16,
+                                                device="cpu", generator=gen)
+        return TernaryLinear(20, 10, dtype=torch.bfloat16, device="cpu",
+                             generator=gen)
+
+    y = build()(x)
+    assert not calls and y.dtype == torch.float32
+    monkeypatch.setenv("ATQ_FUSED", "0")
+    assert torch.equal(y, build()(x))

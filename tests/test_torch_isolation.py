@@ -72,9 +72,13 @@ def test_expected_modules_exist():
     names = {str(p.relative_to(PKG)) for p in PKG.rglob("*.py")}
     for name in ("train/classifier.py", "train/__main__.py",
                  "train/schedules_lr.py", "ops/fused_linear.py",
-                 "data/augment.py", "data/prefetch.py", "utils/metrics.py"):
+                 "data/augment.py", "data/prefetch.py", "utils/metrics.py",
+                 "ops/fused_attention.py", "nn/attention.py",
+                 "nn/transformer.py", "nn/hoist.py", "utils/flops.py",
+                 "utils/timing.py", "train/scale.py"):
         assert name in names, name
-    assert (PKG / "csrc" / "fused_linear.cu").exists()
+    for name in ("fused_linear.cu", "fused_attention.cu", "order_stat.cu"):
+        assert (PKG / "csrc" / name).exists(), name
 
 
 @pytest.mark.parametrize("which", range(5))
@@ -107,3 +111,25 @@ def test_training_cli_defaults_to_cuda(tmp_path):
         main(["--checkpoint-dir", str(tmp_path), "--subset-fraction",
               "0.01", "--data-dir", str(tmp_path / "data")])
     assert not (tmp_path / "data").exists()  # raised before any data
+
+
+def test_scale_cli_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from atq_tpu_torch.train.scale import build_parser, main
+
+    assert build_parser().parse_args([]).device == "cuda"
+    out = tmp_path / "rows.json"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        main(["--configs", "bert-base", "--attn", "fused", "--hoist",
+              "--out", str(out)])
+    assert not out.exists()  # raised before any row
+
+
+def test_encoder_modules_without_device_raise_on_a_cpu_only_host():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from atq_tpu_torch.nn.transformer import ScannedTernaryStack
+
+    with pytest.raises(RuntimeError, match="no GPU"):
+        ScannedTernaryStack(1, 8, 2, 16)

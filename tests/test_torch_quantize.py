@@ -211,3 +211,108 @@ def test_threshold_carries_no_gradient():
     w = torch.from_numpy(_weights((128, 128), seed=5)).requires_grad_()
     for s in (0.0, 0.3, 1.0):  # fallback, order statistic, all-zero
         assert not tq.ternary_threshold(w, sparsity_target=s).requires_grad
+
+
+# --- batched quantizers (hoisted quantization) -----------------------------
+# Stacked (L, out, in) weights through both packages. With a scalar and an
+# (L,) sparsity: thresholds and ternary patterns bit-exact against JAX (the
+# JAX batched threshold runs its Pallas kernel in interpret mode for the
+# layers of 16,384 or more elements, as tests/test_pallas_interpret.py
+# does); alpha and the idx == 0 fallback threshold (means, summed in another
+# order) within rtol 1e-6; gradients as the per-layer tests hold them.
+
+_SPARSITIES = {"scalar": 0.3, "vector": [0.0, 0.3, 0.7, 1.0]}
+
+
+def _stack(shape, seed):
+    return (np.random.RandomState(seed).randn(4, *shape) * 0.05).astype(
+        np.float32)
+
+
+def _sp(kind, framework):
+    s = _SPARSITIES[kind]
+    if isinstance(s, float):
+        return s
+    return (jnp.asarray(s, jnp.float32) if framework == "jax"
+            else torch.tensor(s, dtype=torch.float32))
+
+
+@pytest.mark.parametrize("shape", [(24, 40), (128, 130)])
+@pytest.mark.parametrize("sparsity", ["scalar", "vector"])
+def test_batched_threshold_pattern_alpha_match_jax(monkeypatch, shape,
+                                                   sparsity):
+    monkeypatch.setenv("ATQ_PALLAS_INTERPRET", "1")
+    w = _stack(shape, seed=shape[1])
+    thr_j = np.asarray(jq.ternary_threshold_batched(
+        jnp.asarray(w), sparsity_target=_sp(sparsity, "jax")))
+    thr_t = tq.ternary_threshold_batched(
+        torch.from_numpy(w), sparsity_target=_sp(sparsity, "torch")).numpy()
+    wt_j, a_j = jq.adaptive_ternary_quantization_batched(
+        jnp.asarray(w), sparsity_target=_sp(sparsity, "jax"))
+    wt_t, a_t = tq.adaptive_ternary_quantization_batched(
+        torch.from_numpy(w), sparsity_target=_sp(sparsity, "torch"))
+    s = np.broadcast_to(np.asarray(_SPARSITIES[sparsity], np.float32), (4,))
+    for i in range(4):
+        if s[i] == 0.0:
+            np.testing.assert_allclose(thr_t[i], thr_j[i], rtol=1e-6)
+        else:
+            assert thr_t[i].tobytes() == thr_j[i].tobytes(), i
+        # each layer equals the per-layer quantizer
+        assert float(thr_t[i]) == pytest.approx(float(tq.ternary_threshold(
+            torch.from_numpy(w[i]), sparsity_target=float(s[i]))), rel=1e-6)
+    np.testing.assert_array_equal(wt_t.numpy(), np.asarray(wt_j))
+    np.testing.assert_allclose(a_t.numpy(), np.asarray(a_j), rtol=1e-6)
+
+
+@pytest.mark.parametrize("mode", ["parity", "ste", "ttq"])
+@pytest.mark.parametrize("sparsity", ["scalar", "vector"])
+def test_batched_gradients_match_jax(mode, sparsity):
+    w = _stack((24, 40), seed=51)
+    g = np.random.RandomState(52).randn(*w.shape).astype(np.float32)
+    alpha = np.float32([[0.05], [0.04], [0.06], [0.03]])
+    wp = np.float32([[0.061], [0.05], [0.07], [0.04]])
+    wn = np.float32([[0.043], [0.05], [0.03], [0.06]])
+    b = (4, 1, 1)
+
+    def jloss(w, a, wp, wn):
+        sp = _sp(sparsity, "jax")
+        if mode == "ttq":
+            out = jq.ternarize_ttq_batched(w, wp, wn, sparsity_target=sp)
+        else:
+            fn = (jq.ternarize_ste_batched if mode == "ste"
+                  else jq.adaptive_ternary_quantization_batched)
+            wt, a = fn(w, alpha=a, sparsity_target=sp)
+            out = wt * a.reshape(b)
+        return jnp.sum(out * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2, 3))(
+        *(jnp.asarray(a) for a in (w, alpha, wp, wn)))
+    leaves = [torch.from_numpy(a).requires_grad_()
+              for a in (w, alpha, wp, wn)]
+    sp = _sp(sparsity, "torch")
+    if mode == "ttq":
+        out = tq.ternarize_ttq_batched(leaves[0], leaves[2], leaves[3],
+                                       sparsity_target=sp)
+    else:
+        fn = (tq.ternarize_ste_batched if mode == "ste"
+              else tq.adaptive_ternary_quantization_batched)
+        wt, a = fn(leaves[0], alpha=leaves[1], sparsity_target=sp)
+        out = wt * a.reshape(b)
+    (out * torch.from_numpy(g)).sum().backward()
+    for leaf, ref in zip(leaves, want):
+        ref = np.asarray(ref)
+        got = (leaf.grad.numpy() if leaf.grad is not None
+               else np.zeros_like(ref))
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-7)
+
+
+def test_batched_scalar_alpha_spreads_over_layers():
+    """A one-element alpha goes to every layer (the JAX batched function
+    raises on it when L > 1; the per-layer function takes it)."""
+    w = torch.from_numpy(_stack((24, 40), seed=61))
+    wt, a = tq.adaptive_ternary_quantization_batched(
+        w, alpha=torch.tensor([0.7]))
+    assert a.shape == (4,) and torch.all(a == 0.7)
+    for i in range(4):
+        wt_i, _ = tq.adaptive_ternary_quantization(w[i], alpha=0.7)
+        assert torch.equal(wt[i], wt_i)

@@ -402,8 +402,10 @@ def test_trainer_checkpoint_serves_on_jax(tmp_path):
     state, results = ptrain.train_classifier(cfg, loaders=_tiny_loaders(),
                                              verbose=False)
     assert results["launches_per_step"] == [{
-        "order_stat": 0.0, "ternary_matmul": 0.0, "fused_forward": 0.0,
-        "fused_dx": 0.0, "fused_dwda": 0.0}]  # CPU: plain versions only
+        "order_stat": 0.0, "batched_order_stat": 0.0,
+        "fused_attention_fwd": 0.0, "fused_attention_bwd": 0.0,
+        "ternary_matmul": 0.0, "fused_forward": 0.0, "fused_dx": 0.0,
+        "fused_dwda": 0.0}]  # CPU: plain versions only
     assert len(results["step_losses"][0]) == 2
     assert np.isfinite(results["step_losses"][0]).all()
     tree = jtrain.load_checkpoint(results["checkpoint"])
