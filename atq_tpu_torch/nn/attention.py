@@ -13,7 +13,8 @@
   promotes the outputs back to float32, so under AMP the attention itself
   runs in float32, as in JAX.
 
-``TernaryCrossAttention`` is not ported yet (the retrieval slice).
+``TernaryCrossAttention`` (the retrieval model's fusion) is not ported yet
+(ROADMAP.md, slice E).
 """
 
 from __future__ import annotations

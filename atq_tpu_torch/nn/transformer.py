@@ -22,6 +22,11 @@ atq_tpu/nn/transformer.py).
   - 'full': the whole layer, quantizer included, is recomputed.
 
   Under AMP the carry stays in the compute dtype between layers.
+
+:func:`normalize_checkpoint` turns a JAX-layout retrieval checkpoint whose
+text stack is scanned (``text_encoder/layers/scan/layer``) into the
+unrolled ``layers_{i}`` layout that serving runs, as the JAX package's
+serve.py does for every checkpoint.
 """
 
 from __future__ import annotations
@@ -256,3 +261,62 @@ def unstack_layer_params(state: Dict[str, torch.Tensor], num_layers: int,
             for i in range(num_layers):
                 out[f"{prefix}{i}.{k[len(head):]}"] = v[i]
     return out
+
+
+def is_scanned_text_layout(tree, dest: str = "layers") -> bool:
+    """True when a text-encoder collection subtree uses the scanned
+    (``layers/scan/layer``) layout."""
+    node = tree.get(dest) if isinstance(tree, dict) else None
+    return isinstance(node, dict) and "scan" in node
+
+
+def _flatten(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        name = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(_flatten(v, name + "."))
+        else:
+            out[name] = v
+    return out
+
+
+def _unflatten(flat):
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *path, leaf = key.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = v
+    return tree
+
+
+def _unroll(subtree, dest: str = "layers"):
+    """A scanned text-encoder subtree (nested dict of arrays) unrolled
+    through :func:`unstack_layer_params`; the layer count is the stacked
+    leaves' leading axis."""
+    flat = _flatten(subtree)
+    leaves = [v for k, v in flat.items() if k.startswith(f"{dest}.scan.")]
+    if not leaves:
+        raise ValueError("scanned subtree has no leaves")
+    return _unflatten(unstack_layer_params(flat, int(leaves[0].shape[0]),
+                                           dest=dest))
+
+
+def normalize_checkpoint(ckpt: dict):
+    """A retrieval checkpoint (nested dict of arrays) with its
+    ``text_encoder`` subtrees (params, quant, ema_params) converted from
+    the scanned to the unrolled layout. Returns ``(ckpt, was_scanned)``;
+    the input is not mutated."""
+    params = ckpt.get("params", {})
+    te = params.get("text_encoder") if isinstance(params, dict) else None
+    if not is_scanned_text_layout(te):
+        return ckpt, False
+    out = dict(ckpt)
+    for coll in ("params", "quant", "ema_params"):
+        tree = ckpt.get(coll)
+        if isinstance(tree, dict) and is_scanned_text_layout(
+                tree.get("text_encoder")):
+            out[coll] = {**tree, "text_encoder": _unroll(tree["text_encoder"])}
+    return out, True

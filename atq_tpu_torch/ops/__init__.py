@@ -17,6 +17,8 @@ def kernel_wrappers() -> dict:
         "fused_attention_fwd": fused_attention.fused_attention_forward,
         "fused_attention_bwd": fused_attention.fused_attention_backward,
         "ternary_matmul": ternary_matmul.ternary_matmul_planar,
+        "ternary_matmul32": ternary_matmul.ternary_matmul_planar32,
+        "ternary_matmul_rpb": ternary_matmul.ternary_matmul_rpb,
         "fused_forward": fused_linear.fused_linear_forward,
         "fused_dx": fused_linear.fused_linear_dx,
         "fused_dwda": fused_linear.fused_linear_dwda,

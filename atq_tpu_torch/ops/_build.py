@@ -59,9 +59,17 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.atq_order_stat_scratch_words.restype = i64
     lib.atq_order_stat.argtypes = [i32, vp, i64, i32, vp, vp, vp, i32, vp]
     lib.atq_order_stat.restype = i32
-    lib.atq_ternary_matmul.argtypes = [i32, vp, vp, vp, vp, i32, i32, i32,
-                                       i32, i32, vp]
+    lib.atq_ternary_matmul.argtypes = [i32, vp, vp, vp, vp, vp, i32, i32,
+                                       i32, i32, i32, vp]
     lib.atq_ternary_matmul.restype = i32
+    lib.atq_packed_workspace_floats.argtypes = [i32, i32, i32]
+    lib.atq_packed_workspace_floats.restype = i64
+    lib.atq_ternary_matmul32.argtypes = [i32, vp, vp, vp, vp, vp, i32, i32,
+                                         i32, i32, i32, vp]
+    lib.atq_ternary_matmul32.restype = i32
+    lib.atq_ternary_matmul_rpb.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32,
+                                           i32, i32, i32, vp]
+    lib.atq_ternary_matmul_rpb.restype = i32
     lib.atq_fused_dwda_partials.argtypes = [i32, i32]
     lib.atq_fused_dwda_partials.restype = i32
     lib.atq_fused_forward.argtypes = [i32, vp, vp, vp, vp, vp, vp, i32, i32,

@@ -1,10 +1,12 @@
 """Stdlib HTTP front for the micro-batching serving engine.
 
-Port of the classification half of atq_tpu/serve/http.py: a threaded HTTP
-server whose handlers submit into :class:`~atq_tpu_torch.serve.engine.
-BatchServer` futures, so concurrent requests batch onto the GPU. Routes are
-plain callables ``payload_dict -> result_dict`` (raise ``ValueError`` for a
-400). The retrieval and search routes come with the retrieval slice.
+Port of atq_tpu/serve/http.py: a threaded HTTP server whose handlers
+submit into :class:`~atq_tpu_torch.serve.engine.BatchServer` futures, so
+concurrent requests batch onto the GPU. Routes are plain callables
+``payload_dict -> result_dict`` (raise ``ValueError`` for a 400): the
+classifier's ``/predict``, the retrieval model's ``/embed_image`` and
+``/embed_text``, and ``/index/add`` and ``/search`` over an
+:class:`~atq_tpu_torch.serve.index.EmbeddingIndex`.
 """
 
 from __future__ import annotations
@@ -16,6 +18,16 @@ from typing import Callable, Dict, Optional
 
 import numpy as np
 
+from atq_tpu_torch.data.flickr8k import (
+    END,
+    IMAGENET_MEAN,
+    IMAGENET_STD,
+    PAD,
+    START,
+    UNK,
+    clean_caption,
+    tokenize,
+)
 from atq_tpu_torch.data.mnist import FASHION_STATS, MNIST_STATS
 
 
@@ -116,3 +128,86 @@ def make_classifier_routes(server, dataset: str = "fashion_mnist",
                 "class": int(np.argmax(logits))}
 
     return {"/predict": predict}
+
+
+def make_retrieval_routes(image_server, text_server,
+                          word_to_idx: Optional[Dict[str, int]] = None,
+                          max_length: int = 50,
+                          timeout: float = 60.0) -> Dict[str, Callable]:
+    """Routes for the retrieval model's two encoders.
+
+    - ``POST /embed_image {"image": HxWx3, "normalize": bool}`` (with
+      ``normalize`` the ImageNet mean/std are applied);
+    - ``POST /embed_text {"tokens": [...]}`` or, with a vocabulary,
+      ``{"text": "a dog runs"}``, tokenized as in training (clean,
+      tokenize, START/END, PAD to ``max_length``).
+
+    Both return L2-normalized embeddings; their dot product is the
+    retrieval score.
+    """
+
+    def embed_image(payload):
+        img = np.asarray(payload["image"], np.float32)
+        if img.ndim != 3 or img.shape[-1] != 3:
+            raise ValueError(f"image must be HxWx3, got {img.shape}")
+        if payload.get("normalize"):
+            img = (img - IMAGENET_MEAN) / IMAGENET_STD
+        emb = np.asarray(image_server.submit(img).result(timeout=timeout))
+        return {"embedding": emb.tolist()}
+
+    def embed_text(payload):
+        if "tokens" in payload:
+            ids = [int(t) for t in payload["tokens"]]
+        elif "text" in payload:
+            if word_to_idx is None:
+                raise ValueError("server has no vocabulary; send "
+                                 "'tokens' instead of 'text'")
+            toks = tokenize(clean_caption(payload["text"]))
+            ids = [START] + [word_to_idx.get(t, UNK) for t in toks] + [END]
+        else:
+            raise ValueError("payload needs 'tokens' or 'text'")
+        ids = ids[:max_length]
+        length = len(ids)
+        ids = ids + [PAD] * (max_length - len(ids))
+        tokens = np.asarray(ids, np.int32)
+        emb = np.asarray(text_server.submit(
+            tokens, np.asarray(length, np.int32)).result(timeout=timeout))
+        return {"embedding": emb.tolist(), "length": length}
+
+    return {"/embed_image": embed_image, "/embed_text": embed_text}
+
+
+def make_search_routes(index, embed_routes: Dict[str, Callable]
+                       ) -> Dict[str, Callable]:
+    """Corpus-side retrieval on top of the embed routes (whose servers
+    batch the embeds like any other request).
+
+    - ``POST /index/add {"id": "...", "image"|"text"|"tokens": ...}``:
+      embed and add to the corpus;
+    - ``POST /search {"image"|"text"|"tokens": ..., "k": 5}``: the top-k
+      corpus ids by cosine score.
+    """
+
+    def _embed(payload) -> np.ndarray:
+        if "image" in payload:
+            out = embed_routes["/embed_image"](payload)
+        elif "text" in payload or "tokens" in payload:
+            out = embed_routes["/embed_text"](payload)
+        else:
+            raise ValueError("payload needs 'image', 'text' or 'tokens'")
+        return np.asarray(out["embedding"], np.float32)
+
+    def index_add(payload):
+        if "id" not in payload:
+            raise ValueError("payload needs 'id'")
+        count = index.add([str(payload["id"])], _embed(payload)[None, :])
+        return {"count": count}
+
+    def search(payload):
+        emb = _embed(payload)
+        ids, scores = index.search(emb, k=int(payload.get("k", 5)))
+        return {"results": [{"id": i, "score": float(s)}
+                            for i, s in zip(ids, scores)],
+                "count": len(index)}
+
+    return {"/index/add": index_add, "/search": search}

@@ -14,8 +14,10 @@ module's ``state_dict``:
 - quantized layers' ``weight`` (out, in), ``alpha``, ``bias``, ``wp``,
   ``wn`` pass through under the same names;
 - LayerNorm ``scale`` <-> ``weight``; flax ``Embed`` ``embedding`` <->
-  ``weight`` of a module whose name starts with ``Embed`` (flax's
-  auto-name ``Embed_0``);
+  ``weight`` of a module named ``embedding`` or whose name starts with
+  ``Embed`` (flax's auto-name ``Embed_0``);
+- the 'constants' collection (the text encoder's ``positional_encoding``)
+  <-> buffers of the same name;
 - the scanned stack's layout ``<stack>/scan/layer/...`` passes through with
   its leading layer axis (2-D kernels there would transpose their last two
   axes), and the stacked bool ``precision_mask`` and (L,)
@@ -82,9 +84,12 @@ def _leaves(node, path=()):
         yield path, node
 
 
+_CONSTANTS = ("positional_encoding",)
+
+
 def from_jax_variables(tree: Dict) -> Dict[str, torch.Tensor]:
     """A port ``state_dict`` from JAX variables (``params``, ``quant``,
-    ``batch_stats`` collections of numpy arrays)."""
+    ``batch_stats`` and ``constants`` collections of numpy arrays)."""
     sd: Dict[str, torch.Tensor] = {}
     bn_modules = set()
     for path, leaf in _leaves(tree.get("batch_stats", {})):
@@ -126,6 +131,12 @@ def from_jax_variables(tree: Dict) -> Dict[str, torch.Tensor]:
         else:
             a = a.astype(np.float32)
         sd[".".join(mod + [name])] = torch.tensor(a)
+    for path, leaf in _leaves(tree.get("constants", {})):
+        *mod, name = path
+        if name not in _CONSTANTS:
+            raise KeyError(f"unexpected constants leaf {'/'.join(path)}")
+        sd[".".join(mod + [name])] = torch.tensor(
+            np.asarray(leaf, np.float32))
     return sd
 
 
@@ -137,7 +148,8 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
         *mod, name = key.split(".")
         by_module.setdefault(tuple(mod), {})[name] = (
             t.detach().cpu().numpy())
-    out: Dict = {"params": {}, "quant": {}, "batch_stats": {}}
+    out: Dict = {"params": {}, "quant": {}, "batch_stats": {},
+                 "constants": {}}
 
     def put(coll, mod, name, value):
         node = out[coll]
@@ -158,7 +170,10 @@ def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
                     put("params", mod, _BN_PARAMS_INV[name], a)
             elif name in _QUANT:
                 put("quant", mod, name, a)
-            elif name == "weight" and mod and mod[-1].startswith("Embed"):
+            elif name in _CONSTANTS:
+                put("constants", mod, name, a)
+            elif name == "weight" and mod and (
+                    mod[-1] == "embedding" or mod[-1].startswith("Embed")):
                 put("params", mod, "embedding", a)
             elif name == "weight" and a.ndim == 4:
                 put("params", mod, "kernel",

@@ -23,6 +23,27 @@ Phases, one JSON line each; any failure exits non-zero:
                 through the packed ternary matmul kernel; also checked
                 against dense within the bf16-correction tolerance
                 (rtol/atol 2e-2).
+  serve_retrieval
+                python -m atq_tpu_torch.serve --task retrieval --packed
+                --use_residual in-process at the README's widths (ResNet-18
+                at 160x160 from the int8 trunk, embed 192, FFN 384, 4 text
+                layers, sequence 50) on a seeded checkpoint written as a
+                JAX-layout .npz with a vocab.json from the synthetic corpus:
+                32 concurrent /embed_image and 32 /embed_text (a burst,
+                then a traced burst), 64 /index/add and 16 /search.
+                Embeddings within atol 1e-3 of the same checkpoint through
+                the port on the CPU (plain versions), /search top-1 ids
+                equal wherever the CPU's top-2 gap exceeds 1e-3, and the
+                packed-kernel launches equal 26 per text batch and 1 per
+                image batch.
+  serve_retrieval_pack32
+                the same with ATQ_PACK32=1 (planar32 words, kernel 5), also
+                within 1e-5 of serve_retrieval.
+  serve_dense_correction
+                the retrieval encoders and the classifier exported with
+                sparse_correction=False (every RPB layer through kernel 4),
+                in-process: within 1e-4 of the sparse export on the card
+                and 1e-3 of the CPU plain path.
   train_dense   python -m atq_tpu_torch.train's own main() on the README
                 recipe (--use-rpb --distill --use-l1 --clip-grad, batch
                 256, --subset-fraction 0.25: 46 steps an epoch, 2 epochs,
@@ -78,6 +99,13 @@ plain versions at (64, 12, 256, 64) f32, (8, 8, 50, 16) f32 with a padding
 bias and a fully padded row, (4, 4, 512, 64) f32 and (4, 4, 256, 64) bf16:
 o, dq, dk, dv within rtol/atol 1e-4 (f32) or 2e-2 (bf16).
 
+The planar32 and RPB kernels are held against their plain versions in
+phase kernels (rtol 1e-5 / atol 5e-3) at the text tower's (M, K -> N) =
+(1600, 192 -> 192), (1600, 192 -> 384), (1600, 384 -> 192),
+(1600, 192 -> 96), the image projector's (32, 512 -> 192), the classifier
+head's (32, 3136 -> 128) and a ragged (7, 100 -> 24); planar32 symmetric and
+TTQ.
+
 The fused kernels are held against their plain versions in phase kernels
 at the recipe shapes (256x128x3136, 256x10x128), wider (256x256x3136),
 ragged (7x24x100) and a batch past the JAX package's resident limit
@@ -86,8 +114,8 @@ within rtol/atol 1e-4 (f32 sums in another order than cuBLAS over K =
 3136), dalpha within 1e-4 relative.
 
 Then one line {"kernels": [...]} (launch counts from the main-path phase
-that runs each kernel: serve_dense, serve_packed, train_fused,
-train_encoder),
+that runs each kernel: serve_dense, serve_packed, serve_retrieval_pack32,
+serve_dense_correction, train_fused, train_encoder),
 the card's name and power limit as nvidia-smi prints them, and the result
 line {"ok": true, "device": {...}}. Without a GPU, or without the rest of
 the repo beside it, the script exits non-zero and prints no result.
@@ -100,6 +128,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -138,6 +167,30 @@ ENCODER_PER_STEP = {"batched_order_stat": 6, "fused_attention_fwd": 24,
                     "fused_attention_bwd": 12}
 RECIPE = ["--use-rpb", "--distill", "--use-l1", "--clip-grad",
           "--batch-size", "256", "--seed", "0"]
+# Kernels 4 (RPB) and 5 (planar32), (M, K, N): the retrieval text tower's
+# projections at 32 requests x 50 tokens (q/k/v/out, linear1, linear2,
+# attention_pool_0), the image projector, the classifier head, and a ragged
+# shape. The first is the main path's shape in the kernels line.
+PACKED_SHAPES = ((1600, 192, 192), (1600, 192, 384), (1600, 384, 192),
+                 (1600, 192, 96), (32, 512, 192), (32, 3136, 128),
+                 (7, 100, 24))
+# The retrieval server at the README's widths (README.md): ResNet-18 at
+# 160x160, embed 192, FFN 384, 4 text layers of 8 heads, sequence 50.
+RETRIEVAL_ARGV = ["--task", "retrieval", "--use_residual", "--packed",
+                  "--image_size", "160", "--embed_dim", "192",
+                  "--hidden_dim", "384", "--max_seq_length", "50"]
+IMAGE_SIZE, SEQ_LEN = 160, 50
+N_IMAGES = N_TEXTS = 32  # the burst: 32 /embed_image + 32 /embed_text
+N_SEARCHES = 16
+# Packed-kernel launches per batch: 4 layers x 6 projections,
+# attention_pool_0 and text_projector (attention_pool_2 has N = 1 and takes
+# the plain path, as in JAX); the image projector.
+TEXT_LAUNCHES, IMAGE_LAUNCHES = 26, 1
+RETRIEVAL_ATOL = 1e-3  # card against the CPU plain path (int8 trunk, f32)
+# An image's embedding in a burst against the same image sent alone: the
+# int8 trunk's activation scale is max|x| over the batch, so the two runs
+# quantize the activations on different grids.
+BURST_MIN_COSINE = 0.99
 
 
 def emit(obj) -> None:
@@ -268,6 +321,7 @@ def check_matmul(gen):
 
     shapes = [(m, n, k) for m in (1, 7, 32, 128) for n, k in MM_SHAPES]
     shapes.append((128, 128, 8704))  # routes to _kernel_kblocked in JAX
+    shapes += [(m, n, k) for m, k, n in PACKED_SHAPES]  # the text tower's
     max_err, cases = 0.0, 0
     for m, n, k in shapes:
         w = torch.randint(-1, 2, (n, k), device="cuda", generator=gen).float()
@@ -323,6 +377,89 @@ def time_matmul(gen, m, n, k):
                      "library": lambda: torch.matmul(x, w_deq.T)})}
 
 
+def _packed_inputs(gen, m, k, n):
+    """x, a ternary (n, k) weight, its uint8 planes and planar32 words,
+    and a dense bf16 RPB correction on 5% of the weights."""
+    from atq_tpu_torch.core.packing import pack_planar, pack_planar32
+
+    w = torch.randint(-1, 2, (n, k), device="cuda", generator=gen).float()
+    x = torch.randn(m, k, device="cuda", generator=gen)
+    mask = torch.rand(n, k, device="cuda", generator=gen) < 0.05
+    corr = (torch.randn(n, k, device="cuda", generator=gen) * 0.02
+            * mask).to(torch.bfloat16)
+    return x, w, pack_planar(w), pack_planar32(w), corr
+
+
+def check_packed_kernels(gen):
+    """Kernels 4 and 5 against their plain versions at PACKED_SHAPES;
+    kernel 5 symmetric and TTQ."""
+    from atq_tpu_torch.ops import ternary_matmul as tm
+
+    errs = {"ternary_matmul32": 0.0, "ternary_matmul_rpb": 0.0}
+    cases = 0
+    for m, k, n in PACKED_SHAPES:
+        x, _, planes, words, corr = _packed_inputs(gen, m, k, n)
+        for asym, avec in ((False, (0.9, 0.9)), (True, (0.9, 0.4))):
+            avec = torch.tensor(avec, device="cuda")
+            got = tm.ternary_matmul_planar32(x, words, k, avec, asym)
+            want = tm.ternary_matmul32_plain(x, words, k, avec, asym)
+            errs["ternary_matmul32"] = max(errs["ternary_matmul32"], _err(
+                f"matmul32 {m}x{k}->{n} asym={asym}", got, want,
+                MM_RTOL, MM_ATOL))
+            cases += 1
+        avec = torch.tensor((0.9, 0.9), device="cuda")
+        got = tm.ternary_matmul_rpb(x, planes, corr, k, avec)
+        want = tm.ternary_matmul_rpb_plain(x, planes, corr, k, avec)
+        errs["ternary_matmul_rpb"] = max(errs["ternary_matmul_rpb"], _err(
+            f"rpb {m}x{k}->{n}", got, want, MM_RTOL, MM_ATOL))
+        cases += 1
+    torch.cuda.synchronize()
+    return errs, cases
+
+
+def time_packed(gen, m, k, n):
+    """The packed kernels (uint8 planes, kernels 4 and 5) at one shape:
+    kernel, plain version, and one torch.matmul on the prebuilt dequantized
+    weight as the yardstick. The bounds count the logical K (2 bits a
+    weight), not the padding."""
+    from atq_tpu_torch.ops import ternary_matmul as tm
+
+    x, w, planes, words, corr = _packed_inputs(gen, m, k, n)
+    avec = torch.tensor([0.9, 0.9], device="cuda")
+    w_deq = (w * 0.9).contiguous()
+    w_rpb = (w * 0.9 + corr.float()).contiguous()
+    x_out = m * k * 4 + 8 + m * n * 4  # read x and alpha, write out
+    planes_b = n * k / 4
+    b32, b32_by = bound(x_out + planes_b, 2 * m * n * k)
+    # The RPB function also reads the bf16 correction; its least work is
+    # the blend (2 ops a weight) and one product.
+    brpb, brpb_by = bound(x_out + planes_b + n * k * 2,
+                          2 * m * n * k + 2 * n * k)
+    return {
+        "ternary_matmul": {
+            "m": m, "n": n, "k": k, "bound_ms": b32, "bound_by": b32_by,
+            **timed({"kernel": lambda: tm.ternary_matmul_planar(
+                x, planes, k, avec),
+                "plain": lambda: tm.ternary_matmul_plain(
+                    x, planes, k, avec, False),
+                "library": lambda: torch.matmul(x, w_deq.T)})},
+        "ternary_matmul32": {
+            "m": m, "k": k, "n": n, "bound_ms": b32, "bound_by": b32_by,
+            **timed({"kernel": lambda: tm.ternary_matmul_planar32(
+                x, words, k, avec),
+                "plain": lambda: tm.ternary_matmul32_plain(
+                    x, words, k, avec, False),
+                "library": lambda: torch.matmul(x, w_deq.T)})},
+        "ternary_matmul_rpb": {
+            "m": m, "k": k, "n": n, "bound_ms": brpb, "bound_by": brpb_by,
+            **timed({"kernel": lambda: tm.ternary_matmul_rpb(
+                x, planes, corr, k, avec),
+                "plain": lambda: tm.ternary_matmul_rpb_plain(
+                    x, planes, corr, k, avec),
+                "library": lambda: torch.matmul(x, w_rpb.T)})},
+    }
+
+
 def _fused_inputs(gen, m, n, k, with_mask):
     """Inputs at a head layer's shape: x like post-ReLU features, a small
     weight, the quantizer's threshold at sparsity 0.3, alpha 0.017."""
@@ -339,8 +476,9 @@ def _fused_inputs(gen, m, n, k, with_mask):
                                   thr)
 
 
-def _err(name, got, want, tol=FUSED_TOL):
-    torch.testing.assert_close(got, want, rtol=tol, atol=tol,
+def _err(name, got, want, tol=FUSED_TOL, atol=None):
+    torch.testing.assert_close(got, want, rtol=tol,
+                               atol=tol if atol is None else atol,
                                msg=lambda m: f"{name}: {m}")
     return (got - want).abs().max().item() if got.numel() else 0.0
 
@@ -551,11 +689,14 @@ def phase_kernels():
     fused_errs, da_rel, fused_cases = check_fused(gen)
     bos_err, bos_sum_rel, bos_rows = check_batched_order_stat(gen)
     attn_errs, attn_cases = check_attention(gen)
+    packed_errs, packed_cases = check_packed_kernels(gen)
     timings = {
         "order_stat": [time_order_stat(gen, n) for n in OS_SIZES[:2]],
         "ternary_matmul": [time_matmul(gen, MAX_BATCH, n, k)
                            for n, k in MM_SHAPES[:2]]
-        + [time_matmul(gen, 1, n, k) for n, k in MM_SHAPES[:2]],
+        + [time_matmul(gen, 1, n, k) for n, k in MM_SHAPES[:2]]
+        # the shape that routes to _kernel_kblocked in JAX
+        + [time_matmul(gen, 128, 128, 8704)],
     }
     for shape in FUSED_SHAPES[:2]:  # the recipe's two head layers
         for name, t in time_fused(gen, *shape).items():
@@ -564,6 +705,9 @@ def phase_kernels():
                                      for shape in BATCHED_OS_SHAPES[:2]]
     for name, t in time_attention(gen).items():
         timings[name] = [t]
+    for shape in PACKED_SHAPES:
+        for name, t in time_packed(gen, *shape).items():
+            timings.setdefault(name, []).append(t)
     emit({"phase": "kernels", "order_stat_cases": os_cases,
           "order_stat_max_abs_err": os_err,  # statistic and max
           "order_stat_sum_max_rel_err": os_sum_rel_err,
@@ -574,10 +718,12 @@ def phase_kernels():
           "batched_order_stat_rows": bos_rows,
           "batched_order_stat_max_abs_err": bos_err,  # statistic and max
           "batched_order_stat_sum_max_rel_err": bos_sum_rel,
-          "attention_cases": attn_cases, "timings": timings})
+          "attention_cases": attn_cases,
+          "packed_cases": packed_cases,
+          "packed_max_abs_err": packed_errs, "timings": timings})
     return {"order_stat": os_err, "ternary_matmul": mm_err,
             "batched_order_stat": bos_err, **fused_errs,
-            **attn_errs}, timings
+            **attn_errs, **packed_errs}, timings
 
 
 def make_checkpoint(tmpdir):
@@ -701,6 +847,384 @@ def phase_serve(name, path, packed, images, reference):
           "device_busy_share": (busy_s / traced_wall if busy_s else None),
           "max_abs_err_vs_cpu": float(np.abs(logits - reference).max())})
     return logits, launches
+
+
+def make_retrieval_checkpoint(tmpdir):
+    """A seeded README-width retrieval model as a JAX-layout .npz, with a
+    vocab.json beside it built from the synthetic corpus's training split.
+    BatchNorm statistics are drawn and each ternary layer's alpha is set to
+    its optimal alpha, as make_checkpoint does for the classifier."""
+    from torch import nn
+
+    from atq_tpu_torch.core.quantize import adaptive_ternary_quantization
+    from atq_tpu_torch.data.flickr8k import (
+        _synthetic_corpus,
+        save_vocab_file,
+        synthetic_vocabulary,
+    )
+    from atq_tpu_torch.models.retrieval import ATQMultimodalRetrieval
+    from atq_tpu_torch.nn.layers import _QuantizedLinear
+    from atq_tpu_torch.utils.jax_interop import save_checkpoint
+
+    names, captions, latents = _synthetic_corpus(400)
+    vocab = synthetic_vocabulary([c for n in names[:320]
+                                  for c in captions[n]])
+    gen = torch.Generator().manual_seed(0)
+    model = ATQMultimodalRetrieval(vocab_size=len(vocab), embed_dim=192,
+                                   hidden_dim=384, use_residual=True,
+                                   max_seq_length=SEQ_LEN, device="cpu",
+                                   generator=gen)
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, nn.BatchNorm2d):
+                mod.running_mean.normal_(0.0, 0.1, generator=gen)
+                mod.running_var.uniform_(0.5, 1.5, generator=gen)
+            elif isinstance(mod, _QuantizedLinear):
+                _, a = adaptive_ternary_quantization(
+                    mod.weight, sparsity_target=mod.sparsity_target)
+                mod.alpha.fill_(float(a))
+    path = os.path.join(tmpdir, "retrieval", "best_model.npz")
+    os.makedirs(os.path.dirname(path))
+    save_checkpoint(model.jax_variables(), path)
+    save_vocab_file(vocab, os.path.join(os.path.dirname(path), "vocab.json"))
+    return path, vocab, (names, captions, latents)
+
+
+def retrieval_requests(vocab, corpus):
+    """The phase's traffic: 32 images (160x160x3 in [0, 1], sent with
+    ``normalize``), 32 captions (half sent as text, half as token ids), and
+    16 search captions; with the arrays the CPU reference encodes."""
+    import zlib
+
+    from atq_tpu_torch.data.flickr8k import (
+        END,
+        IMAGENET_MEAN,
+        IMAGENET_STD,
+        START,
+        UNK,
+        _synthetic_image,
+        clean_caption,
+        tokenize,
+    )
+
+    names, captions, latents = corpus
+    picked = names[:N_IMAGES]
+    images = np.stack([_synthetic_image(
+        latents[n], IMAGE_SIZE, seed=zlib.crc32(n.encode()) % 2 ** 31)
+        for n in picked])
+
+    def ids_of(text):
+        toks = tokenize(clean_caption(text))
+        return ([START] + [vocab.get(t, UNK) for t in toks] + [END])[:SEQ_LEN]
+
+    texts = [captions[n][0] for n in picked[:N_TEXTS]]
+    queries = [captions[n][1] for n in picked[:N_SEARCHES]]
+    text_payloads = [{"text": t} if i % 2 == 0 else {"tokens": ids_of(t)}
+                     for i, t in enumerate(texts)]
+    tokens = np.zeros((N_TEXTS + N_SEARCHES, SEQ_LEN), np.int64)
+    lengths = np.zeros((N_TEXTS + N_SEARCHES,), np.int64)
+    for i, t in enumerate(texts + queries):
+        ids = ids_of(t)
+        tokens[i, :len(ids)], lengths[i] = ids, len(ids)
+    return {"images": images,
+            "normalized": (images - IMAGENET_MEAN) / IMAGENET_STD,
+            "text_payloads": text_payloads, "queries": queries,
+            "tokens": tokens, "lengths": lengths}
+
+
+def _retrieval_args(path, *extra):
+    from atq_tpu_torch.serve.__main__ import build_parser
+
+    return build_parser().parse_args(
+        [a for a in RETRIEVAL_ARGV if a != "--packed"]
+        + ["--checkpoint", path, *extra])
+
+
+def retrieval_cpu_reference(path, vocab, req):
+    """The packed, int8-trunk model on the CPU (plain versions): each image
+    embedded alone (the int8 trunk's activation scale is one per batch, as
+    in JAX, so an image's embedding depends on its batch), the 32 images as
+    one batch, the 32 texts and 16 queries, and the top-1 ids of the 16
+    searches with their top-2 gaps over the 64 items the phase adds."""
+    from atq_tpu_torch.serve.__main__ import build_retrieval
+    from atq_tpu_torch.serve.index import EmbeddingIndex
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    model = build_retrieval(_retrieval_args(path, "--packed"),
+                            load_checkpoint(path), "parity",
+                            torch.device("cpu"), len(vocab))
+    x = torch.from_numpy(req["normalized"])
+    with torch.inference_mode():
+        img = torch.cat([model.encode_image(x[i:i + 1])
+                         for i in range(len(x))]).numpy()
+        img_batch = model.encode_image(x).numpy()
+        txt = model.encode_text(torch.from_numpy(req["tokens"]),
+                                torch.from_numpy(req["lengths"])).numpy()
+    index = EmbeddingIndex(192, device="cpu")
+    index.add([f"img{i}" for i in range(N_IMAGES)], img)
+    index.add([f"txt{i}" for i in range(N_TEXTS)], txt[:N_TEXTS])
+    ids, scores = index.search(txt[N_TEXTS:], k=2)
+    return {"image": img, "image_batch": img_batch, "text": txt[:N_TEXTS],
+            "query": txt[N_TEXTS:],
+            "top1": [row[0] for row in ids],
+            "gap": (scores[:, 0] - scores[:, 1]).tolist()}
+
+
+def _post_json(port, route, payload):
+    """The route's answer and its latency (ms); an HTTP error raises with
+    the server's error message."""
+    body = json.dumps(payload).encode()
+    req = urllib.request.Request(f"http://127.0.0.1:{port}{route}", body,
+                                 {"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    try:
+        with urllib.request.urlopen(req, timeout=300) as r:
+            out = json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        raise AssertionError(f"{route}: HTTP {e.code} {e.read()!r}") from e
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _retrieval_burst(port, req):
+    """The 32 image and 32 text embeds at once, one client thread each."""
+    calls = ([("/embed_image", _image_payload(im)) for im in req["images"]]
+             + [("/embed_text", p) for p in req["text_payloads"]])
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(calls)) as pool:
+        answers = list(pool.map(lambda c: _post_json(port, *c), calls))
+    wall = time.perf_counter() - t0
+    emb = np.asarray([a["embedding"] for a, _ in answers], np.float32)
+    return emb[:N_IMAGES], emb[N_IMAGES:], [t for _, t in answers], wall
+
+
+def _image_payload(im):
+    return {"image": im.tolist(), "normalize": True}
+
+
+def _sequential_images(port, req, route="/embed_image"):
+    """Each image posted alone (a batch of one): the answers of
+    /embed_image, or the counts of /index/add."""
+    out = []
+    for i, im in enumerate(req["images"]):
+        payload = _image_payload(im)
+        if route == "/index/add":
+            payload["id"] = f"img{i}"
+        out.append(_post_json(port, route, payload)[0])
+    return out
+
+
+def _index_and_search(port, req):
+    """64 /index/add (the 32 images one at a time, so that their embeddings
+    are those of a batch of one; the 32 texts at once), then 16 concurrent
+    /search; returns the searches' answers."""
+    counts = [a["count"] for a in _sequential_images(port, req, "/index/add")]
+    adds = [{"id": f"txt{i}", **p} for i, p in enumerate(req["text_payloads"])]
+    with ThreadPoolExecutor(len(adds)) as pool:
+        counts += [a["count"] for a, _ in pool.map(
+            lambda p: _post_json(port, "/index/add", p), adds)]
+    if max(counts) != N_IMAGES + N_TEXTS:
+        raise AssertionError(f"/index/add counts {sorted(counts)}")
+    with ThreadPoolExecutor(N_SEARCHES) as pool:
+        return [a for a, _ in pool.map(
+            lambda q: _post_json(port, "/search", {"text": q, "k": 2}),
+            req["queries"])]
+
+
+def phase_serve_retrieval(name, path, req, ref, pack32=False, same_as=None):
+    """The port's retrieval server in-process (README widths, int8 trunk,
+    --packed; planar32 words under ``pack32``): a warm-up request, the 32
+    images one at a time, the burst, a traced burst, 64 /index/add and 16
+    /search. The images sent alone and the burst's texts are checked
+    against the CPU plain path, the burst's images against the images sent
+    alone by cosine (their batch sets the int8 activation scale, and the
+    burst's batches do not repeat), and, with ``same_as`` (another phase's
+    images sent alone and texts), against those within 1e-5. After the
+    served run, the model is built on the card as the server builds it and
+    the 32 images go through it as one batch, checked against the same
+    batch on the CPU plain path."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.serve.__main__ import build_retrieval, build_server
+    from atq_tpu_torch.serve.http import start_in_thread
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    t0 = time.perf_counter()
+    os.environ["ATQ_PACK32"] = "1" if pack32 else "0"
+    try:  # ATQ_PACK32 is read at export time
+        httpd, servers, info = build_server(
+            RETRIEVAL_ARGV + ["--checkpoint", path, "--port", "0",
+                              "--max_batch", str(MAX_BATCH)])
+        model = build_retrieval(_retrieval_args(path, "--packed"),
+                                load_checkpoint(path), "parity",
+                                torch.device("cuda"), len(load_vocab(path)))
+    finally:
+        os.environ["ATQ_PACK32"] = "0"
+    thread = start_in_thread(httpd)
+    _reset_launches()
+    try:
+        _post_json(info["port"], "/embed_image",
+                   _image_payload(req["images"][0]))
+        img = np.asarray([a["embedding"] for a in _sequential_images(
+            info["port"], req)], np.float32)
+        burst_img, txt, lat, wall = _retrieval_burst(info["port"], req)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            _, _, _, traced_wall = _retrieval_burst(info["port"], req)
+            torch.cuda.synchronize()
+        searches = _index_and_search(info["port"], req)
+        stats = [dict(s.stats) for s in servers]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        for s in servers:
+            s.stop()
+    launches = kernel_launches()
+    busy_s = _device_us(prof.key_averages()) / 1e6
+    with torch.inference_mode():
+        img_batch = model.encode_image(
+            torch.from_numpy(req["normalized"]).cuda()).cpu().numpy()
+
+    for what, got, want in (("image", img, ref["image"]),
+                            ("image_batch", img_batch, ref["image_batch"]),
+                            ("text", txt, ref["text"])):
+        if not np.isfinite(got).all() or got.shape != want.shape:
+            raise AssertionError(f"{name}: bad {what} embeddings "
+                                 f"{got.shape}")
+        np.testing.assert_allclose(got, want, rtol=0, atol=RETRIEVAL_ATOL,
+                                   err_msg=f"{name} {what} vs CPU")
+    cosine = np.sum(burst_img * img, axis=1)  # unit-norm rows
+    if not np.isfinite(burst_img).all() or cosine.min() < BURST_MIN_COSINE:
+        raise AssertionError(f"{name}: burst images vs alone, cosine "
+                             f"{cosine.min()}")
+    same = {}
+    if same_as is not None:
+        for what, got, other in (("image", img, same_as[0]),
+                                 ("text", txt, same_as[1])):
+            np.testing.assert_allclose(got, other, rtol=0, atol=1e-5,
+                                       err_msg=f"{name} {what} vs uint8")
+            same[what] = float(np.abs(got - other).max())
+    top1 = [s["results"][0]["id"] for s in searches]
+    agree = [g == w for g, w, gap in zip(top1, ref["top1"], ref["gap"])
+             if gap > 1e-3]
+    if not all(agree):
+        raise AssertionError(f"{name}: /search top-1 {top1} vs CPU "
+                             f"{ref['top1']} (gaps {ref['gap']})")
+    kernel = "ternary_matmul32" if pack32 else "ternary_matmul"
+    img_batches, txt_batches = stats[0]["batches"], stats[1]["batches"]
+    want_launches = IMAGE_LAUNCHES * img_batches + TEXT_LAUNCHES * txt_batches
+    if launches[kernel] != want_launches:
+        raise AssertionError(f"{name}: {kernel} launched {launches[kernel]} "
+                             f"times for {img_batches} image and "
+                             f"{txt_batches} text batches, expected "
+                             f"{want_launches}")
+    if any(s["primary_failures"] or s["fallback_batches"] for s in stats):
+        raise AssertionError(f"{name}: engine failures {stats}")
+    lat = np.asarray(lat)
+    emit({"phase": name, "requests": N_IMAGES + N_TEXTS, "failed": 0,
+          "wall_s": wall, "requests_per_s": (N_IMAGES + N_TEXTS) / wall,
+          "p50_ms": float(np.percentile(lat, 50)),
+          "p99_ms": float(np.percentile(lat, 99)),
+          "batches": {"image": img_batches, "text": txt_batches},
+          "requests_served": {"image": stats[0]["requests"],
+                              "text": stats[1]["requests"]},
+          "launches": launches, "traced_wall_s": traced_wall,
+          "device_busy_share": (busy_s / traced_wall if busy_s else None),
+          "max_abs_err_vs_cpu": {
+              "image": float(np.abs(img - ref["image"]).max()),
+              "image_batch": float(np.abs(img_batch
+                                          - ref["image_batch"]).max()),
+              "text": float(np.abs(txt - ref["text"]).max())},
+          "burst_image_vs_alone": {
+              "min_cosine": float(cosine.min()),
+              "max_abs_diff": float(np.abs(burst_img - img).max())},
+          "search_top1_checked": len(agree),
+          **({"max_abs_diff_vs_uint8_planes": same} if same else {}),
+          "seconds": time.perf_counter() - t0})
+    return img, txt, launches
+
+
+def phase_dense_correction(path, req, ref, clf_path, images, clf_sparse):
+    """The classifier and the retrieval encoders exported with
+    ``sparse_correction=False``: every RPB layer through kernel 4, checked
+    against the sparse export on the card (1e-4) and the CPU plain path
+    (the images alone and as one batch of 32, the texts)."""
+    from atq_tpu_torch.data.mnist import FASHION_STATS
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.serve.__main__ import (
+        build_classifier,
+        build_parser,
+        build_retrieval,
+    )
+    from atq_tpu_torch.serve.packed_model import (
+        attach_packed_collection,
+        export_packed_collection,
+    )
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    ckpt = load_checkpoint(path)
+    model = build_retrieval(_retrieval_args(path), ckpt, "parity", dev,
+                            len(load_vocab(path)))
+    params = {k: v for k, v in ckpt["params"].items() if k != "fusion"}
+    attach_packed_collection(model, export_packed_collection(
+        params, ckpt.get("quant"), device=dev, sparse_correction=False))
+    clf_ckpt = load_checkpoint(clf_path)
+    clf = build_classifier(build_parser().parse_args(
+        ["--task", "classification", "--checkpoint", clf_path,
+         "--use-rpb"]), clf_ckpt, "parity", dev)
+    attach_packed_collection(clf, export_packed_collection(
+        clf_ckpt["params"], clf_ckpt.get("quant"), device=dev,
+        sparse_correction=False))
+    mean, std = FASHION_STATS
+    x_clf = torch.from_numpy(((images - mean) / std)[..., None]).to(dev)
+    _reset_launches()
+    x_img = torch.from_numpy(req["normalized"]).to(dev)
+    with torch.inference_mode():  # images alone, as the sparse phase sent them
+        img = torch.cat([model.encode_image(x_img[i:i + 1])
+                         for i in range(N_IMAGES)]).cpu().numpy()
+        img_batch = model.encode_image(x_img).cpu().numpy()
+        txt = model.encode_text(
+            torch.from_numpy(req["tokens"][:N_TEXTS]).to(dev),
+            torch.from_numpy(req["lengths"][:N_TEXTS]).to(dev)).cpu().numpy()
+        logits = torch.cat([clf(x_clf[i:i + MAX_BATCH]) for i in range(
+            0, len(images), MAX_BATCH)]).cpu().numpy()
+    torch.cuda.synchronize()
+    launches = kernel_launches()
+    errs = {}
+    for what, got, sparse, cpu in (
+            ("image", img, ref["sparse_image"], ref["image"]),
+            ("image_batch", img_batch, None, ref["image_batch"]),
+            ("text", txt, ref["sparse_text"], ref["text"]),
+            ("logits", logits, clf_sparse, None)):
+        if sparse is not None:
+            np.testing.assert_allclose(got, sparse, rtol=0, atol=1e-4,
+                                       err_msg=f"dense correction {what} vs "
+                                               f"the sparse export")
+            errs[what + "_vs_sparse"] = float(np.abs(got - sparse).max())
+        if cpu is not None:
+            np.testing.assert_allclose(got, cpu, rtol=0,
+                                       atol=RETRIEVAL_ATOL,
+                                       err_msg=f"dense correction {what} "
+                                               f"vs CPU")
+            errs[what + "_vs_cpu"] = float(np.abs(got - cpu).max())
+    batches = -(-len(images) // MAX_BATCH)
+    want = IMAGE_LAUNCHES * (N_IMAGES + 1) + TEXT_LAUNCHES + 2 * batches
+    if launches["ternary_matmul_rpb"] != want or launches["ternary_matmul"]:
+        raise AssertionError(f"serve_dense_correction launches {launches}, "
+                             f"expected {want} of ternary_matmul_rpb")
+    emit({"phase": "serve_dense_correction", "launches": launches,
+          "batches": {"image": N_IMAGES + 1, "text": 1,
+                      "classifier": batches},
+          "max_abs_err": errs, "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def load_vocab(path):
+    from atq_tpu_torch.data.flickr8k import load_vocab_file
+
+    return load_vocab_file(os.path.join(os.path.dirname(path), "vocab.json"))
 
 
 def _reset_launches():
@@ -1095,6 +1619,20 @@ def main():
                                               images, refs[True])
         np.testing.assert_allclose(packed, dense, rtol=2e-2, atol=2e-2,
                                    err_msg="packed vs dense")
+        t0 = time.perf_counter()
+        ret_path, vocab, corpus = make_retrieval_checkpoint(tmp)
+        req = retrieval_requests(vocab, corpus)
+        ret_ref = retrieval_cpu_reference(ret_path, vocab, req)
+        emit({"phase": "retrieval_cpu_reference",
+              "seconds": time.perf_counter() - t0})
+        img, txt, _ = phase_serve_retrieval("serve_retrieval", ret_path,
+                                            req, ret_ref)
+        _, _, pack32_launches = phase_serve_retrieval(
+            "serve_retrieval_pack32", ret_path, req, ret_ref, pack32=True,
+            same_as=(img, txt))
+        rpb_launches = phase_dense_correction(
+            ret_path, req, {**ret_ref, "sparse_image": img,
+                            "sparse_text": txt}, path, images, packed)
         batch = _step0_batch()
         cpu_step0 = _step0("cpu", False, batch)
         _, dense_step0 = phase_train("train_dense", False, tmp, batch,
@@ -1112,6 +1650,13 @@ def main():
                            "atq_tpu/ops/ternary_matmul.py:85 (_kernel), "
                            ":207 (_kernel_kblocked)",
                            packed_launches["ternary_matmul"]),
+        "ternary_matmul_rpb": ("atq_tpu_torch/csrc/ternary_matmul.cu",
+                               "atq_tpu/ops/ternary_matmul.py:106 "
+                               "(_kernel_rpb)",
+                               rpb_launches["ternary_matmul_rpb"]),
+        "ternary_matmul32": ("atq_tpu_torch/csrc/ternary_matmul.cu",
+                             "atq_tpu/ops/ternary_matmul.py:362 (_kernel32)",
+                             pack32_launches["ternary_matmul32"]),
         "fused_forward": ("atq_tpu_torch/csrc/fused_linear.cu",
                           "atq_tpu/ops/fused_linear.py:90 (_fwd_kernel), "
                           ":107 (_fwd_kernel_nomask)",

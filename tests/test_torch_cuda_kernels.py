@@ -8,8 +8,9 @@ conftest:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: the order statistic is bit-exact (max equal, sum within
-rtol 1e-6); the packed matmul is held to rtol 1e-5 / atol 5e-3, the JAX
-package's own kernel tolerance (tests/test_pallas_interpret.py).
+rtol 1e-6); the packed matmuls (uint8 planes, planar32 words, and the fused
+RPB correction) are held to rtol 1e-5 / atol 5e-3, the JAX package's own
+kernel tolerance (tests/test_pallas_interpret.py).
 """
 
 import numpy as np
@@ -316,3 +317,86 @@ def test_fused_attention_op_on_cuda_equals_cpu(cuda):
         out[str(dev)] = [y.detach().cpu()] + [t.grad.cpu() for t in leaves]
     for got, want in zip(out[str(cuda)], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+# Planar32 (kernel 5) and RPB (kernel 4) matmuls (csrc/ternary_matmul.cu
+# tiled_packed_kernel) against their plain versions, (M, K, N): the
+# retrieval text tower at 32 x 50 tokens, the image projector, the
+# classifier head, ragged shapes, and K past one 2048-column planar32 block.
+PACKED_CASES = [(1600, 192, 192), (1600, 384, 192), (32, 512, 192),
+                (32, 3136, 128), (7, 100, 24), (65, 2049, 70), (1, 128, 8)]
+
+
+def _packed_case(cuda, m, k, n, seed=0):
+    from atq_tpu_torch.core.packing import pack_planar32
+
+    rng = np.random.RandomState(seed)
+    w = torch.from_numpy(rng.randint(-1, 2, (n, k)).astype(np.float32))
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    corr = torch.from_numpy((rng.randn(n, k) * 0.02 * (rng.rand(n, k) < 0.05))
+                            .astype(np.float32)).to(torch.bfloat16)
+    return (x.to(cuda), pack_planar(w).to(cuda), pack_planar32(w).to(cuda),
+            corr.to(cuda))
+
+
+@pytest.mark.parametrize("mkn", PACKED_CASES)
+def test_matmul32_and_rpb_match_plain(cuda, mkn):
+    from atq_tpu_torch.ops import ternary_matmul as tm
+
+    m, k, n = mkn
+    x, planes, words, corr = _packed_case(cuda, m, k, n)
+    for avec, asym in (((0.9, 0.9), False), ((0.9, 0.4), True)):
+        avec = torch.tensor(avec, device=cuda)
+        before = tm.ternary_matmul_planar32.launches
+        got = tm.ternary_matmul_planar32(x, words, k, avec, asym)
+        assert tm.ternary_matmul_planar32.launches == before + 1
+        torch.testing.assert_close(
+            got, tm.ternary_matmul32_plain(x, words, k, avec, asym),
+            rtol=MM_RTOL, atol=MM_ATOL)
+    avec = torch.tensor((0.9, 0.9), device=cuda)
+    before = tm.ternary_matmul_rpb.launches
+    got = tm.ternary_matmul_rpb(x, planes, corr, k, avec)
+    assert tm.ternary_matmul_rpb.launches == before + 1
+    torch.testing.assert_close(
+        got, tm.ternary_matmul_rpb_plain(x, planes, corr, k, avec),
+        rtol=MM_RTOL, atol=MM_ATOL)
+
+
+def test_matmul32_and_rpb_reject_bad_cuda_input(cuda):
+    from atq_tpu_torch.ops import ternary_matmul as tm
+
+    x, planes, words, corr = _packed_case(cuda, 4, 256, 16)
+    avec = torch.tensor([1.0, 1.0], device=cuda)
+    with pytest.raises(ValueError):  # no silent fallback for CUDA tensors
+        tm.ternary_matmul_planar32(x.double(), words, 256, avec)
+    with pytest.raises(ValueError):  # uint8 planes are not planar32 words
+        tm.ternary_matmul_planar32(x, planes, 256, avec)
+    with pytest.raises(ValueError):  # correction on the CPU
+        tm.ternary_matmul_rpb(x, planes, corr.cpu(), 256, avec)
+    with pytest.raises(ValueError):  # correction in float32
+        tm.ternary_matmul_rpb(x, planes, corr.float(), 256, avec)
+
+
+def test_packed_layers_on_cuda_equal_cpu(cuda, monkeypatch):
+    """packed_linear_apply on the card (planar32 and dense-correction
+    entries) against the same entries on the CPU."""
+    from atq_tpu_torch.serve.packed_model import (
+        pack_quantized_layer,
+        packed_linear_apply,
+    )
+
+    rng = np.random.RandomState(5)
+    params = {"weight": (rng.randn(96, 384) * 0.05).astype(np.float32),
+              "alpha": np.full((1,), 0.04, np.float32),
+              "bias": (rng.randn(96) * 0.1).astype(np.float32)}
+    quant = {"precision_mask": rng.rand(96, 384) < 0.2,
+             "sparsity_target": np.float32(0.1)}
+    x = torch.from_numpy(rng.randn(50, 384).astype(np.float32))
+    for pack32, sparse in ((True, True), (False, False), (True, False)):
+        monkeypatch.setenv("ATQ_PACK32", "1" if pack32 else "0")
+        want = packed_linear_apply(pack_quantized_layer(
+            params, quant, device="cpu", sparse_correction=sparse), x)
+        got = packed_linear_apply(pack_quantized_layer(
+            params, quant, device=cuda, sparse_correction=sparse),
+            x.to(cuda)).cpu()
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

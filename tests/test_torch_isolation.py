@@ -1,7 +1,8 @@
 """The port stands alone: importing every ``atq_tpu_torch`` module (the
-training slice's ``train``, ``data`` and fused-op modules included) pulls
-in neither JAX nor the JAX package, and its entry points refuse to fall
-back to the CPU when no device is requested and no GPU is present."""
+training slices' ``train``, ``data`` and fused-op modules and the retrieval
+serving slice's models, int8 trunk, index and tokenizer included) pulls in
+neither JAX nor the JAX package, and its entry points refuse to fall back
+to the CPU when no device is requested and no GPU is present."""
 
 import os
 import pathlib
@@ -58,6 +59,12 @@ def _entry_points():
     )
     from atq_tpu_torch.utils.platform import resolve_device
 
+    from atq_tpu_torch.models.resnet import ResNetFeatures
+    from atq_tpu_torch.models.retrieval import ATQMultimodalRetrieval
+    from atq_tpu_torch.models.text_encoder import ATQTextEncoder
+    from atq_tpu_torch.serve.index import EmbeddingIndex
+    from atq_tpu_torch.serve.int8_trunk import export_int8_collection
+
     return [
         lambda: resolve_device(),
         lambda: ATQImageClassifier(),
@@ -65,6 +72,13 @@ def _entry_points():
                                       "alpha": torch.ones(1).numpy()}),
         lambda: BaselineCNNClassifier(),
         lambda: train_classifier(ClassifierConfig(), loaders=(None,) * 3),
+        lambda: ATQMultimodalRetrieval(vocab_size=8, embed_dim=16,
+                                       hidden_dim=16),
+        lambda: ATQTextEncoder(8, embed_dim=16, num_layers=1,
+                               dim_feedforward=16),
+        lambda: ResNetFeatures(),
+        lambda: EmbeddingIndex(4),
+        lambda: export_int8_collection({}, {}),
     ]
 
 
@@ -75,13 +89,16 @@ def test_expected_modules_exist():
                  "data/augment.py", "data/prefetch.py", "utils/metrics.py",
                  "ops/fused_attention.py", "nn/attention.py",
                  "nn/transformer.py", "nn/hoist.py", "utils/flops.py",
-                 "utils/timing.py", "train/scale.py"):
+                 "utils/timing.py", "train/scale.py", "core/packing.py",
+                 "models/resnet.py", "models/text_encoder.py",
+                 "models/retrieval.py", "serve/int8_trunk.py",
+                 "serve/index.py", "data/flickr8k.py", "data/treebank.py"):
         assert name in names, name
     for name in ("fused_linear.cu", "fused_attention.cu", "order_stat.cu"):
         assert (PKG / "csrc" / name).exists(), name
 
 
-@pytest.mark.parametrize("which", range(5))
+@pytest.mark.parametrize("which", range(10))
 def test_entry_points_without_device_raise_on_a_cpu_only_host(which):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
@@ -89,16 +106,26 @@ def test_entry_points_without_device_raise_on_a_cpu_only_host(which):
         _entry_points()[which]()
 
 
-def test_serving_cli_defaults_to_cuda(tmp_path):
-    if torch.cuda.is_available():
-        pytest.skip("a GPU is present: the default device is valid here")
+def _serving_cli_defaults_to_cuda(tmp_path, task):
     from atq_tpu_torch.serve.__main__ import build_parser, build_server
 
     assert build_parser().parse_args(
-        ["--task", "classification", "--checkpoint", "x"]).device == "cuda"
+        ["--task", task, "--checkpoint", "x"]).device == "cuda"
     with pytest.raises(RuntimeError, match="no GPU"):
-        build_server(["--task", "classification", "--checkpoint",
+        build_server(["--task", task, "--checkpoint",
                       str(tmp_path / "missing.npz")])
+
+
+def test_serving_cli_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    _serving_cli_defaults_to_cuda(tmp_path, "classification")
+
+
+def test_retrieval_serving_cli_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    _serving_cli_defaults_to_cuda(tmp_path, "retrieval")
 
 
 def test_training_cli_defaults_to_cuda(tmp_path):

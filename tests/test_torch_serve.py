@@ -107,6 +107,8 @@ def test_unported_options_and_grad_mode_mismatch_exit(checkpoint):
     _, _, path = checkpoint
     base = ["--checkpoint", path, "--device", "cpu"]
     with pytest.raises(SystemExit, match="not ported"):
+        build_server(["--task", "retrieval", "--aot", "x"] + base)
+    with pytest.raises(SystemExit, match="vocab.json"):  # none beside it
         build_server(["--task", "retrieval"] + base)
     with pytest.raises(SystemExit, match="not ported"):
         build_server(["--task", "classification", "--aot", "x"] + base)

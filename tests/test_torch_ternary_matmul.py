@@ -54,9 +54,15 @@ def test_matches_jax_packed_matmul(mnk, ttq):
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("layout", ["rows", "flat", "planar32"])
-def test_unported_layouts_raise(layout):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+# 'rows' and 'flat' are not ported yet; 'planar32' is
+# (tests/test_torch_packed_kernels.py), and refuses uint8 planes.
+@pytest.mark.parametrize("layout,error", [("rows", NotImplementedError),
+                                          ("flat", NotImplementedError),
+                                          ("planar32", ValueError)],
+                         ids=["rows", "flat", "planar32"])
+def test_unported_layouts_raise(layout, error):
+    with pytest.raises(error, match="ROADMAP" if error is
+                       NotImplementedError else "int32"):
         packed_ternary_matmul(torch.zeros(2, 128), torch.zeros(
             8, 128, dtype=torch.uint8), (8, 128), layout=layout)
 
