@@ -3,16 +3,25 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with
                                    # one NVIDIA H100 (sm_90a) and nvcc
+    python3 chip_smoke.py --compare DIR [OUT]
+                                   # the packed kernels of another checkout
+                                   # (DIR) against this tree's, in turns
+                                   # DIR, this, this, DIR (device ms; raw
+                                   # rows in OUT, default outputs/compare)
 
 Phases, one JSON line each; any failure exits non-zero:
 
-  build         compiles the CUDA kernels from atq_tpu_torch/csrc (nvcc).
+  build         compiles the CUDA kernels from atq_tpu_torch/csrc (nvcc);
+                ptxas's registers and spills, and the HMMA count of each
+                tiled_packed_kernel instantiation (cuobjdump -sass).
   kernels       holds each kernel against its plain PyTorch version on the
                 card (order statistic bit-exact at every listed size and
                 rank; packed matmul within rtol 1e-5 / atol 5e-3, the JAX
                 package's own kernel tolerance) and times kernel, plain
                 version and a one-call PyTorch yardstick at the serving
-                shapes, beside the card's bound for the same work.
+                shapes, beside the card's bound for the same work (the
+                packed kernels: bytes, or three bf16 passes a product at
+                the tensor-core rate; the others: bytes or f32 operations).
   serve_dense   starts the port's HTTP server in-process on a seeded,
                 full-width Fashion-MNIST RPB classifier (28x28x1 input,
                 3136 -> 128 -> 10 head) written as a JAX-layout .npz, posts
@@ -103,8 +112,9 @@ The planar32 and RPB kernels are held against their plain versions in
 phase kernels (rtol 1e-5 / atol 5e-3) at the text tower's (M, K -> N) =
 (1600, 192 -> 192), (1600, 192 -> 384), (1600, 384 -> 192),
 (1600, 192 -> 96), the image projector's (32, 512 -> 192), the classifier
-head's (32, 3136 -> 128) and a ragged (7, 100 -> 24); planar32 symmetric and
-TTQ.
+head's (32, 3136 -> 128), a ragged (7, 100 -> 24) and EDGE_SHAPES; planar32
+symmetric and TTQ. The three packed kernels (uint8 planes, planar32, RPB)
+are launched twice at each shape and must repeat bit for bit.
 
 The fused kernels are held against their plain versions in phase kernels
 at the recipe shapes (256x128x3136, 256x10x128), wider (256x256x3136),
@@ -122,8 +132,10 @@ the repo beside it, the script exits non-zero and prints no result.
 """
 
 import contextlib
+import importlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -135,15 +147,20 @@ from concurrent.futures import ThreadPoolExecutor
 import numpy as np
 import torch
 
-# NVIDIA H100 SXM published peaks (data sheet): HBM3 rate and the float32
-# rate outside the tensor cores.
+# NVIDIA H100 SXM published peaks (data sheet): HBM3 rate, the float32
+# rate outside the tensor cores, and the dense bf16 tensor-core rate.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
+PEAK_BF16_FLOP_PER_S = 989e12
 N_REQUESTS = 64
 MAX_BATCH = 32
 OS_SIZES = (401408, 802816, 16384, 16385, 2359296)
 MM_SHAPES = ((128, 3136), (10, 128), (256, 3136), (10, 256))
 MM_RTOL, MM_ATOL = 1e-5, 5e-3
+# Edge shapes of the packed kernels, (M, K, N): the eligibility minima
+# (N = 8, K = 128), K = 200 (not a multiple of 16 or 32), M = 1 and 17.
+EDGE_SHAPES = ((1, 128, 8), (17, 128, 8), (17, 200, 8), (1, 200, 24),
+               (17, 200, 40))
 FUSED_SHAPES = ((256, 128, 3136), (256, 10, 128), (256, 256, 3136),
                 (7, 24, 100), (2304, 128, 3136))
 FUSED_TOL = 1e-4  # rtol/atol on y, dx, dw; relative on dalpha
@@ -227,18 +244,22 @@ def _device_us(events):
 def device_ms(fn, iters=50):
     """Mean device time of ``fn`` per call from torch.profiler: the summed
     time of the kernels (and memsets) it ran. Unlike :func:`time_ms` it
-    leaves out the gaps in which the device waits for the host. None when
-    the profiler records no device activity."""
+    leaves out the gaps in which the device waits for the host. A window in
+    which the profiler records no device activity (it happens now and then)
+    is traced again, twice at most; None if all three record none."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    total_us = _device_us(prof.key_averages())
-    return total_us / 1e3 / iters if total_us > 0 else None
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        total_us = _device_us(prof.key_averages())
+        if total_us > 0:
+            return total_us / 1e3 / iters
+    return None
 
 
 def timed(fns: dict) -> dict:
@@ -250,10 +271,24 @@ def timed(fns: dict) -> dict:
     return out
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, peak_flops=PEAK_F32_FLOP_PER_S):
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_F32_FLOP_PER_S * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound_bf16x3(nbytes: float, m: int, n: int, k: int, products=1):
+    """The packed kernels' bound: bytes, or the three bf16 passes of each
+    product (6·M·N·K operations a product) at the tensor-core rate."""
+    return bound(nbytes, 6 * m * n * k * products, PEAK_BF16_FLOP_PER_S)
+
+
+def _same_bits(name, fn, first):
+    """A second launch must give the first one's bits."""
+    again = fn()
+    if not torch.equal(first, again):
+        raise AssertionError(f"{name}: a second launch differs by "
+                             f"{(first - again).abs().max().item()}")
 
 
 def phase_build(smi: str):
@@ -267,7 +302,29 @@ def phase_build(smi: str):
           "nvidia_smi": smi, "built": build_info["built"],
           "sources": build_info["sources"],
           "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]})
+                    if "registers" in ln or "spill" in ln],
+          "packed_kernel_hmma": _sass_hmma(build_info["library"])})
+
+
+def _sass_hmma(library):
+    """HMMA instructions in each tiled_packed_kernel instantiation's SASS
+    (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    sass = subprocess.run([tool, "-sass", library], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            if "tiled_packed_kernel" not in name:
+                name = None
+            else:
+                counts[name] = 0
+        elif name and "HMMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def _os_inputs(gen):
@@ -321,7 +378,7 @@ def check_matmul(gen):
 
     shapes = [(m, n, k) for m in (1, 7, 32, 128) for n, k in MM_SHAPES]
     shapes.append((128, 128, 8704))  # routes to _kernel_kblocked in JAX
-    shapes += [(m, n, k) for m, k, n in PACKED_SHAPES]  # the text tower's
+    shapes += [(m, n, k) for m, k, n in PACKED_SHAPES + EDGE_SHAPES]
     max_err, cases = 0.0, 0
     for m, n, k in shapes:
         w = torch.randint(-1, 2, (n, k), device="cuda", generator=gen).float()
@@ -329,11 +386,16 @@ def check_matmul(gen):
         x = torch.randn(m, k, device="cuda", generator=gen)
         for asym, avec in ((False, (0.9, 0.9)), (True, (0.9, 0.4))):
             avec = torch.tensor(avec, device="cuda")
-            got = ternary_matmul_planar(x, planes, k, avec, asym)
+
+            def fn():
+                return ternary_matmul_planar(x, planes, k, avec, asym)
+
+            got = fn()
             want = ternary_matmul_plain(x, planes, k, avec, asym)
             torch.cuda.synchronize()
             torch.testing.assert_close(got, want, rtol=MM_RTOL,
                                        atol=MM_ATOL)
+            _same_bits(f"matmul {m}x{n}x{k} asym={asym}", fn, got)
             max_err = max(max_err, (got - want).abs().max().item())
             cases += 1
     return max_err, cases
@@ -368,7 +430,8 @@ def time_matmul(gen, m, n, k):
     avec = torch.tensor([0.9, 0.9], device="cuda")
     w_deq = (w * 0.9).contiguous()
     kq = planes.shape[1]
-    b_ms, b_by = bound(m * k * 4 + n * kq + 8 + m * n * 4, 2 * m * n * k)
+    # 2 bits a weight of the logical K, not the padding
+    b_ms, b_by = bound_bf16x3(m * k * 4 + n * k / 4 + 8 + m * n * 4, m, n, k)
     return {"m": m, "n": n, "k": k, "bound_ms": b_ms, "bound_by": b_by,
             **timed({"kernel": lambda: ternary_matmul_planar(x, planes, k,
                                                              avec),
@@ -391,27 +454,38 @@ def _packed_inputs(gen, m, k, n):
 
 
 def check_packed_kernels(gen):
-    """Kernels 4 and 5 against their plain versions at PACKED_SHAPES;
-    kernel 5 symmetric and TTQ."""
+    """Kernels 4 and 5 against their plain versions at PACKED_SHAPES and
+    EDGE_SHAPES, kernel 5 symmetric and TTQ; each launched twice, the two
+    results bit for bit equal."""
     from atq_tpu_torch.ops import ternary_matmul as tm
 
     errs = {"ternary_matmul32": 0.0, "ternary_matmul_rpb": 0.0}
     cases = 0
-    for m, k, n in PACKED_SHAPES:
+    for m, k, n in PACKED_SHAPES + EDGE_SHAPES:
         x, _, planes, words, corr = _packed_inputs(gen, m, k, n)
         for asym, avec in ((False, (0.9, 0.9)), (True, (0.9, 0.4))):
             avec = torch.tensor(avec, device="cuda")
-            got = tm.ternary_matmul_planar32(x, words, k, avec, asym)
+
+            def fn32():
+                return tm.ternary_matmul_planar32(x, words, k, avec, asym)
+
+            got = fn32()
             want = tm.ternary_matmul32_plain(x, words, k, avec, asym)
             errs["ternary_matmul32"] = max(errs["ternary_matmul32"], _err(
                 f"matmul32 {m}x{k}->{n} asym={asym}", got, want,
                 MM_RTOL, MM_ATOL))
+            _same_bits(f"matmul32 {m}x{k}->{n} asym={asym}", fn32, got)
             cases += 1
         avec = torch.tensor((0.9, 0.9), device="cuda")
-        got = tm.ternary_matmul_rpb(x, planes, corr, k, avec)
+
+        def fn_rpb():
+            return tm.ternary_matmul_rpb(x, planes, corr, k, avec)
+
+        got = fn_rpb()
         want = tm.ternary_matmul_rpb_plain(x, planes, corr, k, avec)
         errs["ternary_matmul_rpb"] = max(errs["ternary_matmul_rpb"], _err(
             f"rpb {m}x{k}->{n}", got, want, MM_RTOL, MM_ATOL))
+        _same_bits(f"rpb {m}x{k}->{n}", fn_rpb, got)
         cases += 1
     torch.cuda.synchronize()
     return errs, cases
@@ -421,7 +495,8 @@ def time_packed(gen, m, k, n):
     """The packed kernels (uint8 planes, kernels 4 and 5) at one shape:
     kernel, plain version, and one torch.matmul on the prebuilt dequantized
     weight as the yardstick. The bounds count the logical K (2 bits a
-    weight), not the padding."""
+    weight), not the padding; the operations, the three bf16 passes of each
+    product on the tensor cores."""
     from atq_tpu_torch.ops import ternary_matmul as tm
 
     x, w, planes, words, corr = _packed_inputs(gen, m, k, n)
@@ -430,11 +505,10 @@ def time_packed(gen, m, k, n):
     w_rpb = (w * 0.9 + corr.float()).contiguous()
     x_out = m * k * 4 + 8 + m * n * 4  # read x and alpha, write out
     planes_b = n * k / 4
-    b32, b32_by = bound(x_out + planes_b, 2 * m * n * k)
-    # The RPB function also reads the bf16 correction; its least work is
-    # the blend (2 ops a weight) and one product.
-    brpb, brpb_by = bound(x_out + planes_b + n * k * 2,
-                          2 * m * n * k + 2 * n * k)
+    b32, b32_by = bound_bf16x3(x_out + planes_b, m, n, k)
+    # The RPB function also reads the bf16 correction and has two products.
+    brpb, brpb_by = bound_bf16x3(x_out + planes_b + n * k * 2, m, n, k,
+                                 products=2)
     return {
         "ternary_matmul": {
             "m": m, "n": n, "k": k, "bound_ms": b32, "bound_by": b32_by,
@@ -1592,11 +1666,95 @@ def phase_train_encoder(tmp):
     return launches
 
 
-def main():
+# --compare: the packed kernels at serving's head shapes (M = 32 and 1),
+# the K-blocked shape and PACKED_SHAPES, old against new.
+COMPARE_MM = tuple((m, n, k) for m in (MAX_BATCH, 1) for n, k in MM_SHAPES) \
+    + ((128, 128, 8704),)
+PACKED_KERNELS = ("ternary_matmul", "ternary_matmul32", "ternary_matmul_rpb")
+
+
+def time_tree(tree, out):
+    """Times the packed kernels with ``tree``'s own chip_smoke.py and
+    atq_tpu_torch (which build that tree's kernels) at COMPARE_MM
+    (time_matmul) and PACKED_SHAPES (time_packed); writes them to ``out``."""
+    tree = os.path.abspath(tree)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
+    mod = importlib.import_module("chip_smoke")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    result = {"tree": tree,
+              "matmul": [mod.time_matmul(gen, *s) for s in COMPARE_MM],
+              "packed": [mod.time_packed(gen, *s) for s in PACKED_SHAPES]}
+    with open(out, "w") as f:
+        json.dump(result, f)
+
+
+def compare(parent, out_dir="outputs/compare"):
+    """The packed kernels of ``parent`` (another checkout) and of this tree
+    on one card, in turns parent, this, this, parent, each in a process of
+    its own; device ms (torch.profiler) at every shape, and summed per
+    batch on each main path. Each run's rows go to ``out_dir``."""
+    os.makedirs(out_dir, exist_ok=True)
+    runs = []
+    for i, tree in enumerate((parent, ".", ".", parent)):
+        path = os.path.abspath(os.path.join(out_dir, f"compare_{i}.json"))
+        subprocess.run([sys.executable, os.path.abspath(__file__),
+                        "--time-tree", tree, path], check=True, timeout=900)
+        with open(path) as f:
+            runs.append(json.load(f))
+    old, new = (runs[0], runs[3]), (runs[1], runs[2])
+
+    def pick(pair, what, i, name):
+        rows = [r[what][i] if name is None else r[what][i][name]
+                for r in pair]
+        return rows, float(np.mean([r["kernel_device_ms"] for r in rows
+                                    if r["kernel_device_ms"] is not None]))
+
+    ms = {}
+    cases = [("matmul", i, None, "ternary_matmul", (m, k, n))
+             for i, (m, n, k) in enumerate(COMPARE_MM)]
+    cases += [("packed", i, name, name, shape)
+              for i, shape in enumerate(PACKED_SHAPES)
+              for name in PACKED_KERNELS]
+    for what, i, key, name, (m, k, n) in cases:
+        old_rows, old_ms = pick(old, what, i, key)
+        new_rows, new_ms = pick(new, what, i, key)
+        ms[name, m, k, n] = (old_ms, new_ms)
+        emit({"compare": name, "m": m, "k": k, "n": n, "old_ms": old_ms,
+              "new_ms": new_ms, "new_over_old": new_ms / old_ms,
+              "old_runs": [r["kernel_device_ms"] for r in old_rows],
+              "new_runs": [r["kernel_device_ms"] for r in new_rows],
+              "library_ms": float(np.mean([r["library_device_ms"]
+                                           for r in new_rows])),
+              "bound_ms": new_rows[0]["bound_ms"],
+              "bound_by": new_rows[0]["bound_by"]})
+    # Per batch: serve_packed's head at M = 32; a text batch's 24 layer
+    # projections and attention_pool_0 at M = 1600; an image batch's
+    # projector.
+    text = ((16, 192, 192), (4, 192, 384), (4, 384, 192), (1, 192, 96))
+    per_batch = {"serve_packed": [sum(ms["ternary_matmul", MAX_BATCH, k, n][j]
+                                      for n, k in MM_SHAPES[:2])
+                                  for j in (0, 1)]}
+    for name in PACKED_KERNELS:
+        per_batch[f"text_batch_{name}"] = [
+            sum(c * ms[name, 1600, k, n][j] for c, k, n in text)
+            for j in (0, 1)]
+        per_batch[f"image_batch_{name}"] = list(ms[name, 32, 512, 192])
+    emit({"per_batch_device_ms_old_new": per_batch})
+
+
+def main(argv=None):
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    if argv[:1] == ["--time-tree"]:
+        time_tree(*argv[1:3])
+        return 0
+    if argv[:1] == ["--compare"]:
+        compare(*argv[1:3])
+        return 0
     from atq_tpu_torch.data.mnist import synthetic_test_set
     from atq_tpu_torch.utils.platform import resolve_device
 

@@ -10,7 +10,7 @@ conftest:
 Tolerances: the order statistic is bit-exact (max equal, sum within
 rtol 1e-6); the packed matmuls (uint8 planes, planar32 words, and the fused
 RPB correction) are held to rtol 1e-5 / atol 5e-3, the JAX package's own
-kernel tolerance (tests/test_pallas_interpret.py).
+kernel tolerance (tests/test_pallas_interpret.py), and repeat bit for bit.
 """
 
 import numpy as np
@@ -360,6 +360,67 @@ def test_matmul32_and_rpb_match_plain(cuda, mkn):
     torch.testing.assert_close(
         got, tm.ternary_matmul_rpb_plain(x, planes, corr, k, avec),
         rtol=MM_RTOL, atol=MM_ATOL)
+
+
+# The tensor-core kernel's edges, (M, K, N): the eligibility minima (N = 8,
+# K = 128), K = 200 (not a multiple of 16 or 32), M = 1 and 17, and K long
+# enough to be split across blocks (3136, 8704). All three entry points,
+# symmetric and TTQ through uint8 planes and planar32 words, each launched
+# twice: the second result must equal the first bit for bit (no atomics).
+EDGE_CASES = [(1, 128, 8), (17, 128, 8), (17, 200, 8), (1, 200, 24),
+              (17, 200, 40), (1, 3136, 128), (128, 8704, 128)]
+
+
+def _planar_and_plain(tm):
+    return ((tm.ternary_matmul_planar, tm.ternary_matmul_plain, 1),
+            (tm.ternary_matmul_planar32, tm.ternary_matmul32_plain, 2))
+
+
+@pytest.mark.parametrize("mkn", EDGE_CASES)
+def test_packed_kernels_edges_ttq_and_repeat(cuda, mkn):
+    from atq_tpu_torch.ops import ternary_matmul as tm
+
+    m, k, n = mkn
+    x, planes, words, corr = _packed_case(cuda, m, k, n, seed=m + k + n)
+    packed = {1: planes, 2: words}
+    for avec, asym in (((0.9, 0.9), False), ((0.9, 0.4), True)):
+        avec = torch.tensor(avec, device=cuda)
+        for fn, plain, which in _planar_and_plain(tm):
+            got = fn(x, packed[which], k, avec, asym)
+            torch.testing.assert_close(
+                got, plain(x, packed[which], k, avec, asym), rtol=MM_RTOL,
+                atol=MM_ATOL, msg=lambda msg: f"{fn.__name__} {asym}: {msg}")
+            assert torch.equal(got, fn(x, packed[which], k, avec, asym))
+    avec = torch.tensor((0.9, 0.9), device=cuda)
+    got = tm.ternary_matmul_rpb(x, planes, corr, k, avec)
+    torch.testing.assert_close(
+        got, tm.ternary_matmul_rpb_plain(x, planes, corr, k, avec),
+        rtol=MM_RTOL, atol=MM_ATOL)
+    assert torch.equal(got, tm.ternary_matmul_rpb(x, planes, corr, k, avec))
+
+
+def test_packed_kernels_take_unaligned_x(cuda):
+    """x at a 4-byte offset (no 16-byte copies of its rows) and a
+    correction whose rows are not 16-byte aligned (K = 100)."""
+    from atq_tpu_torch.ops import ternary_matmul as tm
+
+    for m, k, n in ((33, 256, 40), (7, 100, 24)):
+        x, planes, words, corr = _packed_case(cuda, m, k, n, seed=k)
+        flat = torch.empty(m * k + 1, device=cuda)
+        xu = flat[1:].view(m, k)
+        xu.copy_(x)
+        assert xu.is_contiguous() and xu.data_ptr() % 16 != 0
+        avec = torch.tensor((0.9, 0.4), device=cuda)
+        for fn, plain, which in _planar_and_plain(tm):
+            p = planes if which == 1 else words
+            torch.testing.assert_close(fn(xu, p, k, avec, True),
+                                       plain(x, p, k, avec, True),
+                                       rtol=MM_RTOL, atol=MM_ATOL)
+        avec = torch.tensor((0.9, 0.9), device=cuda)
+        torch.testing.assert_close(
+            tm.ternary_matmul_rpb(xu, planes, corr, k, avec),
+            tm.ternary_matmul_rpb_plain(x, planes, corr, k, avec),
+            rtol=MM_RTOL, atol=MM_ATOL)
 
 
 def test_matmul32_and_rpb_reject_bad_cuda_input(cuda):

@@ -12,6 +12,14 @@ CPU.
   kernels ``_kernel32`` and ``_kernel_rpb`` themselves through the
   interpreter (``ATQ_PALLAS_INTERPRET=1``, as tests/test_pallas_interpret.py
   does) and holds the port's plain versions to them.
+- The numerics the CUDA kernel (csrc/ternary_matmul.cu) rests on, with
+  its arithmetic emulated here: ternary weights and bf16 corrections are
+  exact bf16 values; x splits into three bf16 terms that add back to x
+  within 2^-24·|x|; the three bf16-operand products summed in float32
+  (symmetric, TTQ with two accumulators, RPB with two sums) match a float64
+  product within (4K)·2^-24·(|x| @ |W|ᵀ), the float32 summation bound; and
+  they match the Pallas kernels ``_kernel``, ``_kernel32`` and
+  ``_kernel_rpb`` run in interpret mode within rtol/atol 1e-5.
 - Export under ATQ_PACK32=0/1 x sparse_correction=True/False: planes
   bit-exact, alpha exact, ELL/COO indices equal, bf16 values exact;
   ``packed_linear_apply`` agrees with JAX on every route within 1e-5, and
@@ -202,6 +210,146 @@ def test_plain_versions_match_the_pallas_kernels_in_interpret_mode(tmp_path):
                                       torch.tensor([0.7, 0.7]))
     np.testing.assert_allclose(got.numpy(), want["rpb"], rtol=RTOL,
                                atol=ATOL)
+
+
+def _bf16_terms(x):
+    """x (float32) as the CUDA kernel splits it: three float32 tensors of
+    bf16 values, each the bf16 rounding of what the terms before it left."""
+    terms, rest = [], x
+    for _ in range(3):
+        term = rest.to(torch.bfloat16).float()
+        terms.append(term)
+        rest = rest - term
+    return terms
+
+
+def _bf16x3(x, w, alpha, alpha_neg=None, corr=None):
+    """The kernel's arithmetic: the three bf16 terms of x against exact
+    bf16 operands, products summed in float32; symmetric (one sum scaled
+    by alpha), TTQ (the indicator planes [w = +1] and [w = -1] in two sums,
+    alpha·S+ − alpha_neg·S−) or RPB (the ternary sum scaled by alpha, plus
+    the correction's sum)."""
+    terms = _bf16_terms(x)
+
+    def dot(b):
+        return sum(torch.matmul(t, b.T) for t in terms)
+
+    if alpha_neg is not None:
+        return (alpha * dot((w == 1).float())
+                - alpha_neg * dot((w == -1).float()))
+    out = dot(w) * alpha
+    return out if corr is None else out + dot(corr.float())
+
+
+def test_ternary_values_and_corrections_are_exact_in_bf16():
+    w = torch.from_numpy(_ternary((16, 200), seed=4))
+    assert torch.equal(w.to(torch.bfloat16).float(), w)
+    # The kernel's byte tables hold these bits for -1, 0, +1.
+    bits = torch.tensor([-1.0, 0.0, 1.0]).to(torch.bfloat16).view(torch.int16)
+    assert [b & 0xFFFF for b in bits.tolist()] == [0xBF80, 0x0000, 0x3F80]
+    rng = np.random.RandomState(5)
+    corr = torch.from_numpy((rng.randn(16, 200) * 0.02).astype(
+        np.float32)).to(torch.bfloat16)
+    assert torch.equal(corr.float().to(torch.bfloat16).view(torch.int16),
+                       corr.view(torch.int16))
+
+
+def test_three_bf16_terms_reconstruct_x():
+    rng = np.random.RandomState(6)
+    x = torch.from_numpy((rng.randn(64, 300) * 10.0 ** rng.uniform(
+        -20, 20, (64, 300))).astype(np.float32))
+    terms = _bf16_terms(x)
+    for t in terms:
+        assert torch.equal(t.to(torch.bfloat16).float(), t)
+    err = (x.double() - sum(t.double() for t in terms)).abs()
+    assert (err <= 2.0 ** -24 * x.double().abs()).all()
+
+
+@pytest.mark.parametrize("form", ["sym", "ttq", "rpb"])
+@pytest.mark.parametrize("mkn", [(8, 200, 16), (5, 3136, 24)])
+def test_bf16x3_products_match_float64(form, mkn):
+    m, k, n = mkn
+    rng = np.random.RandomState(k + n)
+    x = torch.from_numpy(rng.randn(m, k).astype(np.float32))
+    w = torch.from_numpy(_ternary((n, k), seed=k))
+    corr = torch.from_numpy((rng.randn(n, k) * 0.02 * (rng.rand(n, k) < 0.1))
+                            .astype(np.float32)).to(torch.bfloat16)
+    alpha, alpha_neg = 0.9, (0.4 if form == "ttq" else None)
+    got = _bf16x3(x, w, alpha, alpha_neg,
+                  corr if form == "rpb" else None).double()
+    wd = w.double()
+    if form == "ttq":
+        w_eff = alpha * wd.clamp(min=0) + alpha_neg * wd.clamp(max=0)
+    else:
+        w_eff = alpha * wd + (corr.double() if form == "rpb" else 0.0)
+    want = x.double() @ w_eff.T
+    scale = x.double().abs() @ w_eff.abs().T
+    assert ((got - want).abs() <= 4 * k * 2.0 ** -24 * scale).all()
+    plain = (tm.ternary_matmul_rpb_plain(x, pack_planar(w), corr, k,
+                                         torch.tensor([alpha, alpha]))
+             if form == "rpb" else
+             tm.ternary_matmul_plain(x, pack_planar(w), k, torch.tensor(
+                 [alpha, alpha_neg or alpha]), form == "ttq"))
+    # against the port's plain float32 version: the kernel's own tolerance
+    # on the card (rtol 1e-5 / atol 5e-3, JAX's kernel tolerance)
+    torch.testing.assert_close(got.float(), plain, rtol=1e-5, atol=5e-3)
+
+
+_INTERPRET_ALL = r"""
+import os, sys
+os.environ["JAX_PLATFORMS"] = "cpu"
+os.environ["ATQ_PALLAS_INTERPRET"] = "1"
+import jax
+jax.config.update("jax_platforms", "cpu")
+import jax.numpy as jnp
+import numpy as np
+sys.path.insert(0, os.environ["ATQ_REPO"])
+from atq_tpu.core.packing import pack_planar, pack_planar32
+from atq_tpu.ops.ternary_matmul import (
+    packed_ternary_matmul, packed_ternary_matmul_rpb, pallas_eligible)
+d = dict(np.load(sys.argv[1]))
+m, k = d["x"].shape
+n = d["w"].shape[0]
+assert pallas_eligible((m, k), (n, k))
+x, w = jnp.asarray(d["x"]), jnp.asarray(d["w"])
+out = {"rpb": packed_ternary_matmul_rpb(
+    x, pack_planar(w), jnp.asarray(d["corr"], jnp.bfloat16), (n, k),
+    alpha=0.7)}
+for layout, packed in (("planar", pack_planar(w)),
+                       ("planar32", pack_planar32(w))):
+    for name, neg in (("sym", None), ("ttq", 0.4)):
+        out[layout + "_" + name] = packed_ternary_matmul(
+            x, packed, (n, k), alpha=0.9, layout=layout, alpha_neg=neg)
+np.savez(sys.argv[2], **{k: np.asarray(v) for k, v in out.items()})
+"""
+
+
+@pytest.mark.parametrize("mkn", [(8, 200, 16), (5, 136, 12)])
+def test_bf16x3_matches_the_pallas_kernels_in_interpret_mode(tmp_path, mkn):
+    """``_kernel`` and ``_kernel32`` (symmetric and TTQ) and ``_kernel_rpb``
+    run by the Pallas interpreter against the CUDA kernel's arithmetic, at
+    an eligible shape and a ragged one (M = 5, K = 136, N = 12)."""
+    m, k, n = mkn
+    rng = np.random.RandomState(m * n)
+    x = (rng.randn(m, k) * 0.1).astype(np.float32)
+    w = _ternary((n, k), seed=n)
+    corr = torch.from_numpy((rng.randn(n, k) * 0.02 * (rng.rand(n, k) < 0.1))
+                            .astype(np.float32)).to(torch.bfloat16)
+    np.savez(tmp_path / "in.npz", x=x, w=w, corr=corr.float().numpy())
+    env = {**os.environ, "ATQ_REPO": REPO}
+    out = subprocess.run([sys.executable, "-c", _INTERPRET_ALL,
+                          str(tmp_path / "in.npz"), str(tmp_path / "out.npz")],
+                         env=env, capture_output=True, text=True, timeout=240)
+    assert out.returncode == 0, out.stdout + out.stderr
+    want = np.load(tmp_path / "out.npz")
+    xt, wt = torch.from_numpy(x), torch.from_numpy(w)
+    for layout in ("planar", "planar32"):
+        for name, neg in (("sym", None), ("ttq", 0.4)):
+            np.testing.assert_allclose(
+                _bf16x3(xt, wt, 0.9, neg).numpy(), want[f"{layout}_{name}"],
+                rtol=RTOL, atol=ATOL, err_msg=f"{layout} {name}")
+    np.testing.assert_allclose(_bf16x3(xt, wt, 0.7, corr=corr).numpy(),
+                               want["rpb"], rtol=RTOL, atol=ATOL)
 
 
 def _layer(seed, n=24, k=192, ttq=False, with_mask=True, bias=True):
