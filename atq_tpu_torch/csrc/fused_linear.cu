@@ -12,44 +12,105 @@
 // Each is one kernel template with a has_mask switch (and, for dW, the
 // STE/parity switch), so the mask and no-mask variants share one body.
 //
-// Design. All three are the same shared-memory f32 GEMM: a 256-thread block
-// owns a 64 x 64 output tile, walks the reduction axis in steps of 16, stages
-// one 64 x 16 slice of each operand in shared memory, and each thread
-// accumulates a 4 x 4 grid of outputs with FMAs in registers. What differs
-// is how each operand is read (reduction axis contiguous or not) and what
-// happens to the weight on its way into shared memory or out of the
-// accumulators:
-// - forward and dx ternarize and blend each weight element as it is loaded,
-//   so w_t and w_eff never exist in device memory (the TPU kernels do the
-//   same inside the VMEM tile);
-// - dW/dalpha forms G = gᵀx tile by tile and turns it into dw (mode
-//   dependent) and a dalpha partial in the epilogue; G never reaches device
-//   memory. The TPU kernel keeps the whole batch resident and carries dalpha
-//   in one SMEM scalar across an in-order grid; here the block loops over M
-//   (any batch size, no fallback) and writes one dalpha partial per block,
-//   which a second one-block pass sums in a fixed order, so dalpha is the
-//   same from run to run (no float atomics).
-// - The forward has a short output (256 x 128 at the recipe) and a long
-//   reduction (K = 3136), which would give 8 blocks for 132 SMs; it splits K
-//   over grid.z into per-split partials that a second pass adds in a fixed
-//   order.
+// Forward and dx: gemm_kernel, a shared-memory f32 FMA GEMM. A 256-thread
+// block owns a 64 x 64 output tile, walks the reduction axis in steps of
+// 16, stages one 64 x 16 slice of each operand in shared memory, and each
+// thread accumulates a 4 x 4 grid of outputs with FMAs in registers. Each
+// weight element is ternarized and blended as it is loaded, so w_t and
+// w_eff never exist in device memory (the TPU kernels do the same inside
+// the VMEM tile). The forward has a short output (256 x 128 at the recipe)
+// and a long reduction (K = 3136), which would give 8 blocks for 132 SMs;
+// it splits K over grid.z into per-split partials that a second pass adds
+// in a fixed order. Bound at the recipe's first layer (256 x 128 x 3136):
+// 2·M·N·K = 205.5 MFLOP, 3.1 us at the 67 TFLOP/s f32 (non tensor core)
+// rate, against about 5 MB, 1.5 us at 3.35 TB/s; this kernel has no
+// tensor cores, no double buffering and no vector loads, and runs well
+// below that bound.
+//
+// dW/dalpha: dwda_kernel, on the tensor cores. It forms G = gᵀx tile by
+// tile and turns it into dw (mode dependent) and dalpha in the epilogue;
+// G never reaches device memory. Both operands are f32 and neither is
+// ternary, so the exact-bf16-weight trick of ternary_matmul.cu does not
+// apply. The products are 3xTF32: each operand value v is split as
+// hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v − hi) (hi + lo is v within
+// 2^-22·|v|), and mma.sync m16n8k8 (tf32 in, f32 accumulate) sums
+// lo·hi + hi·lo + hi·hi; lo·lo (about 2^-22 relative) is dropped. This was
+// taken over bf16 terms on both sides (6 m16n8k16 MMAs a product) because
+// it needs two splits where bf16 needs three, and half the MMAs and
+// fragment registers; both run at the same third of the TF32 rate. So the
+// f32 paths keep f32 accuracy (no plain TF32 or bf16 pass).
+//
+// Bound at 256 x 128 x 3136: 3 · 2·M·N·K = 616.6 MFLOP, 1.25 us at the
+// 495 TFLOP/s TF32 rate, against 6.96 MB (g, x, w, mask read, dw written),
+// 2.08 us at 3.35 TB/s: bytes bound it. The design against that:
+// - g (M, N) and x (M, K) both have the reduction axis M as their slow
+//   axis. wgmma reads tf32 operands from shared memory K-major only, so
+//   this kernel uses mma.sync and loads its fragments by hand from tiles
+//   kept as they lie in memory ([m][n] and [m][k] rows, padded to a stride
+//   of 8 mod 32 words): no transpose pass, and every fragment load is free
+//   of bank conflicts.
+// - 64 (n) x 32 (k) output tiles give the recipe's (128, 3136) 196 blocks
+//   for 132 SMs. A block has 8 warps in two groups of 4 (2 x 2 warps of
+//   32 x 16 outputs each); group h takes rows 16h..16h+15 of every ring
+//   stage into its own accumulators, and group 1 hands its sums to group 0
+//   at the end (group 0 + group 1, a fixed order), so each warp's chain of
+//   dependent MMAs is half a step long. Within a step the 12 MMAs run
+//   product by product over the 4 tiles, so consecutive MMAs are
+//   independent.
+// - A 3-stage ring of 16-byte cp.async copies walks M in steps of 32
+//   (zero-filled past M, N and K; 4-byte copies where a row is not 16-byte
+//   aligned): the copies of step i + 2 are in flight during step i's MMAs,
+//   one barrier a step.
+// - The output rows and columns of each MMA are permuted (row slot r of
+//   m16 tile i is row 4·(r % 8) + 2·i + r / 8 of the warp's 32, column slot
+//   c of n8 tile j is column 2·c + j of its 16; the sum is unchanged), so
+//   a thread reads its A fragments as two float4s and its B fragments as
+//   two float2s a step, and owns a 4 x 4 block of G: the epilogue reads w
+//   and the mask and stores dw as float4 / 32-bit rows. The w and mask
+//   tiles are copied into shared memory with the first stage's copies, so
+//   they land during the mainloop.
+// - dalpha in the same launch, with the same bits every run: each block
+//   reduces its partial in a fixed order (each thread's 16 values in
+//   order, a warp butterfly, group 0's 4 warps in order) and writes it to its
+//   slot; the last block to finish (an integer atomicAdd ticket after a
+//   __threadfence) sums all slots in index order into dalpha and resets
+//   the ticket to 0. No float atomics, no second kernel.
+// Every variant writes every element of dw (parity without a mask writes
+// zeros), so the caller allocates dw with torch.empty.
+//
+// Measured (PERF.md, H100 at 700 W): 0.0139 ms at 256 x 128 x 3136, 6.7x
+// the bound and 1.32x cuBLAS's f32 gᵀx; 0.0126 ms at 256 x 10 x 128.
+// Variants that drop one part each put it at about 5 us of MMAs and
+// splits (617 MFLOP in ~6.8 us: mma.sync TF32 runs at ~90 TFLOP/s here),
+// ~3.5 us of loads the ring does not hide and ~2 us of dalpha tail. One
+// group of 4 warps and two of 4 were within 6 % of each other, and a
+// 6-stage ring with the tail in warp group 1 was slower. wgmma (tf32
+// operands K-major in shared memory, so a transposing stage) is the way
+// to the TF32 rate.
+//
+// The mainloop (stage_tile + mma_tf32x3 over a cp.async ring) takes
+// MN-major A and B tiles; dx and the forward can reuse it with their own
+// tile loaders.
+//
 // Ragged edges are masked in the loads and stores: x, w, g and the mask are
 // read where they lie, with no padded copies. The bool mask is read as
 // uint8. alpha and the threshold come from a 2-float device vector, so the
 // launch needs no host sync.
-//
-// Bound: at the recipe's first layer (256 x 128 x 3136) each kernel does
-// 2·M·N·K = 205.5 MFLOP, 3.1 us at the 67 TFLOP/s f32 (non tensor core)
-// rate, and moves about 5 MB, 1.5 us at 3.35 TB/s: operations bound it.
-// This kernel uses no tensor cores (f32 FMA only, to match the f32
-// reference bit for bit in the pattern and closely in the sums), no
-// double buffering and no vector loads, so it runs well below that bound;
-// wgmma (TF32 or split-f32) and TMA staging are the next steps.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+__device__ __forceinline__ float ternarize(float w, float thr) {
+  return w > thr ? 1.f : (w < -thr ? -1.f : 0.f);
+}
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
+
+// ---------------------------------------------------------------------------
+// gemm_kernel: forward and dx (f32 FMA).
+// ---------------------------------------------------------------------------
 
 constexpr int kBM = 64;       // output tile rows (operand A's output axis)
 constexpr int kBN = 64;       // output tile cols (operand B's output axis)
@@ -57,13 +118,6 @@ constexpr int kBK = 16;       // reduction step
 constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
 constexpr int kTM = kBM / 16;
 constexpr int kTN = kBN / 16;
-constexpr int kReduceThreads = 256;
-
-enum Epilogue { kStore = 0, kDwDa = 1 };
-
-__device__ __forceinline__ float ternarize(float w, float thr) {
-  return w > thr ? 1.f : (w < -thr ? -1.f : 0.f);
-}
 
 // Stage a kBX (output) x kBK (reduction) slice of an operand into
 // s[red][out]. RC: the reduction index is the contiguous one
@@ -99,11 +153,9 @@ __device__ __forceinline__ void load_tile(float (*s)[kBX + 1],
 struct GemmArgs {
   const float* a;       // operand A (output rows)
   const float* b;       // operand B (output cols)
-  const float* w;       // weight, for the dW/dalpha epilogue
   const uint8_t* mask;  // precision mask or nullptr
   const float* scal;    // [alpha, threshold] on the device
-  float* out;           // forward/dx output (or split partials); dw
-  float* partials;      // dW/dalpha: one dalpha partial per block
+  float* out;           // output (or split partials)
   int rows, cols;       // output shape
   int red;              // reduction length
   int lda, ldb;         // leading dimensions of A and B
@@ -113,12 +165,11 @@ struct GemmArgs {
 // One 64 x 64 output tile of C = A · B over the reduction range of this
 // block's split. A_RC / B_RC: whether the operand's reduction axis is
 // contiguous. B_BLEND: B is the weight, ternarized and blended on load.
-template <bool A_RC, bool B_RC, bool B_BLEND, bool HAS_MASK, int EPI, bool STE>
+template <bool A_RC, bool B_RC, bool B_BLEND, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads)
 gemm_kernel(GemmArgs p) {
   __shared__ float as[kBK][kBM + 1];
   __shared__ float bs[kBK][kBN + 1];
-  __shared__ float red_buf[EPI == kDwDa ? kThreads : 1];
 
   const float alpha = __ldg(p.scal), thr = __ldg(p.scal + 1);
   const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
@@ -153,53 +204,16 @@ gemm_kernel(GemmArgs p) {
     __syncthreads();
   }
 
-  if (EPI == kStore) {
-    float* out = p.out + (size_t)blockIdx.z * p.rows * p.cols;
-#pragma unroll
-    for (int i = 0; i < kTM; ++i) {
-      const int r = row0 + ty + 16 * i;
-      if (r >= p.rows) continue;
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) {
-        const int c = col0 + tx + 16 * j;
-        if (c < p.cols) out[(size_t)r * p.cols + c] = acc[i][j];
-      }
-    }
-    return;
-  }
-
-  // dW/dalpha epilogue: rows are n, cols are k; G = acc.
-  float part = 0.f;
+  float* out = p.out + (size_t)blockIdx.z * p.rows * p.cols;
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
-    const int n = row0 + ty + 16 * i;
+    const int r = row0 + ty + 16 * i;
+    if (r >= p.rows) continue;
 #pragma unroll
     for (int j = 0; j < kTN; ++j) {
-      const int k = col0 + tx + 16 * j;
-      if (n >= p.rows || k >= p.cols) continue;
-      const size_t off = (size_t)n * p.cols + k;
-      const float g = acc[i][j];
-      const float wt = ternarize(__ldg(p.w + off), thr);
-      if (HAS_MASK) {
-        const float m = __ldg(p.mask + off) ? 1.f : 0.f;
-        const float inv_m = 1.f - m;
-        part += g * wt * inv_m;
-        p.out[off] = STE ? g * (alpha * inv_m + m) : g * m;
-      } else {
-        part += g * wt;
-        if (STE) p.out[off] = g * alpha;  // parity: dw stays the zeros
-      }
+      const int c = col0 + tx + 16 * j;
+      if (c < p.cols) out[(size_t)r * p.cols + c] = acc[i][j];
     }
-  }
-  // Fixed-order block reduction of the dalpha partial.
-  red_buf[threadIdx.x] = part;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) red_buf[threadIdx.x] += red_buf[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    p.partials[blockIdx.y * gridDim.x + blockIdx.x] = red_buf[0];
   }
 }
 
@@ -215,36 +229,351 @@ __global__ void sum_splits_kernel(const float* __restrict__ parts,
   }
 }
 
-// out[0] = sum of n partials, in a fixed order (one block).
-__global__ void __launch_bounds__(kReduceThreads)
-sum_partials_kernel(const float* __restrict__ parts, float* __restrict__ out,
-                    int n) {
-  __shared__ float buf[kReduceThreads];
-  float s = 0.f;
-  for (int i = threadIdx.x; i < n; i += kReduceThreads) s += __ldg(parts + i);
-  buf[threadIdx.x] = s;
-  __syncthreads();
-  for (int h = kReduceThreads / 2; h > 0; h >>= 1) {
-    if (threadIdx.x < h) buf[threadIdx.x] += buf[threadIdx.x + h];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) out[0] = buf[0];
-}
-
-template <bool A_RC, bool B_RC, bool B_BLEND, bool HAS_MASK, int EPI, bool STE>
+template <bool A_RC, bool B_RC, bool B_BLEND, bool HAS_MASK>
 cudaError_t launch_gemm(const GemmArgs& p, int splits, cudaStream_t stream) {
   dim3 grid((p.cols + kBN - 1) / kBN, (p.rows + kBM - 1) / kBM, splits);
-  gemm_kernel<A_RC, B_RC, B_BLEND, HAS_MASK, EPI, STE>
-      <<<grid, kThreads, 0, stream>>>(p);
+  gemm_kernel<A_RC, B_RC, B_BLEND, HAS_MASK><<<grid, kThreads, 0, stream>>>(p);
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// dwda_kernel: dW/dalpha on the tensor cores (3xTF32 mma.sync).
+// ---------------------------------------------------------------------------
+
+namespace tc {
+
+constexpr int kTileA = 64;   // output rows a block (n)
+constexpr int kTileB = 32;   // output cols a block (k)
+constexpr int kStep = 32;    // reduction rows (m) a ring stage
+constexpr int kStages = 3;
+constexpr int kGroups = 2;   // warp groups: group h takes rows 16h..16h+15
+                             // of every stage
+constexpr int kGroupWarps = 4;  // 2 along the rows x 2 along the cols
+constexpr int kWarps = kGroups * kGroupWarps;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kLdA = kTileA + 8;  // padded strides: 8 mod 32 words
+constexpr int kLdB = kTileB + 8;
+constexpr int kStageFloats = kStep * (kLdA + kLdB);
+constexpr int kLdW = kTileB + 4;   // the w tile's stride (floats)
+constexpr int kLdMask = kTileB + 4;  // the mask tile's stride (bytes)
+constexpr int kRingBytes = kStages * kStageFloats * 4;
+constexpr int kWBytes = kTileA * kLdW * 4;
+constexpr int kSmemBytes = kRingBytes + kWBytes + kTileA * kLdMask;
+
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+// Rows [r0, r0 + kRows) x columns [c0, c0 + kCols) of a row-major f32
+// matrix (row stride ld floats, rows < R and columns < C valid) into s
+// (row stride kLd floats), zeros elsewhere. vec: every row is 16-byte
+// aligned, so 16-byte copies; else 4-byte copies.
+template <int kRows, int kCols, int kLd>
+__device__ __forceinline__ void stage_tile(float* s, const float* src,
+                                           int ld, int r0, int R, int c0,
+                                           int C, bool vec, int tid) {
+  if (vec) {
+    constexpr int kChunks = kCols / 4;
+#pragma unroll
+    for (int q = tid; q < kRows * kChunks; q += kThreads) {
+      const int r = q / kChunks, col = c0 + 4 * (q % kChunks);
+      const int bytes = r0 + r < R ? min(max(4 * (C - col), 0), 16) : 0;
+      cp_async(s + r * kLd + (col - c0),
+               bytes ? src + (size_t)(r0 + r) * ld + col : src, bytes);
+    }
+    return;
+  }
+  for (int e = tid; e < kRows * kCols; e += kThreads) {
+    const int r = e / kCols, c = e % kCols;
+    const bool ok = r0 + r < R && c0 + c < C;
+    cp_async4(s + r * kLd + c,
+              ok ? src + (size_t)(r0 + r) * ld + c0 + c : src, ok ? 4 : 0);
+  }
+}
+
+// The block's kTileA x kTileB tile of the (N, K) uint8 mask into s (row
+// stride kLdMask bytes), zeros past N and K: 4-byte copies where rows are
+// 4-byte aligned (vec), else byte loads.
+__device__ __forceinline__ void stage_mask(unsigned char* s,
+                                           const uint8_t* mask, int n0,
+                                           int N, int k0, int K, bool vec,
+                                           int tid) {
+  if (vec) {
+    constexpr int kWords = kTileB / 4;
+    for (int q = tid; q < kTileA * kWords; q += kThreads) {
+      const int r = q / kWords, col = k0 + 4 * (q % kWords);
+      const int bytes = n0 + r < N ? min(max(K - col, 0), 4) : 0;
+      cp_async4(s + r * kLdMask + (col - k0),
+                bytes ? mask + (size_t)(n0 + r) * K + col : mask, bytes);
+    }
+    return;
+  }
+  for (int e = tid; e < kTileA * kTileB; e += kThreads) {
+    const int r = e / kTileB, c = e % kTileB;
+    s[r * kLdMask + c] = n0 + r < N && k0 + c < K
+                             ? mask[(size_t)(n0 + r) * K + k0 + c] : 0;
+  }
+}
+
+// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero; the same
+// bits for finite values) as two integer operations on the bits.
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
+}
+
+// v = hi + lo, each a tf32 value (lo: the rounding of what hi left).
+__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// kSteps MMA steps (8 reduction rows each) of a warp's 32 x 16 output:
+// C[a][b] += Σ_m A[m][a] · B[m][b], sa = A[m][warp's 32 rows] (row stride
+// kLdA), sb = B[m][warp's 16 cols] (row stride kLdB), 3xTF32: per step
+// lo·hi, then hi·lo, then hi·hi, each over the 4 tiles (so consecutive
+// MMAs are independent). acc[i][j] is m16 tile i, n8 tile j, in the
+// permuted order of the note at the top: lane (g, t) = (lane / 4, lane % 4)
+// owns rows 4g..4g+3 and columns 4t..4t+3 of the warp's tile.
+template <int kSteps>
+__device__ __forceinline__ void mma_tf32x3(float (&acc)[2][2][4],
+                                           const float* sa, const float* sb,
+                                           int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    const float* pa = sa + (8 * ks + t) * kLdA + 4 * g;
+    const float4 a0 = *(const float4*)pa;              // m = t
+    const float4 a1 = *(const float4*)(pa + 4 * kLdA);  // m = t + 4
+    const float* pb = sb + (8 * ks + t) * kLdB + 2 * g;
+    const float2 b0 = *(const float2*)pb;
+    const float2 b1 = *(const float2*)(pb + 4 * kLdB);
+    // A fragment of tile i: rows (g, g + 8) -> 4g + 2i + (0, 1); cols t, t+4.
+    uint32_t a[2][2][4];  // [hi, lo][tile][fragment]
+    split_tf32(a0.x, a[0][0][0], a[1][0][0]);
+    split_tf32(a0.y, a[0][0][1], a[1][0][1]);
+    split_tf32(a1.x, a[0][0][2], a[1][0][2]);
+    split_tf32(a1.y, a[0][0][3], a[1][0][3]);
+    split_tf32(a0.z, a[0][1][0], a[1][1][0]);
+    split_tf32(a0.w, a[0][1][1], a[1][1][1]);
+    split_tf32(a1.z, a[0][1][2], a[1][1][2]);
+    split_tf32(a1.w, a[0][1][3], a[1][1][3]);
+    // B fragment of tile j: col g -> 2g + j; rows t, t + 4.
+    uint32_t b[2][2][2];  // [hi, lo][tile][fragment]
+    split_tf32(b0.x, b[0][0][0], b[1][0][0]);
+    split_tf32(b1.x, b[0][0][1], b[1][0][1]);
+    split_tf32(b0.y, b[0][1][0], b[1][1][0]);
+    split_tf32(b1.y, b[0][1][1], b[1][1][1]);
+#pragma unroll
+    for (int p = 0; p < 3; ++p)  // lo·hi, hi·lo, hi·hi
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          mma_tf32(acc[i][j], a[p == 0][i], b[p == 1][j]);
+  }
+}
+
+struct DwdaArgs {
+  const float* g;       // (M, N)
+  const float* x;       // (M, K)
+  const float* w;       // (N, K)
+  const uint8_t* mask;  // (N, K) or nullptr
+  const float* scal;    // [alpha, threshold]
+  float* dw;            // (N, K)
+  float* da;            // 1 float
+  float* slots;         // one dalpha partial a block
+  unsigned* ticket;     // 0 before the launch; left at 0
+  int M, N, K;
+  int vec;  // 16-byte aligned rows: bit 0 g, bit 1 x, bit 2 w and dw;
+            // bit 3: 4-byte aligned mask rows
+};
+
+template <bool HAS_MASK, bool STE>
+__global__ void __launch_bounds__(kThreads, 2)
+dwda_kernel(DwdaArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* ring = reinterpret_cast<float*>(smem);
+  float* sw = reinterpret_cast<float*>(smem + kRingBytes);
+  unsigned char* sm = smem + kRingBytes + kWBytes;
+  __shared__ float warp_part[kGroupWarps];
+  __shared__ bool last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int grp = warp / kGroupWarps, wq = warp % kGroupWarps;
+  const int wa = wq >> 1, wb = wq & 1;
+  const int n0 = blockIdx.y * kTileA, k0 = blockIdx.x * kTileB;
+  const int M = p.M, N = p.N, K = p.K;
+
+  // The epilogue's w and mask tiles go with the first stage's copies, so
+  // they land during the mainloop.
+  stage_tile<kTileA, kTileB, kLdW>(sw, p.w, K, n0, N, k0, K, p.vec & 4, tid);
+  if (HAS_MASK) stage_mask(sm, p.mask, n0, N, k0, K, p.vec & 8, tid);
+
+  const int n_steps = (M + kStep - 1) / kStep;
+  auto issue = [&](int i) {
+    if (i < n_steps) {
+      float* s = ring + (i % kStages) * kStageFloats;
+      stage_tile<kStep, kTileA, kLdA>(s, p.g, N, i * kStep, M, n0, N,
+                                      p.vec & 1, tid);
+      stage_tile<kStep, kTileB, kLdB>(s + kStep * kLdA, p.x, K, i * kStep, M,
+                                      k0, K, p.vec & 2, tid);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float acc[2][2][4] = {};
+  constexpr int kRows = kStep / kGroups;  // a group's rows of a stage
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) issue(i);
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<kStages - 2>();  // step i has landed (this thread's part)
+    __syncthreads();  // ... everyone's; and step i - 1's stage is free
+    issue(i + kStages - 1);
+    const float* s = ring + (i % kStages) * kStageFloats;
+    mma_tf32x3<kRows / 8>(acc, s + grp * kRows * kLdA + 32 * wa,
+                          s + kStep * kLdA + grp * kRows * kLdB + 16 * wb, g,
+                          t);
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free; w and the mask have landed
+
+  // Group 1 hands its sums to group 0 through the ring, which adds them to
+  // its own (group 0 + group 1, the same order every run).
+  float* red = ring;
+  const int gt = tid % (kThreads / kGroups);
+  if (grp == 1) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      red[e * (kThreads / kGroups) + gt] = (&acc[0][0][0])[e];
+  }
+  __syncthreads();
+  float part = 0.f;
+  if (grp == 0) {
+#pragma unroll
+    for (int e = 0; e < 16; ++e)
+      (&acc[0][0][0])[e] += red[e * (kThreads / kGroups) + gt];
+    const float alpha = __ldg(p.scal), thr = __ldg(p.scal + 1);
+    // This thread's 4 x 4 block of G: rows r + i, cols c + j of the tile.
+    const int r = 32 * wa + 4 * g, c = 16 * wb + 4 * t;
+    const int k = k0 + c;
+    const bool row4 = (p.vec & 4) && k + 3 < K;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float4 w4 = *(const float4*)(sw + (r + i) * kLdW + c);
+      const float wv[4] = {w4.x, w4.y, w4.z, w4.w};
+      const uint32_t mv =
+          HAS_MASK ? *(const uint32_t*)(sm + (r + i) * kLdMask + c) : 0u;
+      float d[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float G = acc[i >> 1][j & 1][2 * (i & 1) + (j >> 1)];
+        const float wt = ternarize(wv[j], thr);
+        if (HAS_MASK) {
+          const float m = (mv >> (8 * j)) & 0xFFu ? 1.f : 0.f;
+          const float inv_m = 1.f - m;
+          part += G * wt * inv_m;
+          d[j] = STE ? G * (alpha * inv_m + m) : G * m;
+        } else {
+          part += G * wt;
+          d[j] = STE ? G * alpha : 0.f;
+        }
+      }
+      // Past N or K, G and w are zeros: the partial gains exact zeros.
+      const int n = n0 + r + i;
+      if (n >= N) continue;
+      float* out = p.dw + (size_t)n * K + k;
+      if (row4) {
+        *(float4*)out = make_float4(d[0], d[1], d[2], d[3]);
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          if (k + j < K) out[j] = d[j];
+      }
+    }
+  }
+
+  // dalpha: the block's partial in a fixed order (each thread's 16 values,
+  // a warp butterfly, group 0's warps in order), then its slot; the last
+  // block sums the slots in index order.
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) part += __shfl_xor_sync(~0u, part, o);
+  if (grp == 0 && lane == 0) warp_part[wq] = part;
+  __syncthreads();
+  const int slot = blockIdx.y * gridDim.x + blockIdx.x;
+  const int n_slots = gridDim.x * gridDim.y;
+  if (tid == 0) {
+    float s = warp_part[0];
+#pragma unroll
+    for (int w = 1; w < kGroupWarps; ++w) s += warp_part[w];
+    p.slots[slot] = s;
+    __threadfence();
+    last = atomicAdd(p.ticket, 1u) == (unsigned)(n_slots - 1);
+  }
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  float s = 0.f;
+  for (int i = tid; i < n_slots; i += kThreads) s += __ldcg(p.slots + i);
+  red[tid] = s;
+  __syncthreads();
+#pragma unroll
+  for (int h = kThreads / 2; h > 0; h >>= 1) {
+    if (tid < h) red[tid] += red[tid + h];
+    __syncthreads();
+  }
+  if (tid == 0) {
+    p.da[0] = red[0];
+    *p.ticket = 0u;  // ready for the next launch
+  }
+}
+
+template <bool HAS_MASK, bool STE>
+cudaError_t launch_dwda(const DwdaArgs& p, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      dwda_kernel<HAS_MASK, STE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kSmemBytes);
+  if (err != cudaSuccess) return err;
+  dim3 grid((p.K + kTileB - 1) / kTileB, (p.N + kTileA - 1) / kTileA);
+  dwda_kernel<HAS_MASK, STE><<<grid, kThreads, kSmemBytes, stream>>>(p);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 }  // namespace
 
-// Number of dalpha partials atq_fused_dwda writes for an (N, K) weight: the
-// size of its `partials` scratch.
+// Number of dalpha slots atq_fused_dwda writes for an (N, K) weight: one a
+// block, the size of its `slots` scratch.
 extern "C" int atq_fused_dwda_partials(int N, int K) {
-  return ((K + kBN - 1) / kBN) * ((N + kBM - 1) / kBM);
+  return ((K + tc::kTileB - 1) / tc::kTileB) *
+         ((N + tc::kTileA - 1) / tc::kTileA);
 }
 
 // y (M, N) = x (M, K) · w_eff (N, K)ᵀ. With splits > 1, `ws` holds
@@ -258,11 +587,10 @@ extern "C" int atq_fused_forward(int device, const float* x, const float* w,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  GemmArgs p{x, w, nullptr, mask, scal, splits > 1 ? ws : y, nullptr,
+  GemmArgs p{x, w, mask, scal, splits > 1 ? ws : y,
              M, N, K, K, K, splits > 1 ? chunk : K};
-  err = mask ? launch_gemm<true, true, true, true, kStore, false>(p, splits, st)
-             : launch_gemm<true, true, true, false, kStore, false>(p, splits,
-                                                                  st);
+  err = mask ? launch_gemm<true, true, true, true>(p, splits, st)
+             : launch_gemm<true, true, true, false>(p, splits, st);
   if (err != cudaSuccess || splits <= 1) return (int)err;
   const int n = M * N;
   const int blocks = min((n + 255) / 256, 4 * 132);
@@ -277,36 +605,38 @@ extern "C" int atq_fused_dx(int device, const float* g, const float* w,
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  GemmArgs p{g, w, nullptr, mask, scal, dx, nullptr, M, K, N, N, K, N};
-  err = mask ? launch_gemm<true, false, true, true, kStore, false>(p, 1, st)
-             : launch_gemm<true, false, true, false, kStore, false>(p, 1, st);
+  GemmArgs p{g, w, mask, scal, dx, M, K, N, N, K, N};
+  err = mask ? launch_gemm<true, false, true, true>(p, 1, st)
+             : launch_gemm<true, false, true, false>(p, 1, st);
   return (int)err;
 }
 
 // G (N, K) = g (M, N)ᵀ · x (M, K), then per element
-//   dw = G·(alpha·(1−m) + m) (STE, mask), G·alpha (STE), G·m (parity, mask);
-//   parity without a mask leaves dw untouched (the caller passes zeros);
-// and dalpha = sum G·tern(w)·(1−m), reduced over `partials`
-// (atq_fused_dwda_partials(N, K) floats) into da[0] in a fixed order.
+//   dw = G·(alpha·(1−m) + m) (STE, mask), G·alpha (STE), G·m (parity, mask),
+//   zeros (parity, no mask);
+// and da[0] = sum G·tern(w)·(1−m), in one launch. slots:
+// atq_fused_dwda_partials(N, K) floats of scratch; ticket: one unsigned
+// that is 0 before the launch and is left at 0 by it.
 extern "C" int atq_fused_dwda(int device, const float* g, const float* x,
                               const float* w, const uint8_t* mask,
                               const float* scal, float* dw, float* da,
-                              float* partials, int M, int N, int K, int ste,
-                              void* stream) {
+                              float* slots, unsigned* ticket, int M, int N,
+                              int K, int ste, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = (cudaStream_t)stream;
-  GemmArgs p{g, x, w, mask, scal, dw, partials, N, K, M, N, K, M};
+  const int vec = (N % 4 == 0 && aligned16(g) ? 1 : 0) |
+                  (K % 4 == 0 && aligned16(x) ? 2 : 0) |
+                  (K % 4 == 0 && aligned16(w) && aligned16(dw) ? 4 : 0) |
+                  (K % 4 == 0 && ((uintptr_t)mask & 3) == 0 ? 8 : 0);
+  const tc::DwdaArgs p{g, x, w, mask, scal, dw, da, slots, ticket, M, N, K,
+                       vec};
   if (mask) {
-    err = ste ? launch_gemm<false, false, false, true, kDwDa, true>(p, 1, st)
-              : launch_gemm<false, false, false, true, kDwDa, false>(p, 1, st);
+    err = ste ? tc::launch_dwda<true, true>(p, st)
+              : tc::launch_dwda<true, false>(p, st);
   } else {
-    err = ste ? launch_gemm<false, false, false, false, kDwDa, true>(p, 1, st)
-              : launch_gemm<false, false, false, false, kDwDa, false>(p, 1,
-                                                                     st);
+    err = ste ? tc::launch_dwda<false, true>(p, st)
+              : tc::launch_dwda<false, false>(p, st);
   }
-  if (err != cudaSuccess) return (int)err;
-  sum_partials_kernel<<<1, kReduceThreads, 0, st>>>(
-      partials, da, atq_fused_dwda_partials(N, K));
-  return (int)cudaGetLastError();
+  return (int)err;
 }

@@ -77,8 +77,8 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.atq_fused_forward.restype = i32
     lib.atq_fused_dx.argtypes = [i32, vp, vp, vp, vp, vp, i32, i32, i32, vp]
     lib.atq_fused_dx.restype = i32
-    lib.atq_fused_dwda.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, i32,
-                                   i32, i32, i32, vp]
+    lib.atq_fused_dwda.argtypes = [i32, vp, vp, vp, vp, vp, vp, vp, vp, vp,
+                                   i32, i32, i32, i32, vp]
     lib.atq_fused_dwda.restype = i32
     f32 = ctypes.c_float
     lib.atq_attention_forward.argtypes = [i32, i32, vp, vp, vp, vp, vp, i32,

@@ -20,6 +20,16 @@ mask; without one ``w_eff = tern(w, thr)·alpha``). The JAX package's
 no counterpart: the CUDA dW/dalpha kernel loops over the batch and takes
 any M.
 
+The forward and dx run one f32 FMA GEMM template (no tensor cores). The
+dW/dalpha kernel (``dwda_kernel``) is the Hopper design: G = gᵀx on the
+tensor cores as 3xTF32 (each f32 operand split into two TF32 terms, three
+``mma.sync`` products, so f32 accuracy), a ``cp.async`` ring over the batch,
+64 x 32 output tiles (196 blocks at the recipe's 128 x 3136 weight), and
+dalpha summed in the same launch in a fixed order (the last block adds the
+blocks' partials in index order, found by an integer ticket), so the same
+inputs give the same bits. Bytes bound it (g, x, w, the mask and dw: 7 MB
+at the recipe, 2.1 us at 3.35 TB/s); see the note in ``csrc/fused_linear.cu``.
+
 :func:`fused_quantized_linear` is the op the layers call: one
 ``torch.autograd.Function`` with the JAX ``custom_vjp``'s gradients
 (parity or STE, see :func:`_dispatch_backward`).
@@ -129,6 +139,19 @@ def _mask_ptr(mask):
     return None if mask is None else mask.data_ptr()
 
 
+_tickets: dict = {}
+
+
+def _ticket(dev, stream):
+    """The dW/dalpha kernel's ticket for this device and stream: one int32,
+    zeroed once here; each launch leaves it at 0 again, and launches on one
+    stream run in order."""
+    key = (dev.index, stream)
+    if key not in _tickets:
+        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _tickets[key]
+
+
 def forward_splits(m: int, n: int, k: int):
     """``(splits, chunk)``: how the forward kernel divides K over grid.z
     so that a short output still fills the card; chunk is a multiple of
@@ -199,22 +222,20 @@ def fused_linear_dwda(g, x, w, mask, scal, ste: bool):
         return dwda_plain(g, x, w, mask, scal, ste)
     lib = load_library()
     dev = g.device
-    # Parity without a mask: dw is exact zeros and the kernel skips the
-    # store; every other mode writes every element.
-    dw = (torch.zeros if (mask is None and not ste) else torch.empty)(
-        (n, k), dtype=torch.float32, device=dev)
-    da = torch.zeros((1,), dtype=torch.float32, device=dev)
+    dw = torch.empty((n, k), dtype=torch.float32, device=dev)
     if dw.numel() == 0:
-        return dw, da.reshape(())
-    partials = torch.empty(lib.atq_fused_dwda_partials(n, k),
-                           dtype=torch.float32, device=dev)
+        return dw, torch.zeros((), dtype=torch.float32, device=dev)
+    # dalpha, then one slot a block for the blocks' partials.
+    out = torch.empty(1 + lib.atq_fused_dwda_partials(n, k),
+                      dtype=torch.float32, device=dev)
     device, stream = _launch_args(g)
     check(lib.atq_fused_dwda(
         device, g.data_ptr(), x.data_ptr(), w.data_ptr(), _mask_ptr(mask),
-        scal.data_ptr(), dw.data_ptr(), da.data_ptr(), partials.data_ptr(),
-        m, n, k, int(ste), stream), "fused_linear dW/dalpha kernel")
+        scal.data_ptr(), dw.data_ptr(), out.data_ptr(), out[1:].data_ptr(),
+        _ticket(dev, stream).data_ptr(), m, n, k, int(ste), stream),
+        "fused_linear dW/dalpha kernel")
     fused_linear_dwda.launches += 1
-    return dw, da.reshape(())
+    return dw, out[0]
 
 
 fused_linear_forward.launches = 0

@@ -96,7 +96,7 @@ def _check_supported(cfg: ClassifierConfig) -> None:
         (cfg.tensorboard_dir is not None, "tensorboard_dir"),
         (cfg.profile_dir is not None, "profile_dir"),
         (cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp,
-         "dp/tp/fsdp parallelism (slice F)"),
+         "dp/tp/fsdp parallelism (slice H)"),
     ]
     for unsupported, what in later:
         if unsupported:

@@ -4,16 +4,18 @@
     python3 chip_smoke.py          # from the repo root, on a machine with
                                    # one NVIDIA H100 (sm_90a) and nvcc
     python3 chip_smoke.py --compare DIR [OUT]
-                                   # the packed kernels of another checkout
-                                   # (DIR) against this tree's, in turns
-                                   # DIR, this, this, DIR (device ms; raw
-                                   # rows in OUT, default outputs/compare)
+                                   # the packed and fused kernels of another
+                                   # checkout (DIR) against this tree's, in
+                                   # turns DIR, this, this, DIR (device ms;
+                                   # raw rows in OUT, default
+                                   # outputs/compare)
 
 Phases, one JSON line each; any failure exits non-zero:
 
   build         compiles the CUDA kernels from atq_tpu_torch/csrc (nvcc);
-                ptxas's registers and spills, and the HMMA count of each
-                tiled_packed_kernel instantiation (cuobjdump -sass).
+                ptxas's registers and spills by kernel, and
+                the HMMA count of each tiled_packed_kernel and dwda_kernel
+                instantiation (cuobjdump -sass).
   kernels       holds each kernel against its plain PyTorch version on the
                 card (order statistic bit-exact at every listed size and
                 rank; packed matmul within rtol 1e-5 / atol 5e-3, the JAX
@@ -121,7 +123,9 @@ at the recipe shapes (256x128x3136, 256x10x128), wider (256x256x3136),
 ragged (7x24x100) and a batch past the JAX package's resident limit
 (2304x128x3136), with and without the mask, parity and STE: y, dx, dw
 within rtol/atol 1e-4 (f32 sums in another order than cuBLAS over K =
-3136), dalpha within 1e-4 relative.
+3136; dW/dalpha's 3xTF32 products), dalpha within 1e-4 relative. dW/dalpha
+also at DWDA_EDGE_SHAPES (N = 10 and 24, K = 100 and 200, M = 1, 7 and
+17), each case launched twice and repeated bit for bit.
 
 Then one line {"kernels": [...]} (launch counts from the main-path phase
 that runs each kernel: serve_dense, serve_packed, serve_retrieval_pack32,
@@ -148,10 +152,12 @@ import numpy as np
 import torch
 
 # NVIDIA H100 SXM published peaks (data sheet): HBM3 rate, the float32
-# rate outside the tensor cores, and the dense bf16 tensor-core rate.
+# rate outside the tensor cores, and the dense bf16 and TF32 tensor-core
+# rates.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_FLOP_PER_S = 67e12
 PEAK_BF16_FLOP_PER_S = 989e12
+PEAK_TF32_FLOP_PER_S = 495e12
 N_REQUESTS = 64
 MAX_BATCH = 32
 OS_SIZES = (401408, 802816, 16384, 16385, 2359296)
@@ -164,6 +170,11 @@ EDGE_SHAPES = ((1, 128, 8), (17, 128, 8), (17, 200, 8), (1, 200, 24),
 FUSED_SHAPES = ((256, 128, 3136), (256, 10, 128), (256, 256, 3136),
                 (7, 24, 100), (2304, 128, 3136))
 FUSED_TOL = 1e-4  # rtol/atol on y, dx, dw; relative on dalpha
+# Edge shapes of the dW/dalpha kernel, (M, N, K): N = 10 and 24, K = 100 and
+# 200 (ragged 64 x 32 tiles, unaligned rows), M = 1, 7 and 17 (a partial
+# step of its 32-row ring); M = 2304 is in FUSED_SHAPES.
+DWDA_EDGE_SHAPES = ((1, 10, 100), (7, 24, 200), (17, 24, 100),
+                    (17, 10, 200), (1, 24, 200))
 STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
 # Batched order statistic: bert-base's two stacked weight shapes (q/k/v/out,
 # linear1/linear2) and a ragged one.
@@ -296,19 +307,36 @@ def phase_build(smi: str):
 
     t0 = time.perf_counter()
     load_library()
+    seconds = time.perf_counter() - t0
     with open(build_info["library"][:-3] + ".log") as f:
         log = f.read()
-    emit({"phase": "build", "seconds": time.perf_counter() - t0,
+    hmma = {kind: _sass_hmma(build_info["library"], kind)
+            for kind in ("tiled_packed_kernel", "dwda_kernel")}
+    for kind, counts in hmma.items():  # the tensor-core kernels use them
+        if counts is not None and (not counts or 0 in counts.values()):
+            raise AssertionError(f"{kind}: no HMMA in its SASS: {counts}")
+    emit({"phase": "build", "seconds": seconds,
           "nvidia_smi": smi, "built": build_info["built"],
           "sources": build_info["sources"],
-          "ptxas": [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln],
-          "packed_kernel_hmma": _sass_hmma(build_info["library"])})
+          "ptxas": _ptxas_by_kernel(log),
+          **{f"{kind}_hmma": counts for kind, counts in hmma.items()}})
 
 
-def _sass_hmma(library):
-    """HMMA instructions in each tiled_packed_kernel instantiation's SASS
-    (cuobjdump -sass), or None where the toolkit has no cuobjdump."""
+def _ptxas_by_kernel(log):
+    """ptxas -v's spill and register lines, by entry function."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif name and ("registers" in line or "spill" in line):
+            out.setdefault(name, []).append(line.strip())
+    return out
+
+
+def _sass_hmma(library, kind):
+    """HMMA instructions in the SASS (cuobjdump -sass) of each kernel
+    instantiation whose name holds ``kind``, or None where the toolkit has
+    no cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not os.path.exists(tool):
         return None
@@ -318,7 +346,7 @@ def _sass_hmma(library):
     for line in sass.splitlines():
         if "Function :" in line:
             name = line.split("Function :")[1].strip()
-            if "tiled_packed_kernel" not in name:
+            if kind not in name:
                 name = None
             else:
                 counts[name] = 0
@@ -558,22 +586,34 @@ def _err(name, got, want, tol=FUSED_TOL, atol=None):
 
 
 def check_fused(gen):
+    """The three fused kernels against their plain versions at
+    FUSED_SHAPES, and dW/dalpha also at DWDA_EDGE_SHAPES; every variant
+    (mask or not; parity or STE for dW/dalpha). dW/dalpha is launched twice
+    a case, and the two must agree bit for bit."""
     from atq_tpu_torch.ops import fused_linear as fl
 
     errs = {"fused_forward": 0.0, "fused_dx": 0.0, "fused_dwda": 0.0}
     da_rel, cases = 0.0, 0
-    for m, n, k in FUSED_SHAPES:
+    for m, n, k in FUSED_SHAPES + DWDA_EDGE_SHAPES:
         for with_mask in (True, False):
             x, w, g, mask, scal = _fused_inputs(gen, m, n, k, with_mask)
             tag = f"{m}x{n}x{k} mask={with_mask}"
-            errs["fused_forward"] = max(errs["fused_forward"], _err(
-                f"forward {tag}", fl.fused_linear_forward(x, w, mask, scal),
-                fl.forward_plain(x, w, mask, scal)))
-            errs["fused_dx"] = max(errs["fused_dx"], _err(
-                f"dx {tag}", fl.fused_linear_dx(g, w, mask, scal),
-                fl.dx_plain(g, w, mask, scal)))
+            if (m, n, k) in FUSED_SHAPES:
+                errs["fused_forward"] = max(errs["fused_forward"], _err(
+                    f"forward {tag}",
+                    fl.fused_linear_forward(x, w, mask, scal),
+                    fl.forward_plain(x, w, mask, scal)))
+                errs["fused_dx"] = max(errs["fused_dx"], _err(
+                    f"dx {tag}", fl.fused_linear_dx(g, w, mask, scal),
+                    fl.dx_plain(g, w, mask, scal)))
             for ste in (False, True):
-                dw, da = fl.fused_linear_dwda(g, x, w, mask, scal, ste)
+                def dwda():
+                    dw, da = fl.fused_linear_dwda(g, x, w, mask, scal, ste)
+                    return torch.cat([dw.flatten(), da.reshape(1)])
+
+                both = dwda()
+                _same_bits(f"dwda {tag} ste={ste}", dwda, both)
+                dw, da = both[:-1].view(n, k), both[-1]
                 dw_p, da_p = fl.dwda_plain(g, x, w, mask, scal, ste)
                 errs["fused_dwda"] = max(errs["fused_dwda"], _err(
                     f"dw {tag} ste={ste}", dw, dw_p))
@@ -592,7 +632,9 @@ def check_fused(gen):
 
 def time_fused(gen, m, n, k):
     """Kernel, plain version and the one-call cuBLAS yardstick on a
-    prebuilt w_eff, for each of the three kernels, with the mask."""
+    prebuilt w_eff, for each of the three kernels, with the mask. Bounds:
+    f32 operations at 67 TFLOP/s for the forward and dx, three TF32
+    products at 495 TFLOP/s for dW/dalpha, or the bytes."""
     from atq_tpu_torch.ops import fused_linear as fl
 
     x, w, g, mask, scal = _fused_inputs(gen, m, n, k, True)
@@ -614,7 +656,9 @@ def time_fused(gen, m, n, k):
                                                      False),
               "plain": lambda: fl.dwda_plain(g, x, w, mask, scal, False),
               "library": lambda: torch.matmul(g.T, x)})):
-        b_ms, b_by = bound(nbytes, flops)
+        # dW/dalpha runs 3xTF32 on the tensor cores: three TF32 products.
+        b_ms, b_by = (bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
+                      if name == "fused_dwda" else bound(nbytes, flops))
         out[name] = {"m": m, "n": n, "k": k, "bound_ms": b_ms,
                      "bound_by": b_by, **timed(fns)}
     return out
@@ -719,8 +763,10 @@ def time_batched_order_stat(gen, lead, n):
 
 def time_attention(gen):
     """bert-base's attention call, (64, 12, 256, 64) float32 without bias:
-    kernels, plain versions, and scaled_dot_product_attention (forward, and
-    forward+backward for the backward row) as the yardstick."""
+    kernels, plain versions, and scaled_dot_product_attention as the
+    yardstick: its forward for the forward row; for the backward row its
+    backward alone (autograd.grad on a retained graph, the same function
+    as the kernel), with forward+backward beside it."""
     import torch.nn.functional as F
 
     from atq_tpu_torch.ops import fused_attention as fa
@@ -735,6 +781,11 @@ def time_attention(gen):
         o = F.scaled_dot_product_attention(*leaves, scale=scale)
         return torch.autograd.grad(o, leaves, do)
 
+    o_sdpa = F.scaled_dot_product_attention(*leaves, scale=scale)
+
+    def sdpa_bwd():
+        return torch.autograd.grad(o_sdpa, leaves, do, retain_graph=True)
+
     elems = b * h * s * d
     fwd_ms, fwd_by = bound(4 * elems * 4, 4 * s * s * d * b * h)
     bwd_ms, bwd_by = bound(7 * elems * 4, 10 * s * s * d * b * h)
@@ -748,11 +799,11 @@ def time_attention(gen):
                     q, k, v, scale=scale)})},
         "fused_attention_bwd": {
             "shape": shape, "bound_ms": bwd_ms, "bound_by": bwd_by,
-            "library_is": "sdpa forward+backward",
+            "library_is": "sdpa backward",
             **timed({"kernel": lambda: fa.fused_attention_backward(
                 q, k, v, scale, None, do),
                 "plain": lambda: fa.backward_plain(q, k, v, scale, None, do),
-                "library": sdpa_fwd_bwd})},
+                "library": sdpa_bwd, "library_fwd_bwd": sdpa_fwd_bwd})},
     }
 
 
@@ -1667,16 +1718,19 @@ def phase_train_encoder(tmp):
 
 
 # --compare: the packed kernels at serving's head shapes (M = 32 and 1),
-# the K-blocked shape and PACKED_SHAPES, old against new.
+# the K-blocked shape and PACKED_SHAPES, and the fused kernels at the
+# recipe's two head layers, old against new.
 COMPARE_MM = tuple((m, n, k) for m in (MAX_BATCH, 1) for n, k in MM_SHAPES) \
     + ((128, 128, 8704),)
 PACKED_KERNELS = ("ternary_matmul", "ternary_matmul32", "ternary_matmul_rpb")
+FUSED_KERNELS = ("fused_forward", "fused_dx", "fused_dwda")
 
 
 def time_tree(tree, out):
-    """Times the packed kernels with ``tree``'s own chip_smoke.py and
+    """Times the kernels with ``tree``'s own chip_smoke.py and
     atq_tpu_torch (which build that tree's kernels) at COMPARE_MM
-    (time_matmul) and PACKED_SHAPES (time_packed); writes them to ``out``."""
+    (time_matmul), PACKED_SHAPES (time_packed) and, where the tree has
+    time_fused, the first two FUSED_SHAPES; writes them to ``out``."""
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -1684,7 +1738,9 @@ def time_tree(tree, out):
     gen = torch.Generator(device="cuda").manual_seed(0)
     result = {"tree": tree,
               "matmul": [mod.time_matmul(gen, *s) for s in COMPARE_MM],
-              "packed": [mod.time_packed(gen, *s) for s in PACKED_SHAPES]}
+              "packed": [mod.time_packed(gen, *s) for s in PACKED_SHAPES],
+              "fused": [mod.time_fused(gen, *s) for s in FUSED_SHAPES[:2]]
+              if hasattr(mod, "time_fused") else None}
     with open(out, "w") as f:
         json.dump(result, f)
 
@@ -1740,6 +1796,27 @@ def compare(parent, out_dir="outputs/compare"):
             sum(c * ms[name, 1600, k, n][j] for c, k, n in text)
             for j in (0, 1)]
         per_batch[f"image_batch_{name}"] = list(ms[name, 32, 512, 192])
+    if all(r["fused"] for r in runs):
+        # train_fused's step: each kernel once on each head layer.
+        for name in FUSED_KERNELS:
+            for i, (m, n, k) in enumerate(FUSED_SHAPES[:2]):
+                old_rows, old_ms = pick(old, "fused", i, name)
+                new_rows, new_ms = pick(new, "fused", i, name)
+                ms[name, m, n, k] = (old_ms, new_ms)
+                emit({"compare": name, "m": m, "n": n, "k": k,
+                      "old_ms": old_ms, "new_ms": new_ms,
+                      "new_over_old": new_ms / old_ms,
+                      "old_runs": [r["kernel_device_ms"] for r in old_rows],
+                      "new_runs": [r["kernel_device_ms"] for r in new_rows],
+                      "library_ms": float(np.mean(
+                          [r["library_device_ms"] for r in new_rows])),
+                      "old_library_ms": float(np.mean(
+                          [r["library_device_ms"] for r in old_rows])),
+                      "bound_ms": new_rows[0]["bound_ms"],
+                      "bound_by": new_rows[0]["bound_by"]})
+            per_batch[f"train_fused_step_{name}"] = [
+                sum(ms[name, m, n, k][j] for m, n, k in FUSED_SHAPES[:2])
+                for j in (0, 1)]
     emit({"per_batch_device_ms_old_new": per_batch})
 
 

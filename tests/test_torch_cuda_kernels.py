@@ -183,6 +183,36 @@ def test_fused_linear_counts_launches_and_rejects_bad_cuda_input(cuda):
         fl.fused_linear_dx(g, w.cpu(), mask, scal)
 
 
+# The dW/dalpha kernel's edges (3xTF32 tensor cores, 64 x 32 tiles, a ring
+# of 32 batch rows): N = 10 and 24 (not a multiple of 4: 4-byte copies of
+# g), K = 100 and 200 (ragged tiles, rows of the mask not 16-byte aligned),
+# M = 1, 7 and 17 (a partial ring step), and M = 2304, past the JAX
+# package's resident limit (_MAX_RESIDENT_M = 2048).
+DWDA_EDGE_SHAPES = [(1, 10, 100), (7, 24, 200), (17, 24, 100),
+                    (17, 10, 200), (1, 24, 200), (2304, 128, 3136)]
+
+
+@pytest.mark.parametrize("mnk", DWDA_EDGE_SHAPES)
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_fused_dwda_edges_match_plain_and_repeat(cuda, mnk, with_mask):
+    from atq_tpu_torch.ops import fused_linear as fl
+
+    m, n, k = mnk
+    x, w, g, mask, scal = _fused_inputs(cuda, m, n, k, with_mask, seed=m + k)
+    for ste in (False, True):
+        before = fl.fused_linear_dwda.launches
+        dw, da = fl.fused_linear_dwda(g, x, w, mask, scal, ste)
+        assert fl.fused_linear_dwda.launches == before + 1
+        dw_p, da_p = fl.dwda_plain(g, x, w, mask, scal, ste)
+        torch.testing.assert_close(dw, dw_p, rtol=1e-4, atol=1e-4)
+        assert abs(da.item() - da_p.item()) <= 1e-4 * abs(da_p.item())
+        if mask is None and not ste:
+            assert not dw.any()
+        dw2, da2 = fl.fused_linear_dwda(g, x, w, mask, scal, ste)
+        assert torch.equal(dw, dw2)  # one launch, the same bits every run
+        assert da.view(torch.int32) == da2.view(torch.int32)
+
+
 def test_fused_autograd_op_on_cuda_equals_cpu(cuda):
     from atq_tpu_torch.ops.fused_linear import fused_quantized_linear
 
