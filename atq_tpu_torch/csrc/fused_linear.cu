@@ -90,7 +90,8 @@
 //
 // The mainloop (stage_tile + mma_tf32x3 over a cp.async ring) takes
 // MN-major A and B tiles; dx and the forward can reuse it with their own
-// tile loaders.
+// tile loaders. The split, the MMA and the MN-major fragment reads live in
+// tf32x3.cuh, shared with the attention backward.
 //
 // Ragged edges are masked in the loads and stores: x, w, g and the mask are
 // read where they lie, with no padded copies. The bool mask is read as
@@ -99,6 +100,8 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "tf32x3.cuh"  // cp.async, the TF32 split, mma_tf32x3
 
 namespace {
 
@@ -260,28 +263,6 @@ constexpr int kRingBytes = kStages * kStageFloats * 4;
 constexpr int kWBytes = kTileA * kLdW * 4;
 constexpr int kSmemBytes = kRingBytes + kWBytes + kTileA * kLdMask;
 
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src,
-                                          int bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-               "l"(src), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int kPending>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
-}
-
 // Rows [r0, r0 + kRows) x columns [c0, c0 + kCols) of a row-major f32
 // matrix (row stride ld floats, rows < R and columns < C valid) into s
 // (row stride kLd floats), zeros elsewhere. vec: every row is 16-byte
@@ -330,72 +311,6 @@ __device__ __forceinline__ void stage_mask(unsigned char* s,
     const int r = e / kTileB, c = e % kTileB;
     s[r * kLdMask + c] = n0 + r < N && k0 + c < K
                              ? mask[(size_t)(n0 + r) * K + k0 + c] : 0;
-  }
-}
-
-// cvt.rna.tf32.f32's rounding (to nearest, ties away from zero; the same
-// bits for finite values) as two integer operations on the bits.
-__device__ __forceinline__ uint32_t tf32_rna(float v) {
-  return (__float_as_uint(v) + 0x1000u) & 0xFFFFE000u;
-}
-
-// v = hi + lo, each a tf32 value (lo: the rounding of what hi left).
-__device__ __forceinline__ void split_tf32(float v, uint32_t& hi,
-                                           uint32_t& lo) {
-  hi = tf32_rna(v);
-  lo = tf32_rna(v - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// kSteps MMA steps (8 reduction rows each) of a warp's 32 x 16 output:
-// C[a][b] += Σ_m A[m][a] · B[m][b], sa = A[m][warp's 32 rows] (row stride
-// kLdA), sb = B[m][warp's 16 cols] (row stride kLdB), 3xTF32: per step
-// lo·hi, then hi·lo, then hi·hi, each over the 4 tiles (so consecutive
-// MMAs are independent). acc[i][j] is m16 tile i, n8 tile j, in the
-// permuted order of the note at the top: lane (g, t) = (lane / 4, lane % 4)
-// owns rows 4g..4g+3 and columns 4t..4t+3 of the warp's tile.
-template <int kSteps>
-__device__ __forceinline__ void mma_tf32x3(float (&acc)[2][2][4],
-                                           const float* sa, const float* sb,
-                                           int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const float* pa = sa + (8 * ks + t) * kLdA + 4 * g;
-    const float4 a0 = *(const float4*)pa;              // m = t
-    const float4 a1 = *(const float4*)(pa + 4 * kLdA);  // m = t + 4
-    const float* pb = sb + (8 * ks + t) * kLdB + 2 * g;
-    const float2 b0 = *(const float2*)pb;
-    const float2 b1 = *(const float2*)(pb + 4 * kLdB);
-    // A fragment of tile i: rows (g, g + 8) -> 4g + 2i + (0, 1); cols t, t+4.
-    uint32_t a[2][2][4];  // [hi, lo][tile][fragment]
-    split_tf32(a0.x, a[0][0][0], a[1][0][0]);
-    split_tf32(a0.y, a[0][0][1], a[1][0][1]);
-    split_tf32(a1.x, a[0][0][2], a[1][0][2]);
-    split_tf32(a1.y, a[0][0][3], a[1][0][3]);
-    split_tf32(a0.z, a[0][1][0], a[1][1][0]);
-    split_tf32(a0.w, a[0][1][1], a[1][1][1]);
-    split_tf32(a1.z, a[0][1][2], a[1][1][2]);
-    split_tf32(a1.w, a[0][1][3], a[1][1][3]);
-    // B fragment of tile j: col g -> 2g + j; rows t, t + 4.
-    uint32_t b[2][2][2];  // [hi, lo][tile][fragment]
-    split_tf32(b0.x, b[0][0][0], b[1][0][0]);
-    split_tf32(b1.x, b[0][0][1], b[1][0][1]);
-    split_tf32(b0.y, b[0][1][0], b[1][1][0]);
-    split_tf32(b1.y, b[0][1][1], b[1][1][1]);
-#pragma unroll
-    for (int p = 0; p < 3; ++p)  // lo·hi, hi·lo, hi·hi
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          mma_tf32(acc[i][j], a[p == 0][i], b[p == 1][j]);
   }
 }
 
@@ -457,9 +372,9 @@ dwda_kernel(DwdaArgs p) {
     __syncthreads();  // ... everyone's; and step i - 1's stage is free
     issue(i + kStages - 1);
     const float* s = ring + (i % kStages) * kStageFloats;
-    mma_tf32x3<kRows / 8>(acc, s + grp * kRows * kLdA + 32 * wa,
-                          s + kStep * kLdA + grp * kRows * kLdB + 16 * wb, g,
-                          t);
+    mma_tf32x3<kRows / 8, kLdA, kLdB>(
+        acc, s + grp * kRows * kLdA + 32 * wa,
+        s + kStep * kLdA + grp * kRows * kLdB + 16 * wb, g, t);
   }
   cp_async_wait<0>();
   __syncthreads();  // the ring is free; w and the mask have landed

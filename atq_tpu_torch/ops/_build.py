@@ -5,8 +5,9 @@ Every ``atq_tpu_torch/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a``
 shared library with a plain C interface, and loaded with ``ctypes``. The
 build happens at first use, from the package's own sources, into
 ``atq_tpu_torch/_build/`` (listed in .gitignore); the library's name
-carries a hash of the sources and flags, so an edited source rebuilds. A
-failed build raises: nothing falls back to the plain PyTorch versions.
+carries a hash of the sources, the headers they include (``csrc/*.cuh``)
+and the flags, so an edited source or header rebuilds. A failed build
+raises: nothing falls back to the plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -46,8 +47,10 @@ def _sources():
 
 
 def _digest(sources) -> str:
+    """A hash of the flags, the sources and the headers they include
+    (``csrc/*.cuh``), so an edited header rebuilds too."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(sources) + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
@@ -85,7 +88,7 @@ def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
                                           i32, i32, i32, f32, vp]
     lib.atq_attention_forward.restype = i32
     lib.atq_attention_backward.argtypes = [i32, i32, vp, vp, vp, vp, vp, vp,
-                                           vp, vp, vp, vp, i32, i32, i32, i32,
+                                           vp, vp, vp, i32, i32, i32, i32,
                                            f32, vp]
     lib.atq_attention_backward.restype = i32
     return lib

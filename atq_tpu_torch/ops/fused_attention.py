@@ -131,15 +131,16 @@ def fused_attention_backward(q, k, v, scale: float, bias, do):
     lib = load_library()
     b, h, s, d = q.shape
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    # P and dS for the second pass, in the input dtype (B, H, S, S).
-    p_buf = torch.empty((b, h, s, s), dtype=q.dtype, device=q.device)
-    ds_buf = torch.empty_like(p_buf)
+    # Each query row's softmax max m, sum l and delta = rowsum(dP·p32),
+    # from the first launch to the second (the fourth float pads a row to
+    # 16 bytes). P and dS stay in the kernels' shared memory.
+    stats = torch.empty((b, h, s, 4), dtype=torch.float32, device=q.device)
     device, stream = _launch_args(q)
     check(lib.atq_attention_backward(
         device, _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         _ptr(bias), do.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-        dv.data_ptr(), p_buf.data_ptr(), ds_buf.data_ptr(), b, h, s, d,
-        float(scale), stream), "fused attention backward kernels")
+        dv.data_ptr(), stats.data_ptr(), b, h, s, d, float(scale), stream),
+        "fused attention backward kernels")
     fused_attention_backward.launches += 1
     return dq, dk, dv
 

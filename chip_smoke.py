@@ -4,8 +4,9 @@
     python3 chip_smoke.py          # from the repo root, on a machine with
                                    # one NVIDIA H100 (sm_90a) and nvcc
     python3 chip_smoke.py --compare DIR [OUT]
-                                   # the packed and fused kernels of another
-                                   # checkout (DIR) against this tree's, in
+                                   # the packed, fused and attention kernels
+                                   # of another checkout (DIR) against this
+                                   # tree's, in
                                    # turns DIR, this, this, DIR (device ms;
                                    # raw rows in OUT, default
                                    # outputs/compare)
@@ -14,8 +15,9 @@ Phases, one JSON line each; any failure exits non-zero:
 
   build         compiles the CUDA kernels from atq_tpu_torch/csrc (nvcc);
                 ptxas's registers and spills by kernel, and
-                the HMMA count of each tiled_packed_kernel and dwda_kernel
-                instantiation (cuobjdump -sass).
+                the HMMA count of each tiled_packed_kernel, dwda_kernel
+                and attention backward (attn_bwd_rows_kernel,
+                attn_bwd_keys_kernel) instantiation (cuobjdump -sass).
   kernels       holds each kernel against its plain PyTorch version on the
                 card (order statistic bit-exact at every listed size and
                 rank; packed matmul within rtol 1e-5 / atol 5e-3, the JAX
@@ -106,9 +108,13 @@ Phases, one JSON line each; any failure exits non-zero:
 The batched order statistic is held bit-exact (sum within 1e-6 relative)
 against a per-row sort at (12, 589,824), (12, 2,359,296) and (3, 16,385)
 with per-row ranks 0, n-1, 0.3n and 1; the attention kernels against their
-plain versions at (64, 12, 256, 64) f32, (8, 8, 50, 16) f32 with a padding
-bias and a fully padded row, (4, 4, 512, 64) f32 and (4, 4, 256, 64) bf16:
-o, dq, dk, dv within rtol/atol 1e-4 (f32) or 2e-2 (bf16).
+plain versions at (64, 12, 256, 64) f32, (4, 4, 512, 64) f32,
+(4, 4, 256, 64) bf16 and ATTN_CASES' edge cases (S = 1, 50, 64, 257, 512;
+D = 16, 20, 64, 128; both dtypes; padding biases with a fully padded row):
+o, dq, dk, dv within rtol/atol 1e-4 (f32) or 2e-2 (bf16), each backward
+launched twice and repeated bit for bit. The attention rows of phase
+kernels give the backward's device ms by launch (its two kernels) and the
+kernels SDPA ran, by the profiler's names.
 
 The planar32 and RPB kernels are held against their plain versions in
 phase kernels (rtol 1e-5 / atol 5e-3) at the text tower's (M, K -> N) =
@@ -181,10 +187,21 @@ STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
 BATCHED_OS_SHAPES = ((12, 589824), (12, 2359296), (3, 16385))
 BERT_SPARSITY = 0.1  # the layers' initial sparsity, min(0.1, 0.3)
 # Attention: bert-base's shape first (the main path's, f32 under AMP).
+# Then the edge cases: S = 1, 50, 64, 257 and 512; D = 16, 20, 64 and 128;
+# both dtypes; a padding bias with one fully padded batch row.
 ATTN_CASES = (((64, 12, 256, 64), torch.float32, False),
               ((8, 8, 50, 16), torch.float32, True),
               ((4, 4, 512, 64), torch.float32, False),
-              ((4, 4, 256, 64), torch.bfloat16, False))
+              ((4, 4, 256, 64), torch.bfloat16, False),
+              ((2, 3, 1, 16), torch.float32, False),
+              ((2, 3, 1, 64), torch.bfloat16, True),
+              ((4, 3, 50, 20), torch.float32, True),
+              ((4, 3, 50, 20), torch.bfloat16, True),
+              ((2, 2, 64, 128), torch.bfloat16, True),
+              ((2, 4, 257, 64), torch.float32, True),
+              ((1, 2, 257, 128), torch.bfloat16, False),
+              ((2, 2, 512, 128), torch.float32, True),
+              ((2, 2, 512, 16), torch.bfloat16, True))
 ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Encoder step 0: bert-base widths, 2 layers, batch 8, sequence 256.
 ENCODER_STEP0 = (768, 3072, 12, 2, 256, 8, True, True)
@@ -273,6 +290,28 @@ def device_ms(fn, iters=50):
     return None
 
 
+def device_ms_by_kernel(fn, iters=50):
+    """Device ms per call of each kernel ``fn`` launches, by the
+    profiler's kernel name; None if three traced windows record none."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        rows = {e.key: e.self_device_time_total / 1e3 / iters
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA
+                and e.self_device_time_total > 0}
+        if rows:
+            return rows
+    return None
+
+
 def timed(fns: dict) -> dict:
     """``{name}_ms`` (CUDA events) and ``{name}_device_ms`` (profiler)."""
     out = {}
@@ -311,7 +350,8 @@ def phase_build(smi: str):
     with open(build_info["library"][:-3] + ".log") as f:
         log = f.read()
     hmma = {kind: _sass_hmma(build_info["library"], kind)
-            for kind in ("tiled_packed_kernel", "dwda_kernel")}
+            for kind in ("tiled_packed_kernel", "dwda_kernel",
+                         "attn_bwd_rows_kernel", "attn_bwd_keys_kernel")}
     for kind, counts in hmma.items():  # the tensor-core kernels use them
         if counts is not None and (not counts or 0 in counts.values()):
             raise AssertionError(f"{kind}: no HMMA in its SASS: {counts}")
@@ -712,7 +752,8 @@ def _attn_inputs(gen, shape, dtype, with_bias):
 
 def check_attention(gen):
     """Forward and backward kernels against their plain versions; o and
-    dq, dk, dv within rtol/atol 1e-4 (float32) or 2e-2 (bfloat16)."""
+    dq, dk, dv within rtol/atol 1e-4 (float32) or 2e-2 (bfloat16); the
+    backward launched twice a case, and the two must agree bit for bit."""
     from atq_tpu_torch.ops import fused_attention as fa
 
     errs = {"fused_attention_fwd": 0.0, "fused_attention_bwd": 0.0}
@@ -728,7 +769,13 @@ def check_attention(gen):
         case["fwd"] = _err(f"attention fwd {shape} {dtype}", o.float(),
                            fa.forward_plain(q, k, v, scale, bias).float(),
                            tol)
-        grads = fa.fused_attention_backward(q, k, v, scale, bias, do)
+        def backward():
+            return torch.cat([g.flatten() for g in fa.fused_attention_backward(
+                q, k, v, scale, bias, do)])
+
+        flat = backward()
+        _same_bits(f"attention bwd {shape} {dtype}", backward, flat)
+        grads = flat.view(3, *shape).unbind(0)
         want = fa.backward_plain(q, k, v, scale, bias, do)
         case["bwd"] = max(_err(f"attention d{n} {shape} {dtype}", a.float(),
                                b.float(), tol)
@@ -788,22 +835,35 @@ def time_attention(gen):
 
     elems = b * h * s * d
     fwd_ms, fwd_by = bound(4 * elems * 4, 4 * s * s * d * b * h)
-    bwd_ms, bwd_by = bound(7 * elems * 4, 10 * s * s * d * b * h)
+    # The backward's five products on the tensor cores as 3xTF32: three
+    # TF32 products each, 3 * 10 * S^2 * D operations a head.
+    bwd_ms, bwd_by = bound(7 * elems * 4, 3 * 10 * s * s * d * b * h,
+                           PEAK_TF32_FLOP_PER_S)
+
+    def kernel_bwd():
+        return fa.fused_attention_backward(q, k, v, scale, None, do)
+
+    def library_fwd():
+        return F.scaled_dot_product_attention(q, k, v, scale=scale)
     return {
         "fused_attention_fwd": {
             "shape": shape, "bound_ms": fwd_ms, "bound_by": fwd_by,
+            "library_kernels_device_ms": device_ms_by_kernel(library_fwd),
             **timed({"kernel": lambda: fa.fused_attention_forward(
                 q, k, v, scale),
                 "plain": lambda: fa.forward_plain(q, k, v, scale),
-                "library": lambda: F.scaled_dot_product_attention(
-                    q, k, v, scale=scale)})},
+                "library": library_fwd})},
         "fused_attention_bwd": {
             "shape": shape, "bound_ms": bwd_ms, "bound_by": bwd_by,
             "library_is": "sdpa backward",
-            **timed({"kernel": lambda: fa.fused_attention_backward(
-                q, k, v, scale, None, do),
-                "plain": lambda: fa.backward_plain(q, k, v, scale, None, do),
-                "library": sdpa_bwd, "library_fwd_bwd": sdpa_fwd_bwd})},
+            # The device ms of each of the kernel's launches, and the names
+            # of the kernels SDPA's backward ran (its backend).
+            "kernel_launches_device_ms": device_ms_by_kernel(kernel_bwd),
+            "library_kernels_device_ms": device_ms_by_kernel(sdpa_bwd),
+            **timed({"kernel": kernel_bwd,
+                     "plain": lambda: fa.backward_plain(q, k, v, scale, None,
+                                                        do),
+                     "library": sdpa_bwd, "library_fwd_bwd": sdpa_fwd_bwd})},
     }
 
 
@@ -1729,8 +1789,9 @@ FUSED_KERNELS = ("fused_forward", "fused_dx", "fused_dwda")
 def time_tree(tree, out):
     """Times the kernels with ``tree``'s own chip_smoke.py and
     atq_tpu_torch (which build that tree's kernels) at COMPARE_MM
-    (time_matmul), PACKED_SHAPES (time_packed) and, where the tree has
-    time_fused, the first two FUSED_SHAPES; writes them to ``out``."""
+    (time_matmul), PACKED_SHAPES (time_packed), where the tree has
+    time_fused, the first two FUSED_SHAPES, and, where it has
+    time_attention, bert-base's attention call; writes them to ``out``."""
     tree = os.path.abspath(tree)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -1740,7 +1801,10 @@ def time_tree(tree, out):
               "matmul": [mod.time_matmul(gen, *s) for s in COMPARE_MM],
               "packed": [mod.time_packed(gen, *s) for s in PACKED_SHAPES],
               "fused": [mod.time_fused(gen, *s) for s in FUSED_SHAPES[:2]]
-              if hasattr(mod, "time_fused") else None}
+              if hasattr(mod, "time_fused") else None,
+              "attention": mod.time_attention(
+                  torch.Generator(device="cuda").manual_seed(0))
+              if hasattr(mod, "time_attention") else None}
     with open(out, "w") as f:
         json.dump(result, f)
 
@@ -1817,6 +1881,32 @@ def compare(parent, out_dir="outputs/compare"):
             per_batch[f"train_fused_step_{name}"] = [
                 sum(ms[name, m, n, k][j] for m, n, k in FUSED_SHAPES[:2])
                 for j in (0, 1)]
+    if all(r.get("attention") for r in runs):
+        # train_encoder's step: the forward 24 times, the backward 12.
+        for name, per_step in (("fused_attention_fwd", 24),
+                               ("fused_attention_bwd", 12)):
+            old_rows = [r["attention"][name] for r in old]
+            new_rows = [r["attention"][name] for r in new]
+            old_ms, new_ms = (float(np.mean([r["kernel_device_ms"]
+                                             for r in rows]))
+                              for rows in (old_rows, new_rows))
+            emit({"compare": name, "shape": new_rows[0]["shape"],
+                  "old_ms": old_ms, "new_ms": new_ms,
+                  "new_over_old": new_ms / old_ms,
+                  "old_runs": [r["kernel_device_ms"] for r in old_rows],
+                  "new_runs": [r["kernel_device_ms"] for r in new_rows],
+                  "old_launches_device_ms": [
+                      r.get("kernel_launches_device_ms") for r in old_rows],
+                  "new_launches_device_ms": [
+                      r.get("kernel_launches_device_ms") for r in new_rows],
+                  "library_ms": float(np.mean(
+                      [r["library_device_ms"] for r in new_rows])),
+                  "old_library_ms": float(np.mean(
+                      [r["library_device_ms"] for r in old_rows])),
+                  "bound_ms": new_rows[0]["bound_ms"],
+                  "bound_by": new_rows[0]["bound_by"]})
+            per_batch[f"train_encoder_step_{name}"] = [
+                per_step * old_ms, per_step * new_ms]
     emit({"per_batch_device_ms_old_new": per_batch})
 
 

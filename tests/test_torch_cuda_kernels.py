@@ -277,10 +277,21 @@ def test_batched_order_stat_rejects_bad_cuda_input(cuda):
 # cuBLAS over D and S), 2e-2 in bfloat16 (one bf16 rounding of p or dS may
 # land on the other side), as tests/test_fused_attention.py holds the JAX
 # kernel to the einsum path.
+# The edge cases: S = 1, 50, 64, 257 (a partial 32-row step and 64-key
+# block) and 512; D = 16, 20 (not a multiple of 8), 64 and 128; both dtypes;
+# with a padding bias, the first batch row fully padded.
 ATTN_CASES = [((8, 8, 50, 16), torch.float32, True),
               ((4, 4, 256, 64), torch.float32, False),
               ((2, 2, 512, 128), torch.float32, True),
-              ((4, 4, 256, 64), torch.bfloat16, False)]
+              ((4, 4, 256, 64), torch.bfloat16, False),
+              ((2, 3, 1, 16), torch.float32, False),
+              ((2, 3, 1, 64), torch.bfloat16, True),
+              ((3, 2, 50, 20), torch.float32, True),
+              ((3, 2, 50, 20), torch.bfloat16, True),
+              ((2, 2, 64, 128), torch.bfloat16, True),
+              ((2, 3, 257, 64), torch.float32, True),
+              ((1, 2, 257, 128), torch.bfloat16, False),
+              ((2, 2, 512, 16), torch.bfloat16, True)]
 
 
 def _attn_inputs(cuda, shape, dtype, with_bias, seed=0):
@@ -318,6 +329,40 @@ def test_fused_attention_kernels_match_plain(cuda, shape, dtype, with_bias):
             q, k, v, scale, bias, do)):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol, msg=lambda m: f"d{name}: {m}")
+
+
+@pytest.mark.parametrize("shape,dtype,with_bias",
+                         [((2, 3, 257, 64), torch.float32, True),
+                          ((2, 2, 50, 20), torch.bfloat16, True),
+                          ((1, 2, 512, 128), torch.float32, False)])
+def test_fused_attention_backward_repeats_bit_for_bit(cuda, shape, dtype,
+                                                      with_bias):
+    from atq_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, do, bias = _attn_inputs(cuda, shape, dtype, with_bias, seed=1)
+    scale = 1.0 / np.sqrt(shape[3])
+    first = fa.fused_attention_backward(q, k, v, scale, bias, do)
+    again = fa.fused_attention_backward(q, k, v, scale, bias, do)
+    for name, a, b in zip("qkv", first, again):
+        assert torch.equal(a, b), f"d{name} differs between two launches"
+
+
+def test_fused_attention_backward_allocates_no_score_tensor(cuda):
+    # With q, k, v and dO live (4·B·H·S·D·4 bytes), one backward call may
+    # add dq, dk, dv and the (B, H, S, 4) row statistics: under
+    # 8·B·H·S·D·4 bytes plus the statistics in all, where a (B, H, S, S) P
+    # and dS would add another 2·B·H·S²·4.
+    from atq_tpu_torch.ops import fused_attention as fa
+
+    b, h, s, d = shape = (4, 4, 256, 64)
+    q, k, v, do, _ = _attn_inputs(cuda, shape, torch.float32, False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()  # the inputs, and anything else
+    fa.fused_attention_backward(q, k, v, 0.125, None, do)
+    torch.cuda.synchronize()
+    added = torch.cuda.max_memory_allocated() - base
+    assert added < 4 * b * h * s * d * 4 + b * h * s * 4 * 4, added
 
 
 def test_fused_attention_rejects_bad_cuda_input(cuda):
