@@ -48,7 +48,9 @@
 //
 // Products: 3xTF32 mma.sync m16n8k8 (tf32x3.cuh): hi = rna(v),
 // lo = rna(v − hi), lo·hi + hi·lo + hi·hi in f32 accumulators, so the
-// float32 path keeps float32 accuracy. For bf16 inputs every operand (q,
+// float32 path keeps float32 accuracy. Each MMA step's products form a
+// fresh partial that joins the running sum by a round-to-nearest add, as
+// mma.sync's own accumulation truncates toward zero. For bf16 inputs every operand (q,
 // k, v, dO, the rounded p and dS) is a TF32 value, and that instantiation
 // issues one exact TF32 product. s and dP have both operands K-major (d
 // contiguous) and use mma_nt16; dq = dS·k reads k MN-major (mma_nn16); dv
@@ -66,8 +68,8 @@
 // Shared memory (floats; ld = DC + 8, lds = S padded to 64, + 8):
 //   pass 1: (2·32 + 64)·ld + 2·32·lds: 104,448 bytes at S = 256, D = 64
 //           (2 blocks an SM); 202,752 at S = 512, D = 128;
-//   pass 2: 2·64·ld + 2·(2·32·ld + 128) + 2·32·72: 93,184 bytes at D = 64
-//           (2 blocks an SM), 158,720 at D = 128; S does not enter.
+//   pass 2: 2·64·ld + 2·(2·32·ld + 128) + 2·32·72 + 64: 93,440 bytes at D = 64
+//           (2 blocks an SM), 158,976 at D = 128; S does not enter.
 // All within the 227 KB a block may take.
 // S <= 512 and D <= 128; the wrapper raises outside that range.
 
@@ -391,7 +393,7 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src,
 // d = 8ks + 2t and 8ks + 2t + 1 in both operands (the sum is unchanged), so
 // each fragment is one float2 load, free of bank conflicts. acc[j] is n8
 // tile j (columns 8j..8j+7) in mma's C layout. 3xTF32 when kSplit (per
-// step lo·hi, hi·lo, hi·hi, each over the two tiles), else hi·hi. Both
+// step lo·hi, hi·lo, hi·hi), else hi·hi, as step sums (tf32x3.cuh). Both
 // passes form s and dP with this function at the same warp, lane and
 // fragment slot for each (row, key), so they get the same bits.
 template <int kSteps, int kLd, bool kSplit>
@@ -414,9 +416,8 @@ __device__ __forceinline__ void mma_nt16(float (&acc)[2][4], const float* sa,
     split_or_keep<kSplit>(b1.x, b[0][1][0], b[1][1][0]);
     split_or_keep<kSplit>(b1.y, b[0][1][1], b[1][1][1]);
 #pragma unroll
-    for (int p = kSplit ? 0 : 2; p < 3; ++p)  // lo·hi, hi·lo, hi·hi
-#pragma unroll
-      for (int j = 0; j < 2; ++j) mma_tf32(acc[j], a[p == 0], b[p == 1][j]);
+    for (int j = 0; j < 2; ++j)
+      mma_step_sum<kSplit>(acc[j], a[0], a[1], b[0][j], b[1][j]);
   }
 }
 
@@ -427,7 +428,7 @@ __device__ __forceinline__ void mma_nt16(float (&acc)[2][4], const float* sa,
 // 8ks + 2t + 1; column slot g of n8 tile j is column 2g + j, so a B
 // fragment pair is one float2 load. Every load is free of bank conflicts.
 // Lane (g, t) owns rows g, g + 8 and columns 4t..4t+3: element
-// (g + 8h, 4t + c) is acc[c & 1][2h + (c >> 1)].
+// (g + 8h, 4t + c) is acc[c & 1][2h + (c >> 1)]. Step sums as mma_nt16.
 template <int kSteps, int kLdB, bool kSplit>
 __device__ __forceinline__ void mma_nn16(float (&acc)[2][4], const float* sa,
                                          int lda, const float* sb, int g,
@@ -449,9 +450,8 @@ __device__ __forceinline__ void mma_nn16(float (&acc)[2][4], const float* sa,
     split_or_keep<kSplit>(b0.y, b[0][1][0], b[1][1][0]);
     split_or_keep<kSplit>(b1.y, b[0][1][1], b[1][1][1]);
 #pragma unroll
-    for (int p = kSplit ? 0 : 2; p < 3; ++p)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) mma_tf32(acc[j], a[p == 0], b[p == 1][j]);
+    for (int j = 0; j < 2; ++j)
+      mma_step_sum<kSplit>(acc[j], a[0], a[1], b[0][j], b[1][j]);
   }
 }
 
@@ -624,6 +624,7 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* ring = sv + kKeys * kLd;               // 2 stages
   float* sp = ring + 2 * kStage;                // kRows x kLdP
   float* sds = sp + kRows * kLdP;               // kRows x kLdP
+  float* skb = sds + kRows * kLdP;              // kKeys: each key's bias
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wr = warp & 1, wc = warp >> 1;  // s, dP: rows 16·wr, keys 16·wc
@@ -633,17 +634,11 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const long long head = bh * S * D;
   const float* brow = bias == nullptr ? nullptr : bias + (long long)b * S;
 
-  // This lane's keys k0 + 16·wc + 8j + 2t + e: in range, and their bias.
-  bool key_ok[2][2];
-  float key_bias[2][2];
-#pragma unroll
-  for (int j = 0; j < 2; ++j)
-#pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const int c = k0 + 16 * wc + 8 * j + 2 * t + e;
-      key_ok[j][e] = c < S;
-      key_bias[j][e] = brow != nullptr && c < S ? brow[c] : 0.f;
-    }
+  // The block's keys' bias; -inf past S, where p and dS then come out 0.
+  if (tid < kKeys) {
+    const int c = k0 + tid;
+    skb[tid] = c >= S ? -INFINITY : brow != nullptr ? brow[c] : 0.f;
+  }
 
   stage_rows<T, DC>(sk, kLd, k + head, k0, kKeys, S, D, vec);
   stage_rows<T, DC>(sv, kLd, v + head, k0, kKeys, S, D, vec);
@@ -685,20 +680,21 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float4 st = sst[r];  // (m, l, delta)
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
+        const int c = 16 * wc + 8 * j + 2 * t;
+        const float2 kb = *(const float2*)(skb + c);
         float p[2], ds[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const bool ok = row_ok && key_ok[j][e];
           const float p32 =
-              ok ? softmax_p(score(s_acc[j][2 * hh + e], scale,
-                                   key_bias[j][e]), st.x, st.y)
-                 : 0.f;
-          p[e] = round_to<T>(p32);
-          ds[e] = ok ? round_to<T>(ds_value(p32, dp_acc[j][2 * hh + e],
-                                            st.z))
+              row_ok ? softmax_p(score(s_acc[j][2 * hh + e], scale,
+                                       e ? kb.y : kb.x), st.x, st.y)
                      : 0.f;
+          p[e] = round_to<T>(p32);
+          ds[e] = row_ok ? round_to<T>(ds_value(
+                               p32, dp_acc[j][2 * hh + e], st.z))
+                         : 0.f;
         }
-        const int at = r * kLdP + 16 * wc + 8 * j + 2 * t;
+        const int at = r * kLdP + c;
         *(float2*)(sp + at) = make_float2(p[0], p[1]);
         *(float2*)(sds + at) = make_float2(ds[0], ds[1]);
       }
@@ -707,10 +703,10 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int pr = 0; pr < kPairs; ++pr) {
       const int col = 16 * wd + 64 * pr;
-      mma_tf32x3<kRows / 8, kLdP, kLd, kSplit>(acc_v[pr], sp + 32 * wk,
-                                               sdo + col, g, t);
-      mma_tf32x3<kRows / 8, kLdP, kLd, kSplit>(acc_k[pr], sds + 32 * wk,
-                                               sq + col, g, t);
+      mma_tf32x3<kRows / 8, kLdP, kLd, kSplit, true>(
+          acc_v[pr], sp + 32 * wk, sdo + col, g, t);
+      mma_tf32x3<kRows / 8, kLdP, kLd, kSplit, true>(
+          acc_k[pr], sds + 32 * wk, sq + col, g, t);
     }
   }
 
@@ -739,7 +735,7 @@ template <int kLd>
 constexpr size_t keys_smem_bytes() {
   return sizeof(float) *
          (2 * kKeys * kLd + 2 * (2 * kRows * kLd + 4 * kRows) +
-          2 * kRows * kLdP);
+          2 * kRows * kLdP + kKeys);
 }
 
 template <typename T, int DC>

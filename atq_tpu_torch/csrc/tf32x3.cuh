@@ -9,6 +9,12 @@
 // bf16) has lo = 0, and one product (hi·hi) is then exact: the kSplit =
 // false forms below issue only that one.
 //
+// mma.sync adds into its f32 accumulator by truncation (round toward
+// zero), so a long chain of MMAs into one accumulator drifts toward zero
+// by about half an ulp an MMA. With kStepSums, each MMA step's products go
+// into a fresh partial sum, which is then added to the running sum with a
+// round-to-nearest add: the truncation acts on 8-term partials only.
+//
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32): lane (g, t) = (lane / 4,
 // lane % 4) holds A (16 x 8) elements (g, t), (g + 8, t), (g, t + 4),
 // (g + 8, t + 4); B (8 x 8) elements (t, g), (t + 4, g); C (16 x 8)
@@ -76,6 +82,24 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// One MMA step of one tile as a step sum: lo·hi, hi·lo and hi·hi (kSplit;
+// else hi·hi) into a fresh partial, then acc += partial rounded to nearest.
+template <bool kSplit>
+__device__ __forceinline__ void mma_step_sum(float (&acc)[4],
+                                             const uint32_t (&a_hi)[4],
+                                             const uint32_t (&a_lo)[4],
+                                             const uint32_t (&b_hi)[2],
+                                             const uint32_t (&b_lo)[2]) {
+  float part[4] = {};
+  if (kSplit) {
+    mma_tf32(part, a_lo, b_hi);
+    mma_tf32(part, a_hi, b_lo);
+  }
+  mma_tf32(part, a_hi, b_hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], part[e]);
+}
+
 // kSteps MMA steps (8 reduction rows each) of a warp's 32 x 16 output of
 // C = Aᵀ·B where both operands have the reduction axis m as their slow
 // axis: C[a][b] += Σ_m A[m][a] · B[m][b], sa = A[m][warp's 32 columns]
@@ -90,11 +114,14 @@ __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
 // m16 tile i, n8 tile j, and lane (g, t) owns rows 4g..4g+3 and columns
 // 4t..4t+3 of the warp's tile, element (4g + r, 4t + c) in
 // acc[r >> 1][c & 1][2 * (r & 1) + (c >> 1)].
-template <int kSteps, int kLdA, int kLdB, bool kSplit = true>
+template <int kSteps, int kLdA, int kLdB, bool kSplit = true,
+          bool kStepSums = false>
 __device__ __forceinline__ void mma_tf32x3(float (&acc)[2][2][4],
                                            const float* sa, const float* sb,
                                            int g, int t) {
-#pragma unroll
+  // Step sums hold a partial a tile: unrolled, their loop spilled
+  // registers in the attention's key pass.
+#pragma unroll (kStepSums ? 1 : kSteps)
   for (int ks = 0; ks < kSteps; ++ks) {
     const float* pa = sa + (8 * ks + t) * kLdA + 4 * g;
     const float4 a0 = *(const float4*)pa;              // m = t
@@ -118,6 +145,15 @@ __device__ __forceinline__ void mma_tf32x3(float (&acc)[2][2][4],
     split_or_keep<kSplit>(b1.x, b[0][0][1], b[1][0][1]);
     split_or_keep<kSplit>(b0.y, b[0][1][0], b[1][1][0]);
     split_or_keep<kSplit>(b1.y, b[0][1][1], b[1][1][1]);
+    if (kStepSums) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          mma_step_sum<kSplit>(acc[i][j], a[0][i], a[1][i], b[0][j],
+                               b[1][j]);
+      continue;
+    }
 #pragma unroll
     for (int p = kSplit ? 0 : 2; p < 3; ++p)  // lo·hi, hi·lo, hi·hi
 #pragma unroll

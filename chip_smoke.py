@@ -10,6 +10,10 @@
                                    # turns DIR, this, this, DIR (device ms;
                                    # raw rows in OUT, default
                                    # outputs/compare)
+    python3 chip_smoke.py --time-tree DIR OUT [KIND ...]
+                                   # one tree's kernel times into OUT;
+                                   # KIND (matmul, packed, fused,
+                                   # attention) limits them
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -769,6 +773,7 @@ def check_attention(gen):
         case["fwd"] = _err(f"attention fwd {shape} {dtype}", o.float(),
                            fa.forward_plain(q, k, v, scale, bias).float(),
                            tol)
+
         def backward():
             return torch.cat([g.flatten() for g in fa.fused_attention_backward(
                 q, k, v, scale, bias, do)])
@@ -1786,25 +1791,30 @@ PACKED_KERNELS = ("ternary_matmul", "ternary_matmul32", "ternary_matmul_rpb")
 FUSED_KERNELS = ("fused_forward", "fused_dx", "fused_dwda")
 
 
-def time_tree(tree, out):
+def time_tree(tree, out, *kinds):
     """Times the kernels with ``tree``'s own chip_smoke.py and
     atq_tpu_torch (which build that tree's kernels) at COMPARE_MM
     (time_matmul), PACKED_SHAPES (time_packed), where the tree has
     time_fused, the first two FUSED_SHAPES, and, where it has
-    time_attention, bert-base's attention call; writes them to ``out``."""
-    tree = os.path.abspath(tree)
+    time_attention, bert-base's attention call; writes them to ``out``.
+    ``kinds`` (matmul, packed, fused, attention) limits it to those."""
+    tree, out = os.path.abspath(tree), os.path.abspath(out)
     os.chdir(tree)
     sys.path.insert(0, tree)
     mod = importlib.import_module("chip_smoke")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    kinds = set(kinds or ("matmul", "packed", "fused", "attention"))
     result = {"tree": tree,
-              "matmul": [mod.time_matmul(gen, *s) for s in COMPARE_MM],
-              "packed": [mod.time_packed(gen, *s) for s in PACKED_SHAPES],
+              "matmul": [mod.time_matmul(gen, *s) for s in COMPARE_MM]
+              if "matmul" in kinds else None,
+              "packed": [mod.time_packed(gen, *s) for s in PACKED_SHAPES]
+              if "packed" in kinds else None,
               "fused": [mod.time_fused(gen, *s) for s in FUSED_SHAPES[:2]]
-              if hasattr(mod, "time_fused") else None,
+              if "fused" in kinds and hasattr(mod, "time_fused") else None,
               "attention": mod.time_attention(
                   torch.Generator(device="cuda").manual_seed(0))
-              if hasattr(mod, "time_attention") else None}
+              if "attention" in kinds and hasattr(mod, "time_attention")
+              else None}
     with open(out, "w") as f:
         json.dump(result, f)
 
@@ -1917,7 +1927,7 @@ def main(argv=None):
               file=sys.stderr)
         return 1
     if argv[:1] == ["--time-tree"]:
-        time_tree(*argv[1:3])
+        time_tree(*argv[1:])
         return 0
     if argv[:1] == ["--compare"]:
         compare(*argv[1:3])
