@@ -80,7 +80,7 @@
 
 #include <type_traits>
 
-#include "tf32x3.cuh"  // cp.async, the TF32 split, mma_tf32x3
+#include "tf32x3.cuh"  // cp.async, the TF32 split, the fragment readers
 
 namespace {
 
@@ -384,74 +384,6 @@ __device__ __forceinline__ void stage_rows(float* dst, int ld, const T* src,
     const int g = r0 + r;
     dst[r * ld + d] =
         (g < S && d < D) ? to_f(src[(long long)g * D + d]) : 0.f;
-  }
-}
-
-// C[r][c] += Σ_d A[r][d]·B[c][d] over kSteps steps of 8 d, a warp's 16 x 16
-// tile: sa = A's 16 rows, sb = B's 16 rows, both with d contiguous (row
-// stride kLd, 8 mod 32 words). Reduction slots t and t + 4 of step ks hold
-// d = 8ks + 2t and 8ks + 2t + 1 in both operands (the sum is unchanged), so
-// each fragment is one float2 load, free of bank conflicts. acc[j] is n8
-// tile j (columns 8j..8j+7) in mma's C layout. 3xTF32 when kSplit (per
-// step lo·hi, hi·lo, hi·hi), else hi·hi, as step sums (tf32x3.cuh). Both
-// passes form s and dP with this function at the same warp, lane and
-// fragment slot for each (row, key), so they get the same bits.
-template <int kSteps, int kLd, bool kSplit>
-__device__ __forceinline__ void mma_nt16(float (&acc)[2][4], const float* sa,
-                                         const float* sb, int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int d = 8 * ks + 2 * t;
-    const float2 a0 = *(const float2*)(sa + g * kLd + d);
-    const float2 a1 = *(const float2*)(sa + (g + 8) * kLd + d);
-    const float2 b0 = *(const float2*)(sb + g * kLd + d);
-    const float2 b1 = *(const float2*)(sb + (g + 8) * kLd + d);
-    uint32_t a[2][4], b[2][2][2];  // [hi, lo]([tile])[fragment]
-    split_or_keep<kSplit>(a0.x, a[0][0], a[1][0]);
-    split_or_keep<kSplit>(a1.x, a[0][1], a[1][1]);
-    split_or_keep<kSplit>(a0.y, a[0][2], a[1][2]);
-    split_or_keep<kSplit>(a1.y, a[0][3], a[1][3]);
-    split_or_keep<kSplit>(b0.x, b[0][0][0], b[1][0][0]);
-    split_or_keep<kSplit>(b0.y, b[0][0][1], b[1][0][1]);
-    split_or_keep<kSplit>(b1.x, b[0][1][0], b[1][1][0]);
-    split_or_keep<kSplit>(b1.y, b[0][1][1], b[1][1][1]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      mma_step_sum<kSplit>(acc[j], a[0], a[1], b[0][j], b[1][j]);
-  }
-}
-
-// C[r][n] += Σ_c A[r][c]·B[c][n] over kSteps steps of 8 c, a warp's 16 x 16
-// tile: sa = A's 16 rows (c contiguous, row stride lda, 8 mod 32 words), sb
-// = B's rows from the first c (n contiguous, row stride kLdB, 4 mod 32
-// words). As in mma_nt16, slots t and t + 4 hold c = 8ks + 2t and
-// 8ks + 2t + 1; column slot g of n8 tile j is column 2g + j, so a B
-// fragment pair is one float2 load. Every load is free of bank conflicts.
-// Lane (g, t) owns rows g, g + 8 and columns 4t..4t+3: element
-// (g + 8h, 4t + c) is acc[c & 1][2h + (c >> 1)]. Step sums as mma_nt16.
-template <int kSteps, int kLdB, bool kSplit>
-__device__ __forceinline__ void mma_nn16(float (&acc)[2][4], const float* sa,
-                                         int lda, const float* sb, int g,
-                                         int t) {
-#pragma unroll
-  for (int ks = 0; ks < kSteps; ++ks) {
-    const int c = 8 * ks + 2 * t;
-    const float2 a0 = *(const float2*)(sa + g * lda + c);
-    const float2 a1 = *(const float2*)(sa + (g + 8) * lda + c);
-    const float2 b0 = *(const float2*)(sb + c * kLdB + 2 * g);
-    const float2 b1 = *(const float2*)(sb + (c + 1) * kLdB + 2 * g);
-    uint32_t a[2][4], b[2][2][2];
-    split_or_keep<kSplit>(a0.x, a[0][0], a[1][0]);
-    split_or_keep<kSplit>(a1.x, a[0][1], a[1][1]);
-    split_or_keep<kSplit>(a0.y, a[0][2], a[1][2]);
-    split_or_keep<kSplit>(a1.y, a[0][3], a[1][3]);
-    split_or_keep<kSplit>(b0.x, b[0][0][0], b[1][0][0]);
-    split_or_keep<kSplit>(b1.x, b[0][0][1], b[1][0][1]);
-    split_or_keep<kSplit>(b0.y, b[0][1][0], b[1][1][0]);
-    split_or_keep<kSplit>(b1.y, b[0][1][1], b[1][1][1]);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      mma_step_sum<kSplit>(acc[j], a[0], a[1], b[0][j], b[1][j]);
   }
 }
 

@@ -12,33 +12,59 @@
 // Each is one kernel template with a has_mask switch (and, for dW, the
 // STE/parity switch), so the mask and no-mask variants share one body.
 //
-// Forward and dx: gemm_kernel, a shared-memory f32 FMA GEMM. A 256-thread
-// block owns a 64 x 64 output tile, walks the reduction axis in steps of
-// 16, stages one 64 x 16 slice of each operand in shared memory, and each
-// thread accumulates a 4 x 4 grid of outputs with FMAs in registers. Each
-// weight element is ternarized and blended as it is loaded, so w_t and
-// w_eff never exist in device memory (the TPU kernels do the same inside
-// the VMEM tile). The forward has a short output (256 x 128 at the recipe)
-// and a long reduction (K = 3136), which would give 8 blocks for 132 SMs;
-// it splits K over grid.z into per-split partials that a second pass adds
-// in a fixed order. Bound at the recipe's first layer (256 x 128 x 3136):
-// 2·M·N·K = 205.5 MFLOP, 3.1 us at the 67 TFLOP/s f32 (non tensor core)
-// rate, against about 5 MB, 1.5 us at 3.35 TB/s; this kernel has no
-// tensor cores, no double buffering and no vector loads, and runs well
-// below that bound.
+// All three run on the tensor cores as 3xTF32, so the f32 paths keep f32
+// accuracy (no plain TF32 or bf16 pass): each f32 operand value v is split
+// as hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v − hi) (hi + lo is v within
+// 2^-22·|v|), and mma.sync m16n8k8 (tf32 in, f32 accumulate) sums
+// lo·hi + hi·lo + hi·hi; lo·lo (about 2^-22 relative) is dropped. 3xTF32
+// was taken over bf16 terms on both sides (6 m16n8k16 MMAs a product)
+// because it needs two splits where bf16 needs three, and half the MMAs and
+// fragment registers; both run at the same third of the TF32 rate. mma.sync
+// adds into its f32 accumulator by truncation, so each MMA step's three
+// products go into a fresh partial that joins the running sum by a
+// round-to-nearest add (step sums). The split, the MMA and the fragment
+// readers live in tf32x3.cuh, shared with the attention backward. Both
+// operands are f32 and the weight's ternary part is scaled by alpha, so the
+// exact-bf16-weight trick of ternary_matmul.cu does not apply.
+//
+// Forward and dx: gemm_tc_kernel<DX, HAS_MASK>. A 256-thread block owns a
+// 64 x 64 output tile; its 8 warps each own 16 rows x 32 columns (two
+// 16 x 16 fragment tiles). A 3-stage ring of cp.async copies walks the
+// reduction in steps of 32 (16-byte copies, 4-byte ones where a row is not
+// 16-byte aligned; zeros past every edge): the copies of step i + 2 are in
+// flight during step i's MMAs, one barrier a step. The raw weight rows and
+// their mask bytes land in shared memory; each thread then blends the
+// weight elements it copied into w_eff in place, before the barrier that
+// releases the stage to the MMAs, so w_t and w_eff never exist in device
+// memory (the TPU kernels do the same inside the VMEM tile); where rows are
+// not aligned, the weight is read, blended and stored by plain loads.
+// - dx (M, K) = g (M, N) · w_eff (N, K) reduces over N: g's tile has the
+//   reduction contiguous and the weight's has it as the slow axis, read by
+//   mma_nn16 (row strides 40 and 68 floats, 8 and 4 mod 32 words, so no
+//   fragment load has a bank conflict). A lane owns 4 consecutive columns
+//   of two rows of each fragment tile, and stores dx as float4 rows.
+// - y (M, N) = x (M, K) · w_eff (N, K)ᵀ reduces over K: both tiles have
+//   the reduction contiguous, read by mma_nt16 (row stride 40). The
+//   recipe's output is short (256 x 128: 8 tiles) and its reduction long
+//   (K = 3136), so the wrapper splits K over grid.z (forward_splits). Each
+//   split writes its 64 x 64 partial to a workspace; the last block of the
+//   tile to finish (an integer atomicAdd ticket after a __threadfence, one
+//   ticket a tile) adds the partials in split order into y and resets the
+//   ticket to 0. One launch, no float atomics, the same bits every run.
+// Bound at the recipe's first layer (256 x 128 x 3136, with the mask):
+// 3 · 2·M·N·K = 616.6 MFLOP, 1.25 us at the 495 TFLOP/s TF32 rate, against
+// 5.35 MB (x or dx 3.21 MB, w 1.61 MB, the mask 0.40 MB, y or g 0.13 MB),
+// 1.60 us at 3.35 TB/s: bytes bound both. mma.sync reaches about 90 of the
+// 495 TFLOP/s here (dwda_kernel), so the MMAs take some 7 us of issue over
+// the card; the forward's 8 output tiles fill it only through the split
+// (33 splits of 96: 264 blocks, two an SM, were the fastest of 88 to 264).
+// Measured (PERF.md, H100 at 700 W): dx 0.0120 ms, 1.26x cuBLAS's f32
+// g·w_eff; the forward 0.0154 ms, 1.05x cuBLAS's x·w_effᵀ; 2- to 4-stage
+// rings and steps of 64 were within 5 % of this one on the forward.
 //
 // dW/dalpha: dwda_kernel, on the tensor cores. It forms G = gᵀx tile by
 // tile and turns it into dw (mode dependent) and dalpha in the epilogue;
-// G never reaches device memory. Both operands are f32 and neither is
-// ternary, so the exact-bf16-weight trick of ternary_matmul.cu does not
-// apply. The products are 3xTF32: each operand value v is split as
-// hi = cvt.rna.tf32(v), lo = cvt.rna.tf32(v − hi) (hi + lo is v within
-// 2^-22·|v|), and mma.sync m16n8k8 (tf32 in, f32 accumulate) sums
-// lo·hi + hi·lo + hi·hi; lo·lo (about 2^-22 relative) is dropped. This was
-// taken over bf16 terms on both sides (6 m16n8k16 MMAs a product) because
-// it needs two splits where bf16 needs three, and half the MMAs and
-// fragment registers; both run at the same third of the TF32 rate. So the
-// f32 paths keep f32 accuracy (no plain TF32 or bf16 pass).
+// G never reaches device memory.
 //
 // Bound at 256 x 128 x 3136: 3 · 2·M·N·K = 616.6 MFLOP, 1.25 us at the
 // 495 TFLOP/s TF32 rate, against 6.96 MB (g, x, w, mask read, dw written),
@@ -54,9 +80,10 @@
 //   32 x 16 outputs each); group h takes rows 16h..16h+15 of every ring
 //   stage into its own accumulators, and group 1 hands its sums to group 0
 //   at the end (group 0 + group 1, a fixed order), so each warp's chain of
-//   dependent MMAs is half a step long. Within a step the 12 MMAs run
-//   product by product over the 4 tiles, so consecutive MMAs are
-//   independent.
+//   dependent MMAs is half a step long. Each MMA step's three products of
+//   a tile go into a fresh partial that joins the tile's sum rounded to
+//   nearest (step sums): summed straight into the accumulators, G drifted
+//   toward zero, 23x the largest error at M = 2304 (PERF.md).
 // - A 3-stage ring of 16-byte cp.async copies walks M in steps of 32
 //   (zero-filled past M, N and K; 4-byte copies where a row is not 16-byte
 //   aligned): the copies of step i + 2 are in flight during step i's MMAs,
@@ -78,8 +105,8 @@
 // Every variant writes every element of dw (parity without a mask writes
 // zeros), so the caller allocates dw with torch.empty.
 //
-// Measured (PERF.md, H100 at 700 W): 0.0139 ms at 256 x 128 x 3136, 6.7x
-// the bound and 1.32x cuBLAS's f32 gᵀx; 0.0126 ms at 256 x 10 x 128.
+// Measured (PERF.md, H100 at 700 W): 0.0148 ms at 256 x 128 x 3136 with
+// step sums (0.0139 without), 7.1x the bound and 1.44x cuBLAS's f32 gᵀx.
 // Variants that drop one part each put it at about 5 us of MMAs and
 // splits (617 MFLOP in ~6.8 us: mma.sync TF32 runs at ~90 TFLOP/s here),
 // ~3.5 us of loads the ring does not hide and ~2 us of dalpha tail. One
@@ -87,11 +114,6 @@
 // 6-stage ring with the tail in warp group 1 was slower. wgmma (tf32
 // operands K-major in shared memory, so a transposing stage) is the way
 // to the TF32 rate.
-//
-// The mainloop (stage_tile + mma_tf32x3 over a cp.async ring) takes
-// MN-major A and B tiles; dx and the forward can reuse it with their own
-// tile loaders. The split, the MMA and the MN-major fragment reads live in
-// tf32x3.cuh, shared with the attention backward.
 //
 // Ragged edges are masked in the loads and stores: x, w, g and the mask are
 // read where they lie, with no padded copies. The bool mask is read as
@@ -101,7 +123,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "tf32x3.cuh"  // cp.async, the TF32 split, mma_tf32x3
+#include "tf32x3.cuh"  // cp.async, the TF32 split, the fragment readers
 
 namespace {
 
@@ -111,132 +133,9 @@ __device__ __forceinline__ float ternarize(float w, float thr) {
 
 bool aligned16(const void* p) { return ((uintptr_t)p & 15) == 0; }
 
-// ---------------------------------------------------------------------------
-// gemm_kernel: forward and dx (f32 FMA).
-// ---------------------------------------------------------------------------
-
-constexpr int kBM = 64;       // output tile rows (operand A's output axis)
-constexpr int kBN = 64;       // output tile cols (operand B's output axis)
-constexpr int kBK = 16;       // reduction step
-constexpr int kThreads = 256; // 16 x 16 threads, 4 x 4 outputs each
-constexpr int kTM = kBM / 16;
-constexpr int kTN = kBN / 16;
-
-// Stage a kBX (output) x kBK (reduction) slice of an operand into
-// s[red][out]. RC: the reduction index is the contiguous one
-// (address = out * ld + red); otherwise address = red * ld + out. BLEND
-// turns the weight into w_eff as it is loaded (with the mask if HAS_MASK).
-template <int kBX, bool RC, bool BLEND, bool HAS_MASK>
-__device__ __forceinline__ void load_tile(float (*s)[kBX + 1],
-                                          const float* __restrict__ src,
-                                          const uint8_t* __restrict__ mask,
-                                          int ld, int out_total, int red_end,
-                                          int out0, int red0, float alpha,
-                                          float thr) {
-#pragma unroll
-  for (int r = 0; r < (kBX * kBK) / kThreads; ++r) {
-    const int idx = threadIdx.x + r * kThreads;
-    const int o = RC ? idx / kBK : idx % kBX;
-    const int k = RC ? idx % kBK : idx / kBX;
-    const int go = out0 + o, gk = red0 + k;
-    float v = 0.f;
-    if (go < out_total && gk < red_end) {
-      const size_t off = RC ? (size_t)go * ld + gk : (size_t)gk * ld + go;
-      v = __ldg(src + off);
-      if (BLEND) {
-        float eff = ternarize(v, thr) * alpha;
-        if (HAS_MASK && __ldg(mask + off)) eff = v;
-        v = eff;
-      }
-    }
-    s[k][o] = v;
-  }
-}
-
-struct GemmArgs {
-  const float* a;       // operand A (output rows)
-  const float* b;       // operand B (output cols)
-  const uint8_t* mask;  // precision mask or nullptr
-  const float* scal;    // [alpha, threshold] on the device
-  float* out;           // output (or split partials)
-  int rows, cols;       // output shape
-  int red;              // reduction length
-  int lda, ldb;         // leading dimensions of A and B
-  int chunk;            // reduction length per grid.z split
-};
-
-// One 64 x 64 output tile of C = A · B over the reduction range of this
-// block's split. A_RC / B_RC: whether the operand's reduction axis is
-// contiguous. B_BLEND: B is the weight, ternarized and blended on load.
-template <bool A_RC, bool B_RC, bool B_BLEND, bool HAS_MASK>
-__global__ void __launch_bounds__(kThreads)
-gemm_kernel(GemmArgs p) {
-  __shared__ float as[kBK][kBM + 1];
-  __shared__ float bs[kBK][kBN + 1];
-
-  const float alpha = __ldg(p.scal), thr = __ldg(p.scal + 1);
-  const int row0 = blockIdx.y * kBM, col0 = blockIdx.x * kBN;
-  const int red_begin = blockIdx.z * p.chunk;
-  const int red_end = min(p.red, red_begin + p.chunk);
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = red_begin; k0 < red_end; k0 += kBK) {
-    load_tile<kBM, A_RC, false, false>(as, p.a, nullptr, p.lda, p.rows,
-                                       red_end, row0, k0, alpha, thr);
-    load_tile<kBN, B_RC, B_BLEND, HAS_MASK>(bs, p.b, p.mask, p.ldb, p.cols,
-                                            red_end, col0, k0, alpha, thr);
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float av[kTM], bv[kTN];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) av[i] = as[kk][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < kTN; ++j) bv[j] = bs[kk][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < kTM; ++i)
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-  float* out = p.out + (size_t)blockIdx.z * p.rows * p.cols;
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= p.rows) continue;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c < p.cols) out[(size_t)r * p.cols + c] = acc[i][j];
-    }
-  }
-}
-
-// out[i] = sum_z parts[z * n + i], z in order.
-__global__ void sum_splits_kernel(const float* __restrict__ parts,
-                                  float* __restrict__ out, int n,
-                                  int splits) {
-  for (int i = blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += __ldg(parts + (size_t)z * n + i);
-    out[i] = s;
-  }
-}
-
-template <bool A_RC, bool B_RC, bool B_BLEND, bool HAS_MASK>
-cudaError_t launch_gemm(const GemmArgs& p, int splits, cudaStream_t stream) {
-  dim3 grid((p.cols + kBN - 1) / kBN, (p.rows + kBM - 1) / kBM, splits);
-  gemm_kernel<A_RC, B_RC, B_BLEND, HAS_MASK><<<grid, kThreads, 0, stream>>>(p);
-  return cudaGetLastError();
+// 16-byte copies of the (N, K) weight's rows and 4-byte copies of its mask's.
+bool weight_rows_aligned(const float* w, const uint8_t* mask, int K) {
+  return K % 4 == 0 && aligned16(w) && ((uintptr_t)mask & 3) == 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -372,7 +271,7 @@ dwda_kernel(DwdaArgs p) {
     __syncthreads();  // ... everyone's; and step i - 1's stage is free
     issue(i + kStages - 1);
     const float* s = ring + (i % kStages) * kStageFloats;
-    mma_tf32x3<kRows / 8, kLdA, kLdB>(
+    mma_tf32x3<kRows / 8, kLdA, kLdB, true, true>(  // step sums
         acc, s + grp * kRows * kLdA + 32 * wa,
         s + kStep * kLdA + grp * kRows * kLdB + 16 * wb, g, t);
   }
@@ -480,6 +379,286 @@ cudaError_t launch_dwda(const DwdaArgs& p, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// gemm_tc_kernel: the forward and dx on the tensor cores (3xTF32 mma.sync).
+// ---------------------------------------------------------------------------
+
+constexpr int kGTile = 64;    // output tile rows and columns
+constexpr int kGStep = 32;    // reduction a ring stage
+constexpr int kGStages = 3;
+constexpr int kLdRed = kGStep + 8;  // rows with the reduction contiguous
+constexpr int kLdOut = kGTile + 4;  // dx's weight rows (output contiguous)
+// A stage: the A tile (64 x kLdRed), the weight tile (the forward's
+// 64 x kLdRed or dx's 32 x kLdOut, which is smaller), then the weight
+// tile's mask bytes (64 x 32 or 32 x 64, row stride its columns).
+constexpr int kGStageFloats = 2 * kGTile * kLdRed;
+constexpr int kGStageBytes = kGStageFloats * 4 + kGTile * kGStep;
+constexpr int kGSmemBytes = kGStages * kGStageBytes;
+static_assert(kGStep * kLdOut <= kGTile * kLdRed, "dx's weight tile fits");
+
+__device__ __forceinline__ float blend(float v, bool m, float alpha,
+                                       float thr) {
+  return m ? v : ternarize(v, thr) * alpha;
+}
+
+// Rows [r0, r0 + kRows) x columns [c0, c0 + kCols) of the (N, K) weight
+// into s (row stride kLd floats) and, with HAS_MASK, the same elements of
+// the mask into sm (row stride kCols bytes), zeros past R rows and C
+// columns. vec (16-byte aligned weight rows, 4-byte aligned mask rows):
+// 16-byte copies of w and 4-byte copies of the mask, which blend_weight
+// turns into w_eff once they land; else plain loads, blended here.
+template <int kRows, int kCols, int kLd, bool HAS_MASK>
+__device__ __forceinline__ void stage_weight(float* s, unsigned char* sm,
+                                             const float* w,
+                                             const uint8_t* mask, int K,
+                                             int r0, int R, int c0, int C,
+                                             bool vec, float alpha,
+                                             float thr, int tid) {
+  if (vec) {
+    constexpr int kChunks = kCols / 4;
+#pragma unroll
+    for (int q = tid; q < kRows * kChunks; q += kThreads) {
+      const int r = q / kChunks, c = 4 * (q % kChunks);
+      const int left = r0 + r < R ? min(max(C - (c0 + c), 0), 4) : 0;
+      const size_t off = left ? (size_t)(r0 + r) * K + c0 + c : 0;
+      cp_async(s + r * kLd + c, w + off, 4 * left);
+      if (HAS_MASK) cp_async4(sm + r * kCols + c, mask + off, left);
+    }
+    return;
+  }
+  for (int e = tid; e < kRows * kCols; e += kThreads) {
+    const int r = e / kCols, c = e % kCols;
+    float v = 0.f;
+    if (r0 + r < R && c0 + c < C) {
+      const size_t off = (size_t)(r0 + r) * K + c0 + c;
+      v = blend(__ldg(w + off), HAS_MASK && __ldg(mask + off), alpha, thr);
+    }
+    s[r * kLd + c] = v;
+  }
+}
+
+// The elements stage_weight's 16-byte copies put in place for this thread,
+// turned into w_eff where they lie. Called once the copies have landed
+// (cp_async_wait) and before the barrier that hands the stage to the MMAs.
+template <int kRows, int kCols, int kLd, bool HAS_MASK>
+__device__ __forceinline__ void blend_weight(float* s, const unsigned char* sm,
+                                             float alpha, float thr,
+                                             int tid) {
+  constexpr int kChunks = kCols / 4;
+#pragma unroll
+  for (int q = tid; q < kRows * kChunks; q += kThreads) {
+    const int r = q / kChunks, c = 4 * (q % kChunks);
+    float4* p = reinterpret_cast<float4*>(s + r * kLd + c);
+    const uint32_t m =
+        HAS_MASK ? *reinterpret_cast<const uint32_t*>(sm + r * kCols + c)
+                 : 0u;
+    float4 v = *p;
+    v.x = blend(v.x, m & 0xFFu, alpha, thr);
+    v.y = blend(v.y, (m >> 8) & 0xFFu, alpha, thr);
+    v.z = blend(v.z, (m >> 16) & 0xFFu, alpha, thr);
+    v.w = blend(v.w, m >> 24, alpha, thr);
+    *p = v;
+  }
+}
+
+struct GemmArgs {
+  const float* a;       // x (M, K) for the forward, g (M, N) for dx
+  const float* w;       // (N, K)
+  const uint8_t* mask;  // (N, K) or nullptr
+  const float* scal;    // [alpha, threshold]
+  float* out;           // y (M, N) or dx (M, K)
+  float* parts;         // forward, gridDim.z > 1: a 64 x 64 partial a block
+  unsigned* tickets;    // forward, gridDim.z > 1: one an output tile, 0
+                        // before the launch; left at 0
+  int M, N, K;
+  int chunk;            // forward: the reduction a split covers
+  int vec;  // bit 0: A rows 16-byte aligned; bit 1: w rows 16-byte and
+            // mask rows 4-byte aligned; bit 2: dx rows 16-byte aligned
+};
+
+// One 64 x 64 tile of dx (DX) or of y over this block's split of K.
+template <bool DX, bool HAS_MASK>
+__global__ void __launch_bounds__(kThreads, 2)
+gemm_tc_kernel(GemmArgs p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ bool last;
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wr = warp & 3, wc = warp >> 2;  // rows 16·wr, columns 32·wc
+  const int r0 = blockIdx.y * kGTile, c0 = blockIdx.x * kGTile;
+  const int M = p.M, N = p.N, K = p.K;
+  const float alpha = __ldg(p.scal), thr = __ldg(p.scal + 1);
+  // dx reduces over all of N; the forward over its split of K.
+  const int red0 = DX ? 0 : blockIdx.z * p.chunk;
+  const int red1 = DX ? N : min(K, red0 + p.chunk);
+  const int n_steps = (red1 - red0 + kGStep - 1) / kGStep;
+  const bool wvec = p.vec & 2;
+
+  auto stage = [&](int i) {
+    return reinterpret_cast<float*>(smem + (i % kGStages) * kGStageBytes);
+  };
+  auto stage_mask_bytes = [&](float* s) {
+    return reinterpret_cast<unsigned char*>(s + kGStageFloats);
+  };
+  auto issue = [&](int i) {
+    if (i < n_steps) {
+      float* s = stage(i);
+      const int k0 = red0 + i * kGStep;
+      stage_tile<kGTile, kGStep, kLdRed>(s, p.a, DX ? N : K, r0, M, k0, red1,
+                                         p.vec & 1, tid);
+      float* sb = s + kGTile * kLdRed;
+      if constexpr (DX)
+        stage_weight<kGStep, kGTile, kLdOut, HAS_MASK>(
+            sb, stage_mask_bytes(s), p.w, p.mask, K, k0, N, c0, K, wvec,
+            alpha, thr, tid);
+      else
+        stage_weight<kGTile, kGStep, kLdRed, HAS_MASK>(
+            sb, stage_mask_bytes(s), p.w, p.mask, K, c0, N, k0, red1, wvec,
+            alpha, thr, tid);
+    }
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  float acc[2][2][4] = {};  // [16-column tile][n8 tile][fragment]
+#pragma unroll
+  for (int i = 0; i < kGStages - 1; ++i) issue(i);
+  for (int i = 0; i < n_steps; ++i) {
+    cp_async_wait<kGStages - 2>();  // step i has landed (this thread's part)
+    float* s = stage(i);
+    float* sb = s + kGTile * kLdRed;
+    if (wvec) {
+      if constexpr (DX)
+        blend_weight<kGStep, kGTile, kLdOut, HAS_MASK>(
+            sb, stage_mask_bytes(s), alpha, thr, tid);
+      else
+        blend_weight<kGTile, kGStep, kLdRed, HAS_MASK>(
+            sb, stage_mask_bytes(s), alpha, thr, tid);
+    }
+    __syncthreads();  // ... everyone's, blended; step i - 1's stage is free
+    issue(i + kGStages - 1);
+    const float* sa = s + 16 * wr * kLdRed;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if constexpr (DX)
+        mma_nn16<kGStep / 8, kLdOut, true>(acc[h], sa, kLdRed,
+                                           sb + 32 * wc + 16 * h, g, t);
+      else
+        mma_nt16<kGStep / 8, kLdRed, true>(
+            acc[h], sa, sb + (32 * wc + 16 * h) * kLdRed, g, t);
+    }
+  }
+  cp_async_wait<0>();
+
+  if constexpr (DX) {
+    // Lane (g, t) owns rows g, g + 8 and columns 4t..4t+3 of each 16 x 16
+    // tile: element (g + 8e, 4t + c) is acc[h][c & 1][2e + (c >> 1)].
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = r0 + 16 * wr + g + 8 * e;
+        const int k = c0 + 32 * wc + 16 * h + 4 * t;
+        if (m >= M) continue;
+        const float v[4] = {acc[h][0][2 * e], acc[h][1][2 * e],
+                            acc[h][0][2 * e + 1], acc[h][1][2 * e + 1]};
+        float* out = p.out + (size_t)m * K + k;
+        if ((p.vec & 4) && k + 3 < K) {
+          *reinterpret_cast<float4*>(out) = make_float4(v[0], v[1], v[2],
+                                                        v[3]);
+        } else {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (k + c < K) out[c] = v[c];
+        }
+      }
+    }
+    return;
+  }
+
+  // The forward. Lane (g, t) owns rows g, g + 8 and columns 2t, 2t + 1 of
+  // n8 tile j of each 16 x 16 tile: acc[h][j][2e + c] is row g + 8e,
+  // column 16h + 8j + 2t + c of the warp's 16 x 32.
+  const int splits = gridDim.z;
+  if (splits == 1) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = r0 + 16 * wr + g + 8 * e;
+          const int n = c0 + 32 * wc + 16 * h + 8 * j + 2 * t;
+          if (m >= M) continue;
+          if (n < N) p.out[(size_t)m * N + n] = acc[h][j][2 * e];
+          if (n + 1 < N) p.out[(size_t)m * N + n + 1] = acc[h][j][2 * e + 1];
+        }
+    return;
+  }
+  // Split K: this block's partial into its slot of the tile's run of
+  // partials; the tile's last block to finish adds them in split order.
+  constexpr int kTileFloats = kGTile * kGTile;
+  const int tile = blockIdx.y * gridDim.x + blockIdx.x;
+  float* tile_parts = p.parts + (size_t)tile * splits * kTileFloats;
+  float* part = tile_parts + (size_t)blockIdx.z * kTileFloats;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        *reinterpret_cast<float2*>(
+            part + (16 * wr + g + 8 * e) * kGTile + 32 * wc + 16 * h +
+            8 * j + 2 * t) = make_float2(acc[h][j][2 * e],
+                                         acc[h][j][2 * e + 1]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0)
+    last = atomicAdd(p.tickets + tile, 1u) == (unsigned)(splits - 1);
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  // Thread tid sums float4 q = tid + kThreads·i of the tile, i < 4, over
+  // the splits in order: four independent loads in flight a split.
+  constexpr int kQ = kTileFloats / 4 / kThreads;
+  const float4* src = reinterpret_cast<const float4*>(tile_parts);
+  float4 sum[kQ];
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) sum[i] = __ldcg(src + tid + kThreads * i);
+  for (int z = 1; z < splits; ++z) {
+    const float4* pz = src + (size_t)z * (kTileFloats / 4);
+#pragma unroll
+    for (int i = 0; i < kQ; ++i) {
+      const float4 v = __ldcg(pz + tid + kThreads * i);
+      sum[i].x += v.x;
+      sum[i].y += v.y;
+      sum[i].z += v.z;
+      sum[i].w += v.w;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < kQ; ++i) {
+    const int q = 4 * (tid + kThreads * i);
+    const int m = r0 + q / kGTile, n = c0 + q % kGTile;
+    if (m >= M) continue;
+    const float v[4] = {sum[i].x, sum[i].y, sum[i].z, sum[i].w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (n + c < N) p.out[(size_t)m * N + n + c] = v[c];
+  }
+  if (tid == 0) p.tickets[tile] = 0u;  // ready for the next launch
+}
+
+template <bool DX, bool HAS_MASK>
+cudaError_t launch_gemm_tc(const GemmArgs& p, dim3 grid, cudaStream_t st) {
+  cudaError_t err = cudaFuncSetAttribute(
+      gemm_tc_kernel<DX, HAS_MASK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, kGSmemBytes);
+  if (err != cudaSuccess) return err;
+  gemm_tc_kernel<DX, HAS_MASK><<<grid, kThreads, kGSmemBytes, st>>>(p);
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 }  // namespace
@@ -491,26 +670,29 @@ extern "C" int atq_fused_dwda_partials(int N, int K) {
          ((N + tc::kTileA - 1) / tc::kTileA);
 }
 
-// y (M, N) = x (M, K) · w_eff (N, K)ᵀ. With splits > 1, `ws` holds
-// splits·M·N floats of partials, each split covering `chunk` (a multiple of
-// 16) of K, and a second pass adds them in order. mask: (N, K) uint8/bool or
-// null. scal: [alpha, threshold]. Returns the cudaError_t of the launches.
+// y (M, N) = x (M, K) · w_eff (N, K)ᵀ in one launch. splits > 1 divides K
+// into runs of `chunk` over grid.z: then `parts` holds
+// ceil(M/64)·ceil(N/64) tiles · splits · 4096 floats of partials and
+// `tickets` one unsigned a tile, 0 before the launch and left at 0 by it.
+// mask: (N, K) uint8/bool or null. scal: [alpha, threshold]. Returns the
+// cudaError_t of the launch.
 extern "C" int atq_fused_forward(int device, const float* x, const float* w,
                                  const uint8_t* mask, const float* scal,
-                                 float* y, float* ws, int M, int N, int K,
-                                 int splits, int chunk, void* stream) {
+                                 float* y, float* parts, unsigned* tickets,
+                                 int M, int N, int K, int splits, int chunk,
+                                 void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int vec = (K % 4 == 0 && aligned16(x) ? 1 : 0) |
+                  (weight_rows_aligned(w, mask, K) ? 2 : 0);
+  const tc::GemmArgs p{x, w, mask, scal, y, parts, tickets, M, N, K,
+                       splits > 1 ? chunk : K, vec};
+  const dim3 grid((N + tc::kGTile - 1) / tc::kGTile,
+                  (M + tc::kGTile - 1) / tc::kGTile, max(splits, 1));
   cudaStream_t st = (cudaStream_t)stream;
-  GemmArgs p{x, w, mask, scal, splits > 1 ? ws : y,
-             M, N, K, K, K, splits > 1 ? chunk : K};
-  err = mask ? launch_gemm<true, true, true, true>(p, splits, st)
-             : launch_gemm<true, true, true, false>(p, splits, st);
-  if (err != cudaSuccess || splits <= 1) return (int)err;
-  const int n = M * N;
-  const int blocks = min((n + 255) / 256, 4 * 132);
-  sum_splits_kernel<<<blocks, 256, 0, st>>>(ws, y, n, splits);
-  return (int)cudaGetLastError();
+  err = mask ? tc::launch_gemm_tc<false, true>(p, grid, st)
+             : tc::launch_gemm_tc<false, false>(p, grid, st);
+  return (int)err;
 }
 
 // dx (M, K) = g (M, N) · w_eff (N, K).
@@ -519,10 +701,16 @@ extern "C" int atq_fused_dx(int device, const float* g, const float* w,
                             int M, int N, int K, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  const int vec = (N % 4 == 0 && aligned16(g) ? 1 : 0) |
+                  (weight_rows_aligned(w, mask, K) ? 2 : 0) |
+                  (K % 4 == 0 && aligned16(dx) ? 4 : 0);
+  const tc::GemmArgs p{g, w, mask, scal, dx, nullptr, nullptr, M, N, K, 0,
+                       vec};
+  const dim3 grid((K + tc::kGTile - 1) / tc::kGTile,
+                  (M + tc::kGTile - 1) / tc::kGTile);
   cudaStream_t st = (cudaStream_t)stream;
-  GemmArgs p{g, w, mask, scal, dx, M, K, N, N, K, N};
-  err = mask ? launch_gemm<true, false, true, true>(p, 1, st)
-             : launch_gemm<true, false, true, false>(p, 1, st);
+  err = mask ? tc::launch_gemm_tc<true, true>(p, grid, st)
+             : tc::launch_gemm_tc<true, false>(p, grid, st);
   return (int)err;
 }
 

@@ -18,8 +18,8 @@ finds ``('int8', 'trunk')``.
 
 ``ATQ_S2D_STEM`` and ``ATQ_FAST_POOL`` select XLA rewrites in the JAX package
 (ops/s2d_stem.py, ops/fast_pool.py); they are not ported yet (ROADMAP.md
-item 17) and raise when set. The torchvision state-dict importer waits for
-slice G.
+queue 1 item 8) and raise when set. The torchvision state-dict importer
+waits for ROADMAP.md queue 1 item 6 (slice G).
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def _check_unported_flags() -> None:
     for flag in ("ATQ_S2D_STEM", "ATQ_FAST_POOL"):
         if os.environ.get(flag, "0") == "1":
             raise NotImplementedError(
-                f"{flag}=1 is not ported yet (ROADMAP.md item 17)")
+                f"{flag}=1 is not ported yet (ROADMAP.md queue 1 item 8)")
 
 
 def _conv(cin: int, cout: int, kernel: int, stride: int, padding: int,

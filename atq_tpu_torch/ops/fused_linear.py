@@ -20,15 +20,19 @@ mask; without one ``w_eff = tern(w, thr)·alpha``). The JAX package's
 no counterpart: the CUDA dW/dalpha kernel loops over the batch and takes
 any M.
 
-The forward and dx run one f32 FMA GEMM template (no tensor cores). The
-dW/dalpha kernel (``dwda_kernel``) is the Hopper design: G = gᵀx on the
-tensor cores as 3xTF32 (each f32 operand split into two TF32 terms, three
-``mma.sync`` products, so f32 accuracy), a ``cp.async`` ring over the batch,
-64 x 32 output tiles (196 blocks at the recipe's 128 x 3136 weight), and
-dalpha summed in the same launch in a fixed order (the last block adds the
-blocks' partials in index order, found by an integer ticket), so the same
-inputs give the same bits. Bytes bound it (g, x, w, the mask and dw: 7 MB
-at the recipe, 2.1 us at 3.35 TB/s); see the note in ``csrc/fused_linear.cu``.
+All three run on the tensor cores as 3xTF32 (each f32 operand split into
+two TF32 terms, three ``mma.sync`` products summed a step at a time, so f32
+accuracy) over a ``cp.async`` ring. The forward and dx share one template
+(``gemm_tc_kernel``, 64 x 64 output tiles), which blends each weight tile
+in shared memory before its products. The forward splits a long K over
+blocks (:func:`forward_splits`) and the last block of each output tile adds
+the splits' partials in split order, in the same launch. The dW/dalpha
+kernel (``dwda_kernel``) forms G = gᵀx in 64 x 32 tiles and sums dalpha in
+the same launch in a fixed order (the last block adds the blocks' partials
+in index order). Both cross-block sums find their last block by an integer
+ticket, so the same inputs give the same bits. Bytes bound all three at the
+recipe (5.3 to 7 MB, 1.6 to 2.1 us at 3.35 TB/s); see the note in
+``csrc/fused_linear.cu``.
 
 :func:`fused_quantized_linear` is the op the layers call: one
 ``torch.autograd.Function`` with the JAX ``custom_vjp``'s gradients
@@ -42,9 +46,10 @@ import torch
 from atq_tpu_torch.ops._build import check, load_library
 
 GRAD_MODES = ("parity", "ste")
-_SPLIT_TILE = 64      # the kernels' output tile, rows and columns
-_SPLIT_MIN_K = 256    # least reduction length a forward split covers
-_TARGET_BLOCKS = 264  # two blocks for each of the H100's 132 SMs
+_TILE = 64            # the forward's and dx's output tile, rows and columns
+_STEP = 32            # the reduction a ring stage of theirs covers
+_SPLIT_MIN_K = 64     # least reduction length a forward split covers
+_TARGET_BLOCKS = 264  # the forward's blocks: two for each of the H100's SMs
 
 
 def _ternarize(w, thr):
@@ -142,29 +147,34 @@ def _mask_ptr(mask):
 _tickets: dict = {}
 
 
-def _ticket(dev, stream):
-    """The dW/dalpha kernel's ticket for this device and stream: one int32,
-    zeroed once here; each launch leaves it at 0 again, and launches on one
-    stream run in order."""
+def _ticket(dev, stream, n=1):
+    """``n`` int32 tickets for this device and stream, zeroed once here:
+    the dW/dalpha kernel takes the first, the split forward one an output
+    tile. Each launch leaves its tickets at 0 again, and launches on one
+    stream run in order, so they share one buffer."""
     key = (dev.index, stream)
-    if key not in _tickets:
-        _tickets[key] = torch.zeros(1, dtype=torch.int32, device=dev)
+    if key not in _tickets or _tickets[key].numel() < n:
+        _tickets[key] = torch.zeros(n, dtype=torch.int32, device=dev)
     return _tickets[key]
 
 
 def forward_splits(m: int, n: int, k: int):
     """``(splits, chunk)``: how the forward kernel divides K over grid.z
-    so that a short output still fills the card; chunk is a multiple of
-    16 and each split covers at least 256 of K."""
-    tiles = -(-m // _SPLIT_TILE) * -(-n // _SPLIT_TILE)
-    splits = max(1, min(-(-_TARGET_BLOCKS // tiles), k // _SPLIT_MIN_K))
+    so that a short output still fills the card, two blocks an SM; chunk
+    is a multiple of the ring's step and each split covers at least 64 of
+    K (``chunk`` is K when there is one split). At the recipe's first head
+    layer, 33 splits of 96 (264 blocks)."""
+    tiles = -(-m // _TILE) * -(-n // _TILE)
+    splits = max(1, min(_TARGET_BLOCKS // tiles, k // _SPLIT_MIN_K))
+    if splits == 1:
+        return 1, k
     chunk = -(-k // splits)
-    chunk += (-chunk) % 16
+    chunk += (-chunk) % _STEP
     return -(-k // chunk), chunk
 
 
 def fused_linear_forward(x, w, mask, scal):
-    """``x (M, K) · w_eff (N, K)ᵀ`` -> (M, N) float32."""
+    """``x (M, K) · w_eff (N, K)ᵀ`` -> (M, N) float32, in one launch."""
     m, k = x.shape
     n = w.shape[0]
     _check("x", x, (m, w.shape[1]))
@@ -178,13 +188,18 @@ def fused_linear_forward(x, w, mask, scal):
     if y.numel() == 0:
         return y
     splits, chunk = forward_splits(m, n, k)
-    ws = (torch.empty((splits, m, n), dtype=torch.float32, device=x.device)
-          if splits > 1 else None)
+    parts = tickets = None
     device, stream = _launch_args(x)
+    if splits > 1:  # one 64 x 64 partial a block, one ticket a tile
+        tiles = -(-m // _TILE) * -(-n // _TILE)
+        parts = torch.empty(tiles * splits * _TILE * _TILE,
+                            dtype=torch.float32, device=x.device)
+        tickets = _ticket(x.device, stream, tiles)
     check(lib.atq_fused_forward(
         device, x.data_ptr(), w.data_ptr(), _mask_ptr(mask), scal.data_ptr(),
-        y.data_ptr(), None if ws is None else ws.data_ptr(), m, n, k,
-        splits, chunk, stream), "fused_linear forward kernel")
+        y.data_ptr(), None if parts is None else parts.data_ptr(),
+        None if tickets is None else tickets.data_ptr(), m, n, k, splits,
+        chunk, stream), "fused_linear forward kernel")
     fused_linear_forward.launches += 1
     return y
 

@@ -13,15 +13,17 @@
     python3 chip_smoke.py --time-tree DIR OUT [KIND ...]
                                    # one tree's kernel times into OUT;
                                    # KIND (matmul, packed, fused,
-                                   # attention) limits them
+                                   # attention, dwda_sums, splits) limits
+                                   # them
 
 Phases, one JSON line each; any failure exits non-zero:
 
   build         compiles the CUDA kernels from atq_tpu_torch/csrc (nvcc);
                 ptxas's registers and spills by kernel, and
-                the HMMA count of each tiled_packed_kernel, dwda_kernel
-                and attention backward (attn_bwd_rows_kernel,
-                attn_bwd_keys_kernel) instantiation (cuobjdump -sass).
+                the HMMA count of each tiled_packed_kernel,
+                gemm_tc_kernel, dwda_kernel and attention backward
+                (attn_bwd_rows_kernel, attn_bwd_keys_kernel)
+                instantiation (cuobjdump -sass).
   kernels       holds each kernel against its plain PyTorch version on the
                 card (order statistic bit-exact at every listed size and
                 rank; packed matmul within rtol 1e-5 / atol 5e-3, the JAX
@@ -29,7 +31,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 version and a one-call PyTorch yardstick at the serving
                 shapes, beside the card's bound for the same work (the
                 packed kernels: bytes, or three bf16 passes a product at
-                the tensor-core rate; the others: bytes or f32 operations).
+                the tensor-core rate; the fused linear kernels and the
+                attention backward: bytes, or three TF32 products a
+                product at the TF32 rate; the others: bytes or f32
+                operations).
   serve_dense   starts the port's HTTP server in-process on a seeded,
                 full-width Fashion-MNIST RPB classifier (28x28x1 input,
                 3136 -> 128 -> 10 head) written as a JAX-layout .npz, posts
@@ -133,9 +138,13 @@ at the recipe shapes (256x128x3136, 256x10x128), wider (256x256x3136),
 ragged (7x24x100) and a batch past the JAX package's resident limit
 (2304x128x3136), with and without the mask, parity and STE: y, dx, dw
 within rtol/atol 1e-4 (f32 sums in another order than cuBLAS over K =
-3136; dW/dalpha's 3xTF32 products), dalpha within 1e-4 relative. dW/dalpha
-also at DWDA_EDGE_SHAPES (N = 10 and 24, K = 100 and 200, M = 1, 7 and
-17), each case launched twice and repeated bit for bit.
+3136; the 3xTF32 products), dalpha within 1e-4 relative; also at
+FUSED_EDGE_SHAPES (N = 10 and 24, K = 37, 99, 100 and 200, M = 1, 5, 7
+and 17). Every kernel is launched twice a case and must repeat bit for
+bit.
+
+--compare also holds the attention backward's bits equal in all four runs
+(a digest of dq, dk, dv over ATTN_CASES) and fails if they differ.
 
 Then one line {"kernels": [...]} (launch counts from the main-path phase
 that runs each kernel: serve_dense, serve_packed, serve_retrieval_pack32,
@@ -185,6 +194,13 @@ FUSED_TOL = 1e-4  # rtol/atol on y, dx, dw; relative on dalpha
 # step of its 32-row ring); M = 2304 is in FUSED_SHAPES.
 DWDA_EDGE_SHAPES = ((1, 10, 100), (7, 24, 200), (17, 24, 100),
                     (17, 10, 200), (1, 24, 200))
+# Edge shapes of all three fused kernels: DWDA_EDGE_SHAPES, then K = 99 and
+# 37 (rows not 16-byte aligned: the forward's and dx's plain-load weight
+# path, 4-byte copies of x) with N = 24 and 10 (g's rows: 4-byte copies).
+FUSED_EDGE_SHAPES = DWDA_EDGE_SHAPES + ((17, 24, 99), (5, 10, 37))
+# dwda_kernel's G = gᵀx against float64 with and without step sums: the
+# recipe's first head layer and a batch past the JAX resident limit.
+DWDA_SUMS_SHAPES = ((256, 128, 3136), (2304, 128, 3136))
 STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
 # Batched order statistic: bert-base's two stacked weight shapes (q/k/v/out,
 # linear1/linear2) and a ragged one.
@@ -354,8 +370,9 @@ def phase_build(smi: str):
     with open(build_info["library"][:-3] + ".log") as f:
         log = f.read()
     hmma = {kind: _sass_hmma(build_info["library"], kind)
-            for kind in ("tiled_packed_kernel", "dwda_kernel",
-                         "attn_bwd_rows_kernel", "attn_bwd_keys_kernel")}
+            for kind in ("tiled_packed_kernel", "gemm_tc_kernel",
+                         "dwda_kernel", "attn_bwd_rows_kernel",
+                         "attn_bwd_keys_kernel")}
     for kind, counts in hmma.items():  # the tensor-core kernels use them
         if counts is not None and (not counts or 0 in counts.values()):
             raise AssertionError(f"{kind}: no HMMA in its SASS: {counts}")
@@ -631,25 +648,31 @@ def _err(name, got, want, tol=FUSED_TOL, atol=None):
 
 def check_fused(gen):
     """The three fused kernels against their plain versions at
-    FUSED_SHAPES, and dW/dalpha also at DWDA_EDGE_SHAPES; every variant
-    (mask or not; parity or STE for dW/dalpha). dW/dalpha is launched twice
-    a case, and the two must agree bit for bit."""
+    FUSED_SHAPES and FUSED_EDGE_SHAPES; every variant (mask or not; parity
+    or STE for dW/dalpha). Each kernel is launched twice a case, and the
+    two must agree bit for bit."""
     from atq_tpu_torch.ops import fused_linear as fl
 
     errs = {"fused_forward": 0.0, "fused_dx": 0.0, "fused_dwda": 0.0}
     da_rel, cases = 0.0, 0
-    for m, n, k in FUSED_SHAPES + DWDA_EDGE_SHAPES:
+    for m, n, k in FUSED_SHAPES + FUSED_EDGE_SHAPES:
         for with_mask in (True, False):
             x, w, g, mask, scal = _fused_inputs(gen, m, n, k, with_mask)
             tag = f"{m}x{n}x{k} mask={with_mask}"
-            if (m, n, k) in FUSED_SHAPES:
-                errs["fused_forward"] = max(errs["fused_forward"], _err(
-                    f"forward {tag}",
-                    fl.fused_linear_forward(x, w, mask, scal),
-                    fl.forward_plain(x, w, mask, scal)))
-                errs["fused_dx"] = max(errs["fused_dx"], _err(
-                    f"dx {tag}", fl.fused_linear_dx(g, w, mask, scal),
-                    fl.dx_plain(g, w, mask, scal)))
+
+            def forward():
+                return fl.fused_linear_forward(x, w, mask, scal)
+
+            def dx():
+                return fl.fused_linear_dx(g, w, mask, scal)
+
+            y, d = forward(), dx()
+            _same_bits(f"forward {tag}", forward, y)
+            _same_bits(f"dx {tag}", dx, d)
+            errs["fused_forward"] = max(errs["fused_forward"], _err(
+                f"forward {tag}", y, fl.forward_plain(x, w, mask, scal)))
+            errs["fused_dx"] = max(errs["fused_dx"], _err(
+                f"dx {tag}", d, fl.dx_plain(g, w, mask, scal)))
             for ste in (False, True):
                 def dwda():
                     dw, da = fl.fused_linear_dwda(g, x, w, mask, scal, ste)
@@ -677,8 +700,8 @@ def check_fused(gen):
 def time_fused(gen, m, n, k):
     """Kernel, plain version and the one-call cuBLAS yardstick on a
     prebuilt w_eff, for each of the three kernels, with the mask. Bounds:
-    f32 operations at 67 TFLOP/s for the forward and dx, three TF32
-    products at 495 TFLOP/s for dW/dalpha, or the bytes."""
+    three TF32 products (3xTF32 on the tensor cores) at 495 TFLOP/s, or
+    the bytes."""
     from atq_tpu_torch.ops import fused_linear as fl
 
     x, w, g, mask, scal = _fused_inputs(gen, m, n, k, True)
@@ -700,12 +723,40 @@ def time_fused(gen, m, n, k):
                                                      False),
               "plain": lambda: fl.dwda_plain(g, x, w, mask, scal, False),
               "library": lambda: torch.matmul(g.T, x)})):
-        # dW/dalpha runs 3xTF32 on the tensor cores: three TF32 products.
-        b_ms, b_by = (bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
-                      if name == "fused_dwda" else bound(nbytes, flops))
+        b_ms, b_by = bound(nbytes, 3 * flops, PEAK_TF32_FLOP_PER_S)
         out[name] = {"m": m, "n": n, "k": k, "bound_ms": b_ms,
                      "bound_by": b_by, **timed(fns)}
     return out
+
+
+def dwda_sums_error(gen):
+    """dwda_kernel's G = gᵀx against float64 at DWDA_SUMS_SHAPES (STE with
+    an all-ones mask gives dw = G·1 = G): the largest error, absolute and
+    relative to Σ|g||x|, and the mean error along G's sign (sums that
+    truncate toward zero make it negative); cuBLAS's f32 gᵀx beside it;
+    and the kernel's device ms (parity, a 5 % mask)."""
+    from atq_tpu_torch.ops import fused_linear as fl
+
+    rows = []
+    for m, n, k in DWDA_SUMS_SHAPES:
+        x, w, g, mask, scal = _fused_inputs(gen, m, n, k, True)
+        ones = torch.ones(n, k, dtype=torch.bool, device="cuda")
+        want = g.double().T @ x.double()
+        scale = g.double().abs().T @ x.double().abs()
+        row = {"m": m, "n": n, "k": k}
+        for name, got in (
+                ("kernel", fl.fused_linear_dwda(g, x, w, ones, scal,
+                                                True)[0]),
+                ("cublas_f32", torch.matmul(g.T, x))):
+            err = got.double() - want
+            row[f"{name}_max_abs_err"] = err.abs().max().item()
+            row[f"{name}_max_rel_err"] = (err.abs() / scale).max().item()
+            row[f"{name}_mean_err_along_sign"] = (
+                err * want.sign()).mean().item()
+        row["kernel_device_ms"] = device_ms(
+            lambda: fl.fused_linear_dwda(g, x, w, mask, scal, False))
+        rows.append(row)
+    return rows
 
 
 def check_batched_order_stat(gen):
@@ -1791,13 +1842,68 @@ PACKED_KERNELS = ("ternary_matmul", "ternary_matmul32", "ternary_matmul_rpb")
 FUSED_KERNELS = ("fused_forward", "fused_dx", "fused_dwda")
 
 
+# The forward's split of K at the recipe's first head layer, (target blocks,
+# least K a split): the shipped (264, 64) first.
+FORWARD_SPLIT_CHOICES = ((264, 64), (132, 128), (264, 128), (132, 256),
+                         (256, 96))
+
+
+def time_forward_splits(gen):
+    """The forward kernel's device ms at FUSED_SHAPES[0] under each of
+    FORWARD_SPLIT_CHOICES (the wrapper's _TARGET_BLOCKS and _SPLIT_MIN_K),
+    each checked against the plain version."""
+    from atq_tpu_torch.ops import fused_linear as fl
+
+    x, w, _, mask, scal = _fused_inputs(gen, *FUSED_SHAPES[0], True)
+    want = fl.forward_plain(x, w, mask, scal)
+    shipped = fl._TARGET_BLOCKS, fl._SPLIT_MIN_K
+    rows = []
+    try:
+        for fl._TARGET_BLOCKS, fl._SPLIT_MIN_K in FORWARD_SPLIT_CHOICES:
+            _err("forward splits", fl.fused_linear_forward(x, w, mask, scal),
+                 want)
+            rows.append({"target_blocks": fl._TARGET_BLOCKS,
+                         "min_k": fl._SPLIT_MIN_K,
+                         "splits_chunk": fl.forward_splits(
+                             *FUSED_SHAPES[0]),
+                         "kernel_device_ms": device_ms(
+                             lambda: fl.fused_linear_forward(x, w, mask,
+                                                             scal))})
+    finally:
+        fl._TARGET_BLOCKS, fl._SPLIT_MIN_K = shipped
+    return rows
+
+
+def attention_bwd_digest():
+    """sha256 of the attention backward's dq, dk, dv bytes over ATTN_CASES,
+    from inputs drawn with seed 0: two trees whose backward gives the same
+    bits give the same digest."""
+    import hashlib
+
+    from atq_tpu_torch.ops import fused_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    digest = hashlib.sha256()
+    for shape, dtype, with_bias in ATTN_CASES:
+        q, k, v, do, bias = _attn_inputs(gen, shape, dtype, with_bias)
+        scale = 1.0 / float(np.sqrt(shape[3]))
+        for grad in fa.fused_attention_backward(q, k, v, scale, bias, do):
+            digest.update(grad.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
+    return digest.hexdigest()
+
+
 def time_tree(tree, out, *kinds):
     """Times the kernels with ``tree``'s own chip_smoke.py and
     atq_tpu_torch (which build that tree's kernels) at COMPARE_MM
     (time_matmul), PACKED_SHAPES (time_packed), where the tree has
     time_fused, the first two FUSED_SHAPES, and, where it has
     time_attention, bert-base's attention call; writes them to ``out``.
-    ``kinds`` (matmul, packed, fused, attention) limits it to those."""
+    ``kinds`` (matmul, packed, fused, attention) limits it to those;
+    ``attention`` also takes the attention backward's digest
+    (attention_bwd_digest, this file's, on the tree's kernels); ``dwda_sums``
+    and ``splits`` (not run by default) the tree's dwda_sums_error and
+    time_forward_splits."""
     tree, out = os.path.abspath(tree), os.path.abspath(out)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -1814,7 +1920,15 @@ def time_tree(tree, out, *kinds):
               "attention": mod.time_attention(
                   torch.Generator(device="cuda").manual_seed(0))
               if "attention" in kinds and hasattr(mod, "time_attention")
-              else None}
+              else None,
+              "attention_bwd_digest": attention_bwd_digest()
+              if "attention" in kinds else None,
+              "dwda_sums": mod.dwda_sums_error(
+                  torch.Generator(device="cuda").manual_seed(0))
+              if "dwda_sums" in kinds else None,
+              "splits": mod.time_forward_splits(
+                  torch.Generator(device="cuda").manual_seed(0))
+              if "splits" in kinds else None}
     with open(out, "w") as f:
         json.dump(result, f)
 
@@ -1917,6 +2031,13 @@ def compare(parent, out_dir="outputs/compare"):
                   "bound_by": new_rows[0]["bound_by"]})
             per_batch[f"train_encoder_step_{name}"] = [
                 per_step * old_ms, per_step * new_ms]
+    digests = [r.get("attention_bwd_digest") for r in runs]
+    if all(digests):
+        emit({"compare": "fused_attention_bwd_bits",
+              "same_bits": len(set(digests)) == 1, "digests": digests})
+        if len(set(digests)) != 1:
+            raise AssertionError("the attention backward's bits differ "
+                                 f"between the trees: {digests}")
     emit({"per_batch_device_ms_old_new": per_batch})
 
 

@@ -213,6 +213,56 @@ def test_fused_dwda_edges_match_plain_and_repeat(cuda, mnk, with_mask):
         assert da.view(torch.int32) == da2.view(torch.int32)
 
 
+# The forward's and dx's edges (3xTF32 tensor cores, 64 x 64 tiles, a ring
+# of 32 reduction values): M = 1, 5, 7 and 17 (partial tiles), N = 10 and
+# 24 (dx's reduction shorter than one ring step or one MMA step; g's rows
+# not 16-byte aligned at N = 10), K = 99 and 37 (weight rows not aligned:
+# the plain-load blend), K = 100 and 200, M = 2304 (one split of K), and
+# 256 x 128 x 3136 (the recipe's 14 splits, summed in the launch).
+GEMM_EDGE_SHAPES = [(1, 10, 100), (7, 24, 200), (17, 24, 100), (17, 10, 200),
+                    (1, 24, 200), (17, 24, 99), (5, 10, 37),
+                    (2304, 128, 3136), (256, 128, 3136)]
+
+
+@pytest.mark.parametrize("mnk", GEMM_EDGE_SHAPES)
+@pytest.mark.parametrize("with_mask", [True, False])
+def test_fused_forward_dx_edges_match_plain_and_repeat(cuda, mnk, with_mask):
+    from atq_tpu_torch.ops import fused_linear as fl
+
+    m, n, k = mnk
+    x, w, g, mask, scal = _fused_inputs(cuda, m, n, k, with_mask, seed=m + k)
+    for fn, plain, args in ((fl.fused_linear_forward, fl.forward_plain,
+                             (x, w, mask, scal)),
+                            (fl.fused_linear_dx, fl.dx_plain,
+                             (g, w, mask, scal))):
+        before = fn.launches
+        got = fn(*args)
+        assert fn.launches == before + 1  # one launch a call
+        torch.testing.assert_close(got, plain(*args), rtol=1e-4, atol=1e-4)
+        assert torch.equal(got, fn(*args))  # the same bits every run
+
+
+def _misaligned(t):
+    """A contiguous copy of t that starts 4 bytes past a 16-byte boundary."""
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    out = flat[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def test_fused_forward_dx_take_misaligned_rows(cuda):
+    from atq_tpu_torch.ops import fused_linear as fl
+
+    x, w, g, mask, scal = _fused_inputs(cuda, 33, 24, 200, True, seed=5)
+    xm, wm, gm, mm = map(_misaligned, (x, w, g, mask))
+    torch.testing.assert_close(fl.fused_linear_forward(xm, wm, mm, scal),
+                               fl.forward_plain(x, w, mask, scal),
+                               rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(fl.fused_linear_dx(gm, wm, mm, scal),
+                               fl.dx_plain(g, w, mask, scal),
+                               rtol=1e-4, atol=1e-4)
+
+
 def test_fused_autograd_op_on_cuda_equals_cpu(cuda):
     from atq_tpu_torch.ops.fused_linear import fused_quantized_linear
 

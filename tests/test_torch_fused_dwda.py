@@ -3,9 +3,10 @@ atq_tpu_torch/csrc/fused_linear.cu), emulated in torch on the CPU.
 
 The kernel forms G = gᵀx on the tensor cores as 3xTF32: each f32 operand
 value v is split into hi = cvt.rna.tf32(v) and lo = cvt.rna.tf32(v − hi),
-and mma.sync sums lo·hi + hi·lo + hi·hi in f32 (lo·lo dropped), 8 batch
-rows an MMA; of every 32 batch rows, rows 0-15 go into one warp group's
-accumulators and rows 16-31 into another's, added at the end. dalpha is
+and mma.sync sums lo·hi + hi·lo + hi·hi into a fresh f32 partial (lo·lo
+dropped), 8 batch rows an MMA step, which joins the running sum by one
+add (step sums); of every 32 batch rows, rows 0-15 go into one warp
+group's accumulators and rows 16-31 into another's, added at the end. dalpha is
 summed in a fixed order inside each 64 x 32 block, written to the block's
 slot, and the last block to finish adds the slots in index order. Here:
 
@@ -60,17 +61,19 @@ def _split(v):
 
 def _g_3xtf32(g, x):
     """G = gᵀx as the kernel forms it: per 8 batch rows, lo·hi, hi·lo and
-    hi·hi added into f32 accumulators, one set a warp group (rows 0-15 of
-    every 32 in group 0, rows 16-31 in group 1), then group 0 + group 1."""
+    hi·hi summed into a fresh f32 partial that is added to the f32
+    accumulators, one set a warp group (rows 0-15 of every 32 in group 0,
+    rows 16-31 in group 1), then group 0 + group 1."""
     gh, gl = _split(g)
     xh, xl = _split(x)
     acc = [torch.zeros(g.shape[1], x.shape[1], dtype=torch.float32)
            for _ in range(GROUPS)]
     for m0 in range(0, g.shape[0], MMA_K):
         s, h = slice(m0, m0 + MMA_K), (m0 % STEP) // (STEP // GROUPS)
-        acc[h] = acc[h] + gl[s].T @ xh[s]
-        acc[h] = acc[h] + gh[s].T @ xl[s]
-        acc[h] = acc[h] + gh[s].T @ xh[s]
+        part = gl[s].T @ xh[s]
+        part = part + gh[s].T @ xl[s]
+        part = part + gh[s].T @ xh[s]
+        acc[h] = acc[h] + part
     return acc[0] + acc[1]
 
 

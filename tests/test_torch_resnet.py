@@ -171,5 +171,5 @@ def test_int8_trunk_matches_jax(trunk):
 def test_unported_xla_rewrites_raise(trunk, monkeypatch, flag):
     _, _, port, x, _, _ = trunk
     monkeypatch.setenv(flag, "1")
-    with pytest.raises(NotImplementedError, match="item 17"):
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         port(torch.from_numpy(x))
