@@ -635,9 +635,9 @@ attn_bwd_keys_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int pr = 0; pr < kPairs; ++pr) {
       const int col = 16 * wd + 64 * pr;
-      mma_tf32x3<kRows / 8, kLdP, kLd, kSplit, true>(
+      mma_tf32x3<kRows / 8, kLdP, kLd, kSplit>(
           acc_v[pr], sp + 32 * wk, sdo + col, g, t);
-      mma_tf32x3<kRows / 8, kLdP, kLd, kSplit, true>(
+      mma_tf32x3<kRows / 8, kLdP, kLd, kSplit>(
           acc_k[pr], sds + 32 * wk, sq + col, g, t);
     }
   }

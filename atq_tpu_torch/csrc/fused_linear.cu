@@ -271,7 +271,7 @@ dwda_kernel(DwdaArgs p) {
     __syncthreads();  // ... everyone's; and step i - 1's stage is free
     issue(i + kStages - 1);
     const float* s = ring + (i % kStages) * kStageFloats;
-    mma_tf32x3<kRows / 8, kLdA, kLdB, true, true>(  // step sums
+    mma_tf32x3<kRows / 8, kLdA, kLdB>(
         acc, s + grp * kRows * kLdA + 32 * wa,
         s + kStep * kLdA + grp * kRows * kLdB + 16 * wb, g, t);
   }
@@ -476,6 +476,26 @@ struct GemmArgs {
             // mask rows 4-byte aligned; bit 2: dx rows 16-byte aligned
 };
 
+// kSteps MMA steps, from step ks0 of a ring stage, into a warp's two
+// 16 x 16 tiles (columns 32·wc + 16h of the block's 64): sa = the warp's
+// 16 A rows of the stage, sb = the stage's weight tile.
+template <bool DX, int kSteps>
+__device__ __forceinline__ void gemm_mma(float (&acc)[2][2][4],
+                                         const float* sa, const float* sb,
+                                         int ks0, int wc, int g, int t) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if constexpr (DX)
+      mma_nn16<kSteps, kLdOut, true>(
+          acc[h], sa + 8 * ks0, kLdRed,
+          sb + 8 * ks0 * kLdOut + 32 * wc + 16 * h, g, t);
+    else
+      mma_nt16<kSteps, kLdRed, true>(
+          acc[h], sa + 8 * ks0, sb + (32 * wc + 16 * h) * kLdRed + 8 * ks0,
+          g, t);
+  }
+}
+
 // One 64 x 64 tile of dx (DX) or of y over this block's split of K.
 template <bool DX, bool HAS_MASK>
 __global__ void __launch_bounds__(kThreads, 2)
@@ -538,14 +558,15 @@ gemm_tc_kernel(GemmArgs p) {
     __syncthreads();  // ... everyone's, blended; step i - 1's stage is free
     issue(i + kGStages - 1);
     const float* sa = s + 16 * wr * kLdRed;
+    // A stage short of kGStep rows (dx at N = 10, a ragged end of K) runs
+    // only the MMA steps that reach its rows, not steps of zeros.
+    const int left = red1 - red0 - i * kGStep;
+    if (left >= kGStep) {
+      gemm_mma<DX, kGStep / 8>(acc, sa, sb, 0, wc, g, t);
+    } else {
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if constexpr (DX)
-        mma_nn16<kGStep / 8, kLdOut, true>(acc[h], sa, kLdRed,
-                                           sb + 32 * wc + 16 * h, g, t);
-      else
-        mma_nt16<kGStep / 8, kLdRed, true>(
-            acc[h], sa, sb + (32 * wc + 16 * h) * kLdRed, g, t);
+      for (int ks = 0; ks < kGStep / 8; ++ks)
+        if (8 * ks < left) gemm_mma<DX, 1>(acc, sa, sb, ks, wc, g, t);
     }
   }
   cp_async_wait<0>();

@@ -14,9 +14,10 @@
 //
 // mma.sync adds into its f32 accumulator by truncation (round toward
 // zero), so a long chain of MMAs into one accumulator drifts toward zero
-// by about half an ulp an MMA. With kStepSums, each MMA step's products go
-// into a fresh partial sum, which is then added to the running sum with a
-// round-to-nearest add: the truncation acts on 8-term partials only.
+// by about half an ulp an MMA. So every reader below sums as step sums:
+// each MMA step's products go into a fresh partial sum, which is then
+// added to the running sum with a round-to-nearest add, and the truncation
+// acts on 8-term partials only.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k8 .tf32): lane (g, t) = (lane / 4,
 // lane % 4) holds A (16 x 8) elements (g, t), (g + 8, t), (g, t + 4),
@@ -108,8 +109,8 @@ __device__ __forceinline__ void mma_step_sum(float (&acc)[4],
 // axis: C[a][b] += Σ_m A[m][a] · B[m][b], sa = A[m][warp's 32 columns]
 // (row stride kLdA), sb = B[m][warp's 16 columns] (row stride kLdB); with
 // both strides 8 mod 32 words every fragment load is free of bank
-// conflicts. 3xTF32 (kSplit): per step lo·hi, then hi·lo, then hi·hi, each
-// over the 4 tiles (so consecutive MMAs are independent); else hi·hi.
+// conflicts. 3xTF32 (kSplit): per step lo·hi, hi·lo, hi·hi; else hi·hi;
+// as step sums (mma_step_sum), one fresh partial a tile.
 // Output rows and columns are permuted so a thread reads its A fragments
 // as two float4s and its B fragments as two float2s a step (row slot r of
 // m16 tile i is row 4·(r % 8) + 2·i + r / 8 of the 32, column slot c of n8
@@ -117,14 +118,13 @@ __device__ __forceinline__ void mma_step_sum(float (&acc)[4],
 // m16 tile i, n8 tile j, and lane (g, t) owns rows 4g..4g+3 and columns
 // 4t..4t+3 of the warp's tile, element (4g + r, 4t + c) in
 // acc[r >> 1][c & 1][2 * (r & 1) + (c >> 1)].
-template <int kSteps, int kLdA, int kLdB, bool kSplit = true,
-          bool kStepSums = false>
+template <int kSteps, int kLdA, int kLdB, bool kSplit = true>
 __device__ __forceinline__ void mma_tf32x3(float (&acc)[2][2][4],
                                            const float* sa, const float* sb,
                                            int g, int t) {
-  // Step sums hold a partial a tile: unrolled, their loop spilled
+  // Step sums hold a partial a tile: unrolled, this loop spilled
   // registers in the attention's key pass.
-#pragma unroll (kStepSums ? 1 : kSteps)
+#pragma unroll 1
   for (int ks = 0; ks < kSteps; ++ks) {
     const float* pa = sa + (8 * ks + t) * kLdA + 4 * g;
     const float4 a0 = *(const float4*)pa;              // m = t
@@ -148,22 +148,11 @@ __device__ __forceinline__ void mma_tf32x3(float (&acc)[2][2][4],
     split_or_keep<kSplit>(b1.x, b[0][0][1], b[1][0][1]);
     split_or_keep<kSplit>(b0.y, b[0][1][0], b[1][1][0]);
     split_or_keep<kSplit>(b1.y, b[0][1][1], b[1][1][1]);
-    if (kStepSums) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i)
+    for (int i = 0; i < 2; ++i)
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
-          mma_step_sum<kSplit>(acc[i][j], a[0][i], a[1][i], b[0][j],
-                               b[1][j]);
-      continue;
-    }
-#pragma unroll
-    for (int p = kSplit ? 0 : 2; p < 3; ++p)  // lo·hi, hi·lo, hi·hi
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          mma_tf32(acc[i][j], a[p == 0][i], b[p == 1][j]);
+      for (int j = 0; j < 2; ++j)
+        mma_step_sum<kSplit>(acc[i][j], a[0][i], a[1][i], b[0][j], b[1][j]);
   }
 }
 

@@ -13,8 +13,7 @@
     python3 chip_smoke.py --time-tree DIR OUT [KIND ...]
                                    # one tree's kernel times into OUT;
                                    # KIND (matmul, packed, fused,
-                                   # attention, dwda_sums, splits) limits
-                                   # them
+                                   # attention) limits them
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -141,7 +140,9 @@ within rtol/atol 1e-4 (f32 sums in another order than cuBLAS over K =
 3136; the 3xTF32 products), dalpha within 1e-4 relative; also at
 FUSED_EDGE_SHAPES (N = 10 and 24, K = 37, 99, 100 and 200, M = 1, 5, 7
 and 17). Every kernel is launched twice a case and must repeat bit for
-bit.
+bit. y, dx and dW's G = gᵀx are also held against float64: the error over
+the element's Σ|a|·|b| within F64_REL_TOL (1e-5), which one TF32 pass on
+the same operands must miss at the two head layers.
 
 --compare also holds the attention backward's bits equal in all four runs
 (a digest of dq, dk, dv over ATTN_CASES) and fails if they differ.
@@ -189,6 +190,12 @@ EDGE_SHAPES = ((1, 128, 8), (17, 128, 8), (17, 200, 8), (1, 200, 24),
 FUSED_SHAPES = ((256, 128, 3136), (256, 10, 128), (256, 256, 3136),
                 (7, 24, 100), (2304, 128, 3136))
 FUSED_TOL = 1e-4  # rtol/atol on y, dx, dw; relative on dalpha
+# y's, dx's and dW's G = gᵀx's largest error against a float64 product,
+# over the element's Σ|a|·|b|: 3xTF32 with step sums sits near 1e-7 there,
+# one TF32 pass near 1e-4 (tests/test_torch_fused_gemm_tc.py). dx's values
+# are about 1e-3, so FUSED_TOL's atol alone would pass one TF32 pass; this
+# bound does not.
+F64_REL_TOL = 1e-5
 # Edge shapes of the dW/dalpha kernel, (M, N, K): N = 10 and 24, K = 100 and
 # 200 (ragged 64 x 32 tiles, unaligned rows), M = 1, 7 and 17 (a partial
 # step of its 32-row ring); M = 2304 is in FUSED_SHAPES.
@@ -198,9 +205,6 @@ DWDA_EDGE_SHAPES = ((1, 10, 100), (7, 24, 200), (17, 24, 100),
 # 37 (rows not 16-byte aligned: the forward's and dx's plain-load weight
 # path, 4-byte copies of x) with N = 24 and 10 (g's rows: 4-byte copies).
 FUSED_EDGE_SHAPES = DWDA_EDGE_SHAPES + ((17, 24, 99), (5, 10, 37))
-# dwda_kernel's G = gᵀx against float64 with and without step sums: the
-# recipe's first head layer and a batch past the JAX resident limit.
-DWDA_SUMS_SHAPES = ((256, 128, 3136), (2304, 128, 3136))
 STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
 # Batched order statistic: bert-base's two stacked weight shapes (q/k/v/out,
 # linear1/linear2) and a ragged one.
@@ -293,21 +297,33 @@ def device_ms(fn, iters=50):
     """Mean device time of ``fn`` per call from torch.profiler: the summed
     time of the kernels (and memsets) it ran. Unlike :func:`time_ms` it
     leaves out the gaps in which the device waits for the host. A window in
-    which the profiler records no device activity (it happens now and then)
-    is traced again, twice at most; None if all three record none."""
+    which the profiler records no device activity (it happens now and
+    then), or a number of device events that is not a multiple of
+    ``iters`` (some lost), is traced again, twice at most; then the last
+    window with any activity counts, and None if none had any."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    result = None
     for _ in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        total_us = _device_us(prof.key_averages())
+        events = prof.key_averages()
+        total_us = _device_us(events)
+        count = sum(e.count for e in events
+                    if e.device_type == DeviceType.CUDA)
         if total_us > 0:
-            return total_us / 1e3 / iters
-    return None
+            result = total_us / 1e3 / iters
+            if count % iters == 0:
+                return result
+        print(f"device_ms: a window recorded {count} device events in "
+              f"{iters} calls ({total_us} us); traced again",
+              file=sys.stderr)
+    return result
 
 
 def device_ms_by_kernel(fn, iters=50):
@@ -646,14 +662,52 @@ def _err(name, got, want, tol=FUSED_TOL, atol=None):
     return (got - want).abs().max().item() if got.numel() else 0.0
 
 
+def _tf32_rna(v):
+    """cvt.rna.tf32.f32 on finite float32 values (the kernels' rounding):
+    10 mantissa bits kept, to nearest, ties away from zero."""
+    return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _f64_rel_err(name, got, a, b, control):
+    """got's largest error against the float64 product a·b, each element's
+    over its Σ|a|·|b|; fails past F64_REL_TOL. With ``control``, one TF32
+    pass on the same operands (rounded to TF32, summed exactly) must fail
+    the bound, so that it tells 3xTF32 from one pass on this data. Returns
+    both errors (the control's None without it)."""
+    a64, b64 = a.double(), b.double()
+    scale = a64.abs() @ b64.abs()
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+
+    def rel(out):
+        return ((out.double() - a64 @ b64).abs() / scale).max().item()
+
+    err = rel(got) if got.numel() else 0.0
+    if err > F64_REL_TOL:
+        raise AssertionError(f"{name}: {err} of Σ|a||b| from float64 "
+                             f"(bound {F64_REL_TOL})")
+    one = None
+    if control:
+        one = rel(_tf32_rna(a).double() @ _tf32_rna(b).double())
+        if one <= F64_REL_TOL:
+            raise AssertionError(f"{name}: one TF32 pass, {one}, meets the "
+                                 f"bound {F64_REL_TOL}: it cannot tell")
+    return err, one
+
+
 def check_fused(gen):
     """The three fused kernels against their plain versions at
     FUSED_SHAPES and FUSED_EDGE_SHAPES; every variant (mask or not; parity
     or STE for dW/dalpha). Each kernel is launched twice a case, and the
-    two must agree bit for bit."""
+    two must agree bit for bit. The forward, dx and dW/dalpha's G = gᵀx
+    (STE with an all-ones mask makes dw = G) also against float64
+    (_f64_rel_err), with one TF32 pass as the control at the recipe's two
+    head layers."""
     from atq_tpu_torch.ops import fused_linear as fl
 
     errs = {"fused_forward": 0.0, "fused_dx": 0.0, "fused_dwda": 0.0}
+    # The kernels' largest error over Σ|a||b|, one TF32 pass's least.
+    f64 = {name: {"kernel": 0.0, "one_tf32_pass": float("inf")}
+           for name in errs}
     da_rel, cases = 0.0, 0
     for m, n, k in FUSED_SHAPES + FUSED_EDGE_SHAPES:
         for with_mask in (True, False):
@@ -673,6 +727,20 @@ def check_fused(gen):
                 f"forward {tag}", y, fl.forward_plain(x, w, mask, scal)))
             errs["fused_dx"] = max(errs["fused_dx"], _err(
                 f"dx {tag}", d, fl.dx_plain(g, w, mask, scal)))
+            w_eff = fl._w_eff(w, mask, scal[0], scal[1])[0]
+            products = [("fused_forward", y, x, w_eff.T),
+                        ("fused_dx", d, g, w_eff)]
+            if with_mask:
+                ones = torch.ones_like(mask)
+                products.append(("fused_dwda", fl.fused_linear_dwda(
+                    g, x, w, ones, scal, True)[0], g.T, x))
+            for name, got, a, b in products:
+                err, one = _f64_rel_err(f"{name} {tag}", got, a, b,
+                                        (m, n, k) in FUSED_SHAPES[:2])
+                f64[name]["kernel"] = max(f64[name]["kernel"], err)
+                if one is not None:
+                    f64[name]["one_tf32_pass"] = min(
+                        f64[name]["one_tf32_pass"], one)
             for ste in (False, True):
                 def dwda():
                     dw, da = fl.fused_linear_dwda(g, x, w, mask, scal, ste)
@@ -694,7 +762,7 @@ def check_fused(gen):
                 da_rel = max(da_rel, rel)
                 cases += 1
     torch.cuda.synchronize()
-    return errs, da_rel, cases
+    return errs, f64, da_rel, cases
 
 
 def time_fused(gen, m, n, k):
@@ -727,36 +795,6 @@ def time_fused(gen, m, n, k):
         out[name] = {"m": m, "n": n, "k": k, "bound_ms": b_ms,
                      "bound_by": b_by, **timed(fns)}
     return out
-
-
-def dwda_sums_error(gen):
-    """dwda_kernel's G = gᵀx against float64 at DWDA_SUMS_SHAPES (STE with
-    an all-ones mask gives dw = G·1 = G): the largest error, absolute and
-    relative to Σ|g||x|, and the mean error along G's sign (sums that
-    truncate toward zero make it negative); cuBLAS's f32 gᵀx beside it;
-    and the kernel's device ms (parity, a 5 % mask)."""
-    from atq_tpu_torch.ops import fused_linear as fl
-
-    rows = []
-    for m, n, k in DWDA_SUMS_SHAPES:
-        x, w, g, mask, scal = _fused_inputs(gen, m, n, k, True)
-        ones = torch.ones(n, k, dtype=torch.bool, device="cuda")
-        want = g.double().T @ x.double()
-        scale = g.double().abs().T @ x.double().abs()
-        row = {"m": m, "n": n, "k": k}
-        for name, got in (
-                ("kernel", fl.fused_linear_dwda(g, x, w, ones, scal,
-                                                True)[0]),
-                ("cublas_f32", torch.matmul(g.T, x))):
-            err = got.double() - want
-            row[f"{name}_max_abs_err"] = err.abs().max().item()
-            row[f"{name}_max_rel_err"] = (err.abs() / scale).max().item()
-            row[f"{name}_mean_err_along_sign"] = (
-                err * want.sign()).mean().item()
-        row["kernel_device_ms"] = device_ms(
-            lambda: fl.fused_linear_dwda(g, x, w, mask, scal, False))
-        rows.append(row)
-    return rows
 
 
 def check_batched_order_stat(gen):
@@ -927,7 +965,7 @@ def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
     os_err, os_sum_rel_err, os_cases = check_order_stat(gen)
     mm_err, mm_cases = check_matmul(gen)
-    fused_errs, da_rel, fused_cases = check_fused(gen)
+    fused_errs, fused_f64, da_rel, fused_cases = check_fused(gen)
     bos_err, bos_sum_rel, bos_rows = check_batched_order_stat(gen)
     attn_errs, attn_cases = check_attention(gen)
     packed_errs, packed_cases = check_packed_kernels(gen)
@@ -956,6 +994,7 @@ def phase_kernels():
           "ternary_matmul_max_abs_err": mm_err,
           "fused_cases": fused_cases, "fused_max_abs_err": fused_errs,
           "fused_dalpha_max_rel_err": da_rel,
+          "fused_f64_rel_err": fused_f64, "f64_rel_tol": F64_REL_TOL,
           "batched_order_stat_rows": bos_rows,
           "batched_order_stat_max_abs_err": bos_err,  # statistic and max
           "batched_order_stat_sum_max_rel_err": bos_sum_rel,
@@ -1842,38 +1881,6 @@ PACKED_KERNELS = ("ternary_matmul", "ternary_matmul32", "ternary_matmul_rpb")
 FUSED_KERNELS = ("fused_forward", "fused_dx", "fused_dwda")
 
 
-# The forward's split of K at the recipe's first head layer, (target blocks,
-# least K a split): the shipped (264, 64) first.
-FORWARD_SPLIT_CHOICES = ((264, 64), (132, 128), (264, 128), (132, 256),
-                         (256, 96))
-
-
-def time_forward_splits(gen):
-    """The forward kernel's device ms at FUSED_SHAPES[0] under each of
-    FORWARD_SPLIT_CHOICES (the wrapper's _TARGET_BLOCKS and _SPLIT_MIN_K),
-    each checked against the plain version."""
-    from atq_tpu_torch.ops import fused_linear as fl
-
-    x, w, _, mask, scal = _fused_inputs(gen, *FUSED_SHAPES[0], True)
-    want = fl.forward_plain(x, w, mask, scal)
-    shipped = fl._TARGET_BLOCKS, fl._SPLIT_MIN_K
-    rows = []
-    try:
-        for fl._TARGET_BLOCKS, fl._SPLIT_MIN_K in FORWARD_SPLIT_CHOICES:
-            _err("forward splits", fl.fused_linear_forward(x, w, mask, scal),
-                 want)
-            rows.append({"target_blocks": fl._TARGET_BLOCKS,
-                         "min_k": fl._SPLIT_MIN_K,
-                         "splits_chunk": fl.forward_splits(
-                             *FUSED_SHAPES[0]),
-                         "kernel_device_ms": device_ms(
-                             lambda: fl.fused_linear_forward(x, w, mask,
-                                                             scal))})
-    finally:
-        fl._TARGET_BLOCKS, fl._SPLIT_MIN_K = shipped
-    return rows
-
-
 def attention_bwd_digest():
     """sha256 of the attention backward's dq, dk, dv bytes over ATTN_CASES,
     from inputs drawn with seed 0: two trees whose backward gives the same
@@ -1901,9 +1908,7 @@ def time_tree(tree, out, *kinds):
     time_attention, bert-base's attention call; writes them to ``out``.
     ``kinds`` (matmul, packed, fused, attention) limits it to those;
     ``attention`` also takes the attention backward's digest
-    (attention_bwd_digest, this file's, on the tree's kernels); ``dwda_sums``
-    and ``splits`` (not run by default) the tree's dwda_sums_error and
-    time_forward_splits."""
+    (attention_bwd_digest, this file's, on the tree's kernels)."""
     tree, out = os.path.abspath(tree), os.path.abspath(out)
     os.chdir(tree)
     sys.path.insert(0, tree)
@@ -1922,13 +1927,7 @@ def time_tree(tree, out, *kinds):
               if "attention" in kinds and hasattr(mod, "time_attention")
               else None,
               "attention_bwd_digest": attention_bwd_digest()
-              if "attention" in kinds else None,
-              "dwda_sums": mod.dwda_sums_error(
-                  torch.Generator(device="cuda").manual_seed(0))
-              if "dwda_sums" in kinds else None,
-              "splits": mod.time_forward_splits(
-                  torch.Generator(device="cuda").manual_seed(0))
-              if "splits" in kinds else None}
+              if "attention" in kinds else None}
     with open(out, "w") as f:
         json.dump(result, f)
 
@@ -2031,13 +2030,17 @@ def compare(parent, out_dir="outputs/compare"):
                   "bound_by": new_rows[0]["bound_by"]})
             per_batch[f"train_encoder_step_{name}"] = [
                 per_step * old_ms, per_step * new_ms]
+    # Every run times the attention kind, so every run has a digest.
     digests = [r.get("attention_bwd_digest") for r in runs]
-    if all(digests):
-        emit({"compare": "fused_attention_bwd_bits",
-              "same_bits": len(set(digests)) == 1, "digests": digests})
-        if len(set(digests)) != 1:
-            raise AssertionError("the attention backward's bits differ "
-                                 f"between the trees: {digests}")
+    emit({"compare": "fused_attention_bwd_bits",
+          "same_bits": len(set(digests)) == 1 and all(digests),
+          "digests": digests})
+    if not all(digests):
+        raise AssertionError("a run took no attention backward digest: "
+                             f"{digests}")
+    if len(set(digests)) != 1:
+        raise AssertionError("the attention backward's bits differ "
+                             f"between the trees: {digests}")
     emit({"per_batch_device_ms_old_new": per_batch})
 
 

@@ -218,7 +218,10 @@ def test_fused_dwda_edges_match_plain_and_repeat(cuda, mnk, with_mask):
 # 24 (dx's reduction shorter than one ring step or one MMA step; g's rows
 # not 16-byte aligned at N = 10), K = 99 and 37 (weight rows not aligned:
 # the plain-load blend), K = 100 and 200, M = 2304 (one split of K), and
-# 256 x 128 x 3136 (the recipe's 14 splits, summed in the launch).
+# 256 x 128 x 3136 (the recipe's 33 splits, summed in the launch). Besides
+# the plain version, each is held against a float64 product: its error
+# over Σ|a|·|b| within 1e-5, which one TF32 pass misses (dx's values are
+# about 1e-3, inside the 1e-4 atol even for one pass).
 GEMM_EDGE_SHAPES = [(1, 10, 100), (7, 24, 200), (17, 24, 100), (17, 10, 200),
                     (1, 24, 200), (17, 24, 99), (5, 10, 37),
                     (2304, 128, 3136), (256, 128, 3136)]
@@ -231,15 +234,21 @@ def test_fused_forward_dx_edges_match_plain_and_repeat(cuda, mnk, with_mask):
 
     m, n, k = mnk
     x, w, g, mask, scal = _fused_inputs(cuda, m, n, k, with_mask, seed=m + k)
-    for fn, plain, args in ((fl.fused_linear_forward, fl.forward_plain,
-                             (x, w, mask, scal)),
-                            (fl.fused_linear_dx, fl.dx_plain,
-                             (g, w, mask, scal))):
+    w_eff = fl._w_eff(w, mask, scal[0], scal[1])[0].double()
+    for fn, plain, args, a, b in (
+            (fl.fused_linear_forward, fl.forward_plain, (x, w, mask, scal),
+             x.double(), w_eff.T),
+            (fl.fused_linear_dx, fl.dx_plain, (g, w, mask, scal),
+             g.double(), w_eff)):
         before = fn.launches
         got = fn(*args)
         assert fn.launches == before + 1  # one launch a call
         torch.testing.assert_close(got, plain(*args), rtol=1e-4, atol=1e-4)
         assert torch.equal(got, fn(*args))  # the same bits every run
+        scale = a.abs() @ b.abs()
+        err = (got.double() - a @ b).abs() / torch.where(
+            scale > 0, scale, torch.ones_like(scale))
+        assert err.max().item() <= 1e-5
 
 
 def _misaligned(t):

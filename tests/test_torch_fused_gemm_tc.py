@@ -21,7 +21,9 @@ Here:
   (rtol/atol 1e-4) against the port's plain versions and lies more than
   100x closer to a float64 product than one TF32 pass; one TF32 pass
   misses that tolerance on the forward at both head layers (on dx, whose
-  values are about 1e-3, it stays inside the atol);
+  values are about 1e-3, it stays inside the atol), and misses the card
+  check's bound on the error against float64 over Σ|a|·|b|
+  (F64_REL_TOL), which the emulation meets, on both kernels;
 - the forward's result does not depend on which split finishes last.
 """
 
@@ -43,6 +45,7 @@ from atq_tpu_torch.ops import fused_linear as fl
 
 MMA_K = 8  # reduction values an MMA step
 FUSED_TOL = 1e-4  # the card check's rtol/atol on y and dx
+F64_REL_TOL = 1e-5  # the card check's bound on |err| / Σ|a||b| vs float64
 
 
 def _tf32_rna(v):
@@ -189,6 +192,28 @@ def _one_tf32_pass(a, b):
     return _tf32_rna(a) @ _tf32_rna(b)
 
 
+def _f64_rel_err(got, a, b):
+    """The largest error against the float64 a·b, each element's over its
+    Σ|a|·|b|, as the card check measures it."""
+    a64, b64 = a.double(), b.double()
+    scale = a64.abs() @ b64.abs()
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    return ((got.double() - a64 @ b64).abs() / scale).max().item()
+
+
+def _assert_f64_bound_separates(which, x, w, g, mask, scal):
+    """The emulated kernel meets F64_REL_TOL; one TF32 pass does not."""
+    w_eff = _w_eff(w, mask, scal)
+    if which == "forward":
+        got = _emulate_forward(x, w, mask, scal)
+        a, b = x, w_eff.T
+    else:
+        got = _emulate_dx(g, w, mask, scal)
+        a, b = g, w_eff
+    assert _f64_rel_err(got, a, b) <= F64_REL_TOL
+    assert _f64_rel_err(_one_tf32_pass(a, b), a, b) > F64_REL_TOL
+
+
 # The card check's shapes: the recipe's two head layers (with the mask).
 @pytest.mark.parametrize("mnk", [(256, 128, 3136), (256, 10, 128)])
 @pytest.mark.parametrize("which", ["forward", "dx"])
@@ -213,6 +238,15 @@ def test_emulated_kernel_meets_card_tolerance(which, mnk):
         with pytest.raises(AssertionError):
             torch.testing.assert_close(one_pass, plain, rtol=FUSED_TOL,
                                        atol=FUSED_TOL)
+    _assert_f64_bound_separates(which, x, w, g, mask, scal)
+
+
+@pytest.mark.parametrize("mnk", [(256, 128, 3136), (256, 10, 128)])
+@pytest.mark.parametrize("which", ["forward", "dx"])
+def test_f64_bound_separates_one_tf32_pass_without_mask(which, mnk):
+    m, n, k = mnk
+    _assert_f64_bound_separates(which, *_inputs(m, n, k, False,
+                                                seed=n + k + 1))
 
 
 def test_forward_does_not_depend_on_which_split_finishes_last():
