@@ -40,6 +40,7 @@ from atq_tpu_torch.nn.layers import (
     ResidualPrecisionBoostLinear,
     TernaryLinear,
     apply_selective_routing,
+    dropout,
 )
 from atq_tpu_torch.utils.platform import resolve_device
 
@@ -82,15 +83,8 @@ class _BatchNorm(nn.BatchNorm2d):
 
 
 def _dropout(h, rate: float, training: bool, generator):
-    """flax ``nn.Dropout``: keep with probability 1 − rate, scale kept
-    units by 1 / (1 − rate)."""
-    if not training or rate == 0.0:
-        return h
-    keep_prob = 1.0 - rate
-    keep = torch.rand(h.shape, generator=generator, device=h.device) \
-        < keep_prob
-    return torch.where(keep, h / keep_prob, torch.zeros((), dtype=h.dtype,
-                                                          device=h.device))
+    """flax ``nn.Dropout`` (nn/layers.py ``dropout``) in training mode."""
+    return dropout(h, rate, not training, generator)
 
 
 class _ConvFeatures(nn.Module):

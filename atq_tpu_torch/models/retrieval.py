@@ -4,20 +4,22 @@
   LayerNorm -> RPB projector -> exact GELU -> LayerNorm -> clamped scaling
   -> L2 normalize.
 - :class:`ATQMultimodalRetrieval`: the image encoder, the ternary text
-  encoder, the text and image projectors with their LayerNorms and the
-  learnable temperature. ``encode_image``/``encode_text`` give the
-  L2-normalized embeddings that retrieval scores by cosine; ``forward``
-  gives the similarity matrix (with the extra image projector) or, with
-  ``return_embeddings``, the two embeddings.
+  encoder, the cross-attention fusion (models/fusion.py), the text and
+  image projectors with their LayerNorms and the learnable temperature.
+  ``encode_image``/``encode_text`` give the L2-normalized embeddings that
+  retrieval scores by cosine; ``forward`` gives the similarity matrix (with
+  the extra image projector), or with ``return_embeddings`` the two
+  embeddings, or with ``return_fused`` the fused embedding.
+
+``forward(..., train=True)`` is flax's ``train`` flag: BatchNorm normalizes
+with the batch statistics and moves its running statistics (the module is
+put in training mode), and dropout is active, its masks drawn from the
+caller's ``generator``.
 
 Module names mirror the JAX ones (``image_encoder``, ``text_encoder``,
-``text_projector``, ``image_projector``, ``img_norm``, ``text_norm``,
-``temperature``), so a JAX checkpoint maps onto the state dict name for
-name (utils/jax_interop.py). The cross-attention fusion (``return_fused``)
-needs ``models/fusion.py`` and ``TernaryCrossAttention`` and raises
-NotImplementedError until slice E; :meth:`load_jax_variables` keeps a
-checkpoint's ``fusion`` subtrees as they are and
-:meth:`jax_variables` writes them back, so a round trip loses nothing.
+``fusion``, ``text_projector``, ``image_projector``, ``img_norm``,
+``text_norm``, ``temperature``), so a JAX checkpoint maps onto the state
+dict name for name (utils/jax_interop.py), every collection included.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from atq_tpu_torch.models.fusion import MultimodalFusion, l2_normalize
 from atq_tpu_torch.models.resnet import (
     BasicBlock,
     Bottleneck,
@@ -48,12 +51,6 @@ from atq_tpu_torch.utils.platform import resolve_device
 
 _BACKBONES = {"resnet18": ((2, 2, 2, 2), BasicBlock),
               "resnet50": ((3, 4, 6, 3), Bottleneck)}
-
-
-def l2_normalize(x, dim: int = 1, eps: float = 1e-12):
-    """``x / max(||x||, eps)`` (torch ``F.normalize`` semantics)."""
-    norm = torch.sqrt(torch.sum(x * x, dim=dim, keepdim=True))
-    return x / torch.clamp(norm, min=eps)
 
 
 class ImageEncoder(nn.Module):
@@ -110,6 +107,11 @@ class ATQMultimodalRetrieval(nn.Module):
             max_seq_length=max_seq_length, grad_mode=grad_mode,
             moe_experts=text_moe_experts, scan_layers=text_scan_layers,
             attn_impl=text_attn_impl, device="cpu", generator=generator)
+        self.fusion = MultimodalFusion(
+            {"image": embed_dim, "text": embed_dim}, embed_dim,
+            fusion_method="cross_attention", num_heads=4,
+            use_rpb=use_residual, grad_mode=grad_mode, dropout=dropout,
+            device="cpu", generator=generator)
         self.text_projector = _proj(use_residual, embed_dim, embed_dim, 0.2,
                                     initial_text, grad_mode,
                                     generator=generator)
@@ -119,8 +121,6 @@ class ATQMultimodalRetrieval(nn.Module):
         self.img_norm = LayerNorm32(embed_dim)
         self.text_norm = LayerNorm32(embed_dim)
         self.temperature = nn.Parameter(torch.tensor(0.07))
-        # The checkpoint's fusion subtrees by collection (load_jax_variables).
-        self.fusion_variables: Dict = {}
         self.to(resolve_device(device))
         self.eval()
 
@@ -128,22 +128,31 @@ class ATQMultimodalRetrieval(nn.Module):
         return self.image_encoder(image)
 
     def encode_text(self, text, text_lengths=None,
-                    deterministic: bool = True):
+                    deterministic: bool = True,
+                    generator: Optional[torch.Generator] = None):
         text_features = self.text_encoder(text, text_lengths,
-                                          deterministic=deterministic)
+                                          deterministic=deterministic,
+                                          generator=generator)
         text_embeddings = self.text_norm(self.text_projector(text_features))
         return l2_normalize(text_embeddings, dim=1)
 
     def forward(self, image, text, text_lengths=None,
-                return_embeddings: bool = False, return_fused: bool = False):
-        if return_fused:
-            raise NotImplementedError(
-                "return_fused needs the cross-attention fusion, which is not "
-                "ported yet (ROADMAP.md, slice E)")
+                return_embeddings: bool = False, return_fused: bool = False,
+                train: bool = False,
+                generator: Optional[torch.Generator] = None):
+        if self.training != train:
+            self.train(train)
+        deterministic = not train
         image_embeddings = self.encode_image(image)
-        text_embeddings = self.encode_text(text, text_lengths)
+        text_embeddings = self.encode_text(text, text_lengths,
+                                           deterministic, generator)
         if return_embeddings:
             return image_embeddings, text_embeddings
+        if return_fused:
+            return self.fusion({"image": image_embeddings,
+                                "text": text_embeddings},
+                               deterministic=deterministic,
+                               generator=generator)
         image_embeddings = self.img_norm(self.image_projector(
             image_embeddings))
         image_embeddings = l2_normalize(image_embeddings, dim=1)
@@ -152,32 +161,21 @@ class ATQMultimodalRetrieval(nn.Module):
 
     def load_jax_variables(self, variables: Dict) -> None:
         """Load JAX-layout variables (``params``, ``quant``,
-        ``batch_stats``, ``constants``; numpy leaves). The ``fusion``
-        subtrees are kept aside as they are. A checkpoint without
+        ``batch_stats``, ``constants``; numpy leaves). A checkpoint without
         ``constants`` gets the sinusoidal table, as serve.py takes it from
         a fresh init."""
-        rest = {}
-        self.fusion_variables = {}
-        for coll, tree in variables.items():
-            if not isinstance(tree, dict):
-                continue
-            if "fusion" in tree:
-                self.fusion_variables[coll] = tree["fusion"]
-            rest[coll] = {k: v for k, v in tree.items() if k != "fusion"}
-        if not rest.get("constants"):
+        variables = {k: v for k, v in variables.items()
+                     if isinstance(v, dict)}
+        if not variables.get("constants"):
             pe = self.text_encoder.positional_encoding
-            rest["constants"] = {"text_encoder": {
+            variables["constants"] = {"text_encoder": {
                 "positional_encoding": sinusoidal_positional_encoding(
                     pe.shape[1], pe.shape[2])}}
-        self.load_state_dict(from_jax_variables(rest))
+        self.load_state_dict(from_jax_variables(variables))
 
     def jax_variables(self) -> Dict:
-        """Inverse of :meth:`load_jax_variables`: JAX-layout variables,
-        the kept ``fusion`` subtrees included."""
-        out = to_jax_variables(self.state_dict())
-        for coll, sub in self.fusion_variables.items():
-            out.setdefault(coll, {})["fusion"] = sub
-        return out
+        """Inverse of :meth:`load_jax_variables`: JAX-layout variables."""
+        return to_jax_variables(self.state_dict())
 
 
 def get_model_size_info(params: dict, use_rpb: bool = True) -> dict:

@@ -16,7 +16,9 @@ Kept from the JAX module:
   ``ScannedTernaryStack`` (``layers.scan.layer.*``).
 
 ``moe_experts > 0`` raises NotImplementedError (slice H); the reference's
-from-scratch init (``apply_reference_text_init``) waits for slice E.
+from-scratch init (``apply_reference_text_init``) is not ported yet
+(ROADMAP.md queue 1). Dropout masks come from the ``generator`` passed to
+``forward``.
 """
 
 from __future__ import annotations
@@ -26,7 +28,6 @@ from typing import Optional
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from atq_tpu_torch.nn.attention import (
@@ -35,6 +36,7 @@ from atq_tpu_torch.nn.attention import (
     lengths_to_padding_mask,
 )
 from atq_tpu_torch.nn.initializers import normal_std_
+from atq_tpu_torch.nn.layers import dropout
 from atq_tpu_torch.nn.transformer import (
     ScannedTernaryStack,
     TernaryTransformerLayer,
@@ -108,7 +110,8 @@ class ATQTextEncoder(nn.Module):
         self.eval()
 
     def forward(self, x, src_key_padding_mask=None,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         if src_key_padding_mask is not None:
             src_key_padding_mask = torch.as_tensor(src_key_padding_mask,
                                                    device=x.device)
@@ -117,16 +120,16 @@ class ATQTextEncoder(nn.Module):
                     src_key_padding_mask, x.shape[1])
         h = self.embed_norm(self.embedding(x))
         h = h + self.positional_encoding[:, :h.shape[1], :]
-        if not deterministic and self.dropout > 0.0:
-            h = F.dropout(h, self.dropout, training=True)
+        h = dropout(h, self.dropout, deterministic, generator)
         if self.scan_layers:
             h = self.layers(h, src_key_padding_mask=src_key_padding_mask,
-                            deterministic=deterministic).float()
+                            deterministic=deterministic,
+                            generator=generator).float()
         else:
             for i in range(self.num_layers):
                 h = getattr(self, f"layers_{i}")(
                     h, src_key_padding_mask=src_key_padding_mask,
-                    deterministic=deterministic)
+                    deterministic=deterministic, generator=generator)
         h = self.norm(h)
         a = torch.tanh(self.attention_pool_0(h))
         a = self.attention_pool_2(a)

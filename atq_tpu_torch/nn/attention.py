@@ -13,8 +13,13 @@
   promotes the outputs back to float32, so under AMP the attention itself
   runs in float32, as in JAX.
 
-``TernaryCrossAttention`` (the retrieval model's fusion) is not ported yet
-(ROADMAP.md, slice E).
+- :class:`TernaryCrossAttention` (the retrieval model's fusion): per-input
+  LayerNorms, a learnable attention scale (init 1/sqrt(head_dim)), 2-D
+  inputs as one-token sequences, a LayerNorm after the output projection
+  and a sigmoid gate (init 0.8) blending in the normalized query.
+
+Dropout masks come from the ``generator`` the caller passes to
+``forward`` (nn/layers.py ``dropout``).
 """
 
 from __future__ import annotations
@@ -24,13 +29,13 @@ import warnings
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from atq_tpu_torch.nn.layers import (
     ResidualPrecisionBoostLinear,
     TernaryLinear,
     apply_selective_routing,
+    dropout,
 )
 from atq_tpu_torch.utils.platform import resolve_device
 
@@ -127,7 +132,8 @@ class TernaryMultiheadAttention(nn.Module):
                          self.head_dim).transpose(1, 2)
 
     def forward(self, query, key, value, attn_mask=None,
-                key_padding_mask=None, deterministic: bool = True):
+                key_padding_mask=None, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         query = self.pre_layer_norm(query)
         batch = query.shape[0]
         threshold = 0.01 if self.critical_attention else 0.05
@@ -163,11 +169,73 @@ class TernaryMultiheadAttention(nn.Module):
             if attn_mask is not None:
                 scores = scores + attn_mask
             attn = torch.softmax(scores.float(), dim=-1).to(v.dtype)
-            if dropout_active:
-                attn = F.dropout(attn, self.dropout, training=True)
+            attn = dropout(attn, self.dropout, deterministic, generator)
             out = torch.matmul(attn, v)
         out = out.transpose(1, 2).reshape(batch, -1, self.embed_dim)
         out = self.out_proj(out)
         if self.critical_attention:
             out = out + 0.1 * query
+        return out
+
+
+class TernaryCrossAttention(nn.Module):
+    """Cross-modal attention with ATQ projections and a gated residual
+    (atq_tpu/nn/attention.py:199-279). ``hidden_dim`` is also the width of
+    the query, key and value inputs."""
+
+    def __init__(self, hidden_dim: int, num_heads: int = 4,
+                 dropout: float = 0.1, use_rpb: bool = True,
+                 sparsity_target: float = 0.3, grad_mode: str = "parity",
+                 dtype=None, device=None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        head_dim = hidden_dim // num_heads
+        if head_dim * num_heads != hidden_dim:
+            raise ValueError(f"hidden_dim {hidden_dim} is not a multiple of "
+                             f"num_heads {num_heads}")
+        self.hidden_dim, self.num_heads, self.head_dim = (hidden_dim,
+                                                          num_heads, head_dim)
+        self.dropout = dropout
+        initial_sparsity = min(0.1, sparsity_target)
+        for name in ("layer_norm_q", "layer_norm_k", "layer_norm_v"):
+            setattr(self, name, LayerNorm32(hidden_dim))
+        for name in ("q_proj", "k_proj", "v_proj"):
+            setattr(self, name, _proj(use_rpb, hidden_dim, hidden_dim, 0.15,
+                                      initial_sparsity, grad_mode, dtype,
+                                      generator=generator))
+        self.attention_scale = nn.Parameter(
+            torch.full((1,), 1.0 / math.sqrt(head_dim)))
+        self.out_proj = _proj(use_rpb, hidden_dim, hidden_dim, 0.2,
+                              initial_sparsity, grad_mode, dtype,
+                              generator=generator)
+        self.layer_norm_out = LayerNorm32(hidden_dim)
+        self.gate = nn.Parameter(torch.full((1,), 0.8))
+        self.to(resolve_device(device))
+
+    def forward(self, query, key, value, deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        batch = query.shape[0]
+        query = self.layer_norm_q(query)
+        key = self.layer_norm_k(key)
+        value = self.layer_norm_v(value)
+        q, k, v = self.q_proj(query), self.k_proj(key), self.v_proj(value)
+
+        def split(t):
+            if t.ndim == 2:
+                t = t[:, None, :]
+            return t.reshape(batch, -1, self.num_heads,
+                             self.head_dim).transpose(1, 2)
+
+        q, k, v = split(q), split(k), split(v)
+        scores = torch.matmul(q, k.transpose(-1, -2)) * self.attention_scale
+        attn = torch.softmax(scores.float(), dim=-1).to(v.dtype)
+        attn = dropout(attn, self.dropout, deterministic, generator)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(
+            batch, -1, self.hidden_dim)
+        if out.shape[1] == 1:
+            out = out[:, 0, :]
+        out = self.layer_norm_out(self.out_proj(out))
+        if query.ndim == out.ndim and query.shape[-1] == out.shape[-1]:
+            g = torch.sigmoid(self.gate)
+            out = g * out + (1.0 - g) * query
         return out

@@ -65,6 +65,21 @@ def _use_fused(fused: Optional[bool], dtype=None) -> bool:
     return os.environ.get("ATQ_FUSED", "0") == "1" and dtype is None
 
 
+def dropout(x, rate: float, deterministic: bool,
+            generator: Optional[torch.Generator] = None):
+    """flax ``nn.Dropout``: keep each unit with probability 1 − rate and
+    scale the kept ones by 1 / (1 − rate). The mask is drawn from
+    ``generator`` (on ``x``'s device), so a caller that seeds it gets the
+    same masks every run."""
+    if deterministic or rate == 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) \
+        < keep_prob
+    return torch.where(keep, x / keep_prob,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
 def apply_selective_routing(x, threshold: float = 0.05,
                             importance_factor: float = 0.3):
     """Identity pass-through, as in the JAX package (the reference's

@@ -47,14 +47,10 @@ from atq_tpu_torch.nn.attention import (
     _proj,
 )
 from atq_tpu_torch.nn.hoist import effective_weights
-from atq_tpu_torch.nn.layers import _QuantizedLinear
+from atq_tpu_torch.nn.layers import _QuantizedLinear, dropout
 from atq_tpu_torch.utils.platform import resolve_device
 
 REMAT_POLICIES = ("save_quantized", "save_dots", "full")
-
-
-def _dropout(x, p: float, deterministic: bool):
-    return x if deterministic or p == 0.0 else F.dropout(x, p, training=True)
 
 
 class TernaryTransformerLayer(nn.Module):
@@ -91,18 +87,24 @@ class TernaryTransformerLayer(nn.Module):
         self.to(resolve_device(device))
 
     def forward(self, src, src_mask=None, src_key_padding_mask=None,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws the dropout masks when not
+        ``deterministic``."""
+        def drop(x):
+            return dropout(x, self.dropout, deterministic, generator)
+
         gate = torch.sigmoid(self.gate)
         src2 = self.norm1(src)
         src2 = self.self_attn(src2, src2, src2, attn_mask=src_mask,
                               key_padding_mask=src_key_padding_mask,
-                              deterministic=deterministic)
-        src = src + _dropout(src2, self.dropout, deterministic) * gate
+                              deterministic=deterministic,
+                              generator=generator)
+        src = src + drop(src2) * gate
         src2 = self.norm2(src)
-        h = F.gelu(self.linear1(src2))
-        h = _dropout(h, self.dropout, deterministic)
+        h = drop(F.gelu(self.linear1(src2)))
         src2 = self.linear2(h)
-        return src + _dropout(src2, self.dropout, deterministic) * gate
+        return src + drop(src2) * gate
 
 
 def _tensors(module: nn.Module) -> Dict[str, torch.Tensor]:
@@ -205,7 +207,8 @@ class ScannedTernaryStack(nn.Module):
         self.to(resolve_device(device))
 
     def forward(self, h, src_mask=None, src_key_padding_mask=None,
-                deterministic: bool = True):
+                deterministic: bool = True,
+                generator: Optional[torch.Generator] = None):
         tensors = _tensors(self.scan.layer)
         if self.hoist_quant:
             tensors = {**tensors, **effective_weights(
@@ -213,7 +216,7 @@ class ScannedTernaryStack(nn.Module):
         per_layer = {name: t.unbind(0) for name, t in tensors.items()}
         kwargs = {"src_mask": src_mask,
                   "src_key_padding_mask": src_key_padding_mask,
-                  "deterministic": deterministic}
+                  "deterministic": deterministic, "generator": generator}
         if self.dtype is not None:
             h = h.to(self.dtype)
         plain, preq = self._templates

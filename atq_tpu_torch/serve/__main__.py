@@ -181,7 +181,7 @@ def build_retrieval(args, ckpt, grad_mode, device, vocab_size: int):
         device=device)
     model.load_jax_variables(ckpt)
     if args.packed:
-        # The fusion subtree has no module in the port (slice E).
+        # Serving never runs the fusion, so its layers are not packed.
         params = {k: v for k, v in ckpt["params"].items() if k != "fusion"}
         attach_packed_collection(model, export_packed_collection(
             params, ckpt.get("quant"), device=device))

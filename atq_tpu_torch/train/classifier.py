@@ -11,7 +11,8 @@ One step trains both models, as the JAX step does:
 - progressive sparsity ``0.05 + (target − 0.05)·min(1, e / 0.7E)`` written
   into the RPB ``sparsity_target`` buffers each epoch, and L1 weight
   ``l1_factor·min(1, e / 0.5E)``;
-- the optimizers are optax's chains, rebuilt in :class:`AdamChain`: the
+- the optimizers are optax's chains, rebuilt in :class:`AdamChain` (and
+  :class:`SgdChain` for the retrieval trainer's ``sgd``): the
   student clip-by-global-norm 1.0 (with ``clip_grad``) → masked weight
   decay 1e-4 (not on frozen parity latents) → Adam; the teacher Adam alone.
 
@@ -151,31 +152,24 @@ def ternary_latent_decay_mask(model: torch.nn.Module, grad_mode: str):
     return mask
 
 
-class AdamChain:
-    """optax's ``chain(clip_by_global_norm(1.0)?, masked(
-    add_decayed_weights(wd))?, adam(schedule))``, step for step:
+class _OptaxChain:
+    """The gradient transforms in front of an optax update rule:
 
     - clip: ``g·max_norm/‖g‖`` when the global norm ``‖g‖ ≥ max_norm``
       (``clip_grad_norm_`` differs: it adds 1e-6 to the norm);
-    - decay: ``g + wd·p`` on the parameters the mask selects (the L2 term
-      of torch Adam's ``weight_decay``, before the moments);
-    - Adam with bias correction, ``p −= lr(i)·m̂/(√v̂ + eps)`` for update
-      ``i`` from 0;
-    - ``decoupled_weight_decay`` (``optax.adamw``'s order): the update
-      becomes ``m̂/(√v̂ + eps) + wd·p`` before the ``×(−lr)``, on every
-      parameter.
+    - decay: ``g + wd·p`` on the parameters the mask selects (optax's
+      ``add_decayed_weights``, the L2 term of torch Adam's
+      ``weight_decay``), before the update rule.
 
     A parameter without a gradient counts as a zero gradient, as in optax
     (so its decay and its moments still apply). Runs on the parameters'
     device with ``torch._foreach`` ops; the host never reads a value.
+    ``schedule(i)`` is the learning rate of update ``i`` (from 0).
     """
-
-    b1, b2, eps = 0.9, 0.999, 1e-8  # optax.adam's defaults
 
     def __init__(self, named_params, schedule: Callable[[int], float],
                  clip_norm: Optional[float] = None, weight_decay: float = 0.0,
-                 decay_mask: Optional[dict] = None,
-                 decoupled_weight_decay: float = 0.0):
+                 decay_mask: Optional[dict] = None):
         named = list(named_params)
         self.params = [p for _, p in named]
         self.schedule = schedule
@@ -184,9 +178,6 @@ class AdamChain:
         self.decay_idx = ([i for i, (n, _) in enumerate(named)
                            if decay_mask is None or decay_mask[n]]
                           if weight_decay else [])
-        self.decoupled_weight_decay = decoupled_weight_decay
-        self.mu = [torch.zeros_like(p) for p in self.params]
-        self.nu = [torch.zeros_like(p) for p in self.params]
         self._zeros = [None] * len(self.params)
         self.count = 0
 
@@ -201,8 +192,7 @@ class AdamChain:
                 out.append(p.grad)
         return out
 
-    @torch.no_grad()
-    def step(self) -> None:
+    def _transformed_grads(self):
         grads = self._grads()
         if self.clip_norm is not None:
             norm = torch.linalg.vector_norm(
@@ -220,6 +210,32 @@ class AdamChain:
                 alpha=self.weight_decay)
             for i, g in zip(self.decay_idx, decayed):
                 grads[i] = g
+        return grads
+
+
+class AdamChain(_OptaxChain):
+    """optax's ``chain(clip_by_global_norm(1.0)?, masked(
+    add_decayed_weights(wd))?, adam(schedule, b1, b2, eps))``, step for
+    step: Adam with bias correction, ``p −= lr(i)·m̂/(√v̂ + eps)``. With
+    ``decoupled_weight_decay`` (``optax.adamw``'s order) the update becomes
+    ``m̂/(√v̂ + eps) + wd·p`` before the ``×(−lr)``, on every parameter.
+    The betas and eps default to optax's."""
+
+    def __init__(self, named_params, schedule: Callable[[int], float],
+                 clip_norm: Optional[float] = None, weight_decay: float = 0.0,
+                 decay_mask: Optional[dict] = None,
+                 decoupled_weight_decay: float = 0.0, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
+        super().__init__(named_params, schedule, clip_norm, weight_decay,
+                         decay_mask)
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.decoupled_weight_decay = decoupled_weight_decay
+        self.mu = [torch.zeros_like(p) for p in self.params]
+        self.nu = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = self._transformed_grads()
         lr = self.schedule(self.count)
         self.count += 1
         b1, b2 = self.b1, self.b2
@@ -236,6 +252,28 @@ class AdamChain:
             torch._foreach_add_(updates, self.params,
                                 alpha=self.decoupled_weight_decay)
         torch._foreach_add_(self.params, updates, alpha=-lr)
+
+
+class SgdChain(_OptaxChain):
+    """optax's ``chain(clip_by_global_norm(1.0)?, add_decayed_weights(wd)?,
+    sgd(schedule, momentum))``: the trace ``t = g + momentum·t`` (not
+    Nesterov), then ``p −= lr(i)·t``."""
+
+    def __init__(self, named_params, schedule: Callable[[int], float],
+                 clip_norm: Optional[float] = None, weight_decay: float = 0.0,
+                 momentum: float = 0.9):
+        super().__init__(named_params, schedule, clip_norm, weight_decay)
+        self.momentum = momentum
+        self.trace = [torch.zeros_like(p) for p in self.params]
+
+    @torch.no_grad()
+    def step(self) -> None:
+        grads = self._transformed_grads()
+        lr = self.schedule(self.count)
+        self.count += 1
+        torch._foreach_mul_(self.trace, self.momentum)
+        torch._foreach_add_(self.trace, grads)
+        torch._foreach_add_(self.params, self.trace, alpha=-lr)
 
 
 def make_optimizer(cfg: ClassifierConfig, named_params, steps_per_epoch: int,

@@ -14,6 +14,11 @@
                                    # one tree's kernel times into OUT;
                                    # KIND (matmul, packed, fused,
                                    # attention) limits them
+    python3 chip_smoke.py --retrieval-step0 [OUT]
+                                   # the readings behind train_retrieval's
+                                   # step-0 limits (alpha 1 and optimal
+                                   # alphas; card, CPU at 8 and 1 threads,
+                                   # float64, planted faults), JSON in OUT
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -112,6 +117,33 @@ Phases, one JSON line each; any failure exits non-zero:
                 attention forward 24 with remat's recompute, backward 12),
                 then the device busy share and top kernels of two traced
                 steps.
+  train_retrieval
+                the retrieval slice (python -m atq_tpu_torch.train.retrieval)
+                at the README recipe's widths. First the fused kernels at
+                the step's shapes (RETRIEVAL_FUSED_SHAPES: the text tower's
+                800 = 16 x 50 rows, 192 -> 384, 384 -> 192, 192 -> 192,
+                192 -> 96, 96 -> 1, and the projectors' 16 rows), as in
+                phase kernels. Then step 0 (dropout 0, float images, after
+                --reinit_model and epoch 0's schedule, at optimal alphas;
+                no update) on the card against the CPU, and with
+                ATQ_FUSED=1 against dense on the card: loss within 1e-5
+                relative, embeddings within 1e-5, every gradient leaf
+                within RET_LEAF_TOL_CPU or RET_LEAF_TOL_FUSED of its own
+                largest |gradient| (elementwise) and its own L2 norm,
+                leaves zero to rounding aside (the comment above
+                RET_LOSS_RTOL says why; --retrieval-step0 takes the
+                readings behind the limits); launches a step:
+                order statistic 27 (the path's layers with 16,384+
+                weights), and fused
+                forward, dx and dW/dalpha 28 each with ATQ_FUSED=1. Then
+                the module's main() on the recipe (batch 16, 2 epochs of
+                100 steps on the synthetic corpus, epoch 2 traced):
+                pairs/s and step p50 per epoch, launches per step, host
+                and device ms a traced step and the busy share, mean
+                R@1/5/10 on validation and test (finite), the artifact
+                files; then best_model.npz loaded into a fresh model must
+                embed a validation batch within 1e-5 of the trainer's
+                embedding function.
 
 The batched order statistic is held bit-exact (sum within 1e-6 relative)
 against a per-row sort at (12, 589,824), (12, 2,359,296) and (3, 16,385)
@@ -149,7 +181,8 @@ the same operands must miss at the two head layers.
 
 Then one line {"kernels": [...]} (launch counts from the main-path phase
 that runs each kernel: serve_dense, serve_packed, serve_retrieval_pack32,
-serve_dense_correction, train_fused, train_encoder),
+serve_dense_correction, train_fused, train_encoder; train_retrieval prints
+its own on its line),
 the card's name and power limit as nvidia-smi prints them, and the result
 line {"ok": true, "device": {...}}. Without a GPU, or without the rest of
 the repo beside it, the script exits non-zero and prints no result.
@@ -694,10 +727,10 @@ def _f64_rel_err(name, got, a, b, control):
     return err, one
 
 
-def check_fused(gen):
-    """The three fused kernels against their plain versions at
-    FUSED_SHAPES and FUSED_EDGE_SHAPES; every variant (mask or not; parity
-    or STE for dW/dalpha). Each kernel is launched twice a case, and the
+def check_fused(gen, shapes=FUSED_SHAPES + FUSED_EDGE_SHAPES):
+    """The three fused kernels against their plain versions at ``shapes``
+    (FUSED_SHAPES and FUSED_EDGE_SHAPES unless given); every variant (mask
+    or not; parity or STE for dW/dalpha). Each kernel is launched twice a case, and the
     two must agree bit for bit. The forward, dx and dW/dalpha's G = gᵀx
     (STE with an all-ones mask makes dw = G) also against float64
     (_f64_rel_err), with one TF32 pass as the control at the recipe's two
@@ -709,7 +742,7 @@ def check_fused(gen):
     f64 = {name: {"kernel": 0.0, "one_tf32_pass": float("inf")}
            for name in errs}
     da_rel, cases = 0.0, 0
-    for m, n, k in FUSED_SHAPES + FUSED_EDGE_SHAPES:
+    for m, n, k in shapes:
         for with_mask in (True, False):
             x, w, g, mask, scal = _fused_inputs(gen, m, n, k, with_mask)
             tag = f"{m}x{n}x{k} mask={with_mask}"
@@ -1872,6 +1905,435 @@ def phase_train_encoder(tmp):
     return launches
 
 
+# The README's retrieval recipe (README.md: train_multimodal.py's flags)
+# for 2 epochs: 1,600 synthetic training pairs, 100 steps an epoch.
+RETRIEVAL_TRAIN_ARGV = ["--batch_size", "16", "--embed_dim", "192",
+                        "--hidden_dim", "384", "--learning_rate", "5e-5",
+                        "--image_size", "160", "--use_residual",
+                        "--reinit_model", "--gradual_quant",
+                        "--warmup_epochs", "2", "--contrastive_reg", "0.05",
+                        "--epochs", "2"]
+RETRIEVAL_BATCH = 16
+# The fused kernels at the retrieval step's shapes, (M, N, K): the text
+# tower's FFN (800 = 16 x 50 tokens; 192 -> 384, 384 -> 192), q/k/v/out,
+# attention_pool_0 and attention_pool_2 (N = 1), then the image and text
+# projectors (M = 16).
+RETRIEVAL_FUSED_SHAPES = ((800, 384, 192), (800, 192, 384), (800, 192, 192),
+                          (800, 96, 192), (800, 1, 96), (16, 192, 512),
+                          (16, 192, 192))
+# Retrieval step 0 runs at each ternary layer's optimal alpha, as
+# encoder_step0 does: after --reinit_model every alpha is 1, every ternary
+# weight is ±1 and the text tower's attention softmax is near an argmax;
+# there every float32 step (card dense, card fused, CPU) is 2.6e-3 to
+# 9.1e-3 of the largest gradient from float64 (`--retrieval-step0`).
+# Tolerances (readings at optimal alphas on one H100 80GB HBM3 at 700 W,
+# `--retrieval-step0`, in brackets): the loss within 1e-5 relative and the
+# embeddings within 1e-5. The gradients: every element within
+# RET_GRAD_TOL_* of the model's largest |gradient| and the whole within it
+# in L2 norm, 1e-2 for the card against the CPU (2.2e-3, 2.7e-3) and 1e-5
+# for ATQ_FUSED=1 against dense (2.2e-6, 2.7e-6); and each leaf within
+# RET_LEAF_TOL_* of its own L2 norm, by `_leaf_group`. The card against
+# the CPU: ResNet-18's leaves 2e-2 (4.5e-3; the CPU against itself at 1
+# and 8 threads 9.6e-3: train-mode BatchNorm over 16 images cancels most
+# of a convolution's gradient), one-element leaves 2e-2 (4.6e-3, an
+# alpha: a sum over a whole layer), other leaves 2e-3 (2.7e-4; a gradient
+# 1 % off in one leaf reads 1.0e-2). Fused against dense: 1e-4 for every
+# leaf (9.8e-6; the dense step against itself 5.7e-6). A leaf whose
+# reference gradient is at most RET_ROUNDING of the model's largest is
+# zero to rounding (a bias added to every key or every pooling score, a
+# scale that the L2 normalisation removes): not held, but it must stay
+# below RET_ROUNDING_GOT of the compared step's largest.
+RET_LOSS_RTOL, RET_EMBED_ATOL = 1e-5, 1e-5
+RET_GRAD_TOL_CPU, RET_GRAD_TOL_FUSED = 1e-2, 1e-5
+RET_LEAF_TOL_CPU = {"trunk": 2e-2, "scalar": 2e-2, "tensor": 2e-3}
+RET_LEAF_TOL_FUSED = {"trunk": 1e-4, "scalar": 1e-4, "tensor": 1e-4}
+RET_ROUNDING, RET_ROUNDING_GOT = 1e-6, 1e-5
+SERVE_EMBED_ATOL = 1e-5  # the served best_model.npz against the trainer
+RETRIEVAL_ARTIFACTS = ("best_model.npz", "checkpoint_epoch_2.npz",
+                       "final_model.npz", "final_report.json",
+                       "metrics.jsonl", "training_history.json",
+                       "vocab.json")
+
+
+def _retrieval_path_layers(model):
+    """``(quantized layers on the embedding path, those of them with
+    16,384+ weights)``: the image encoder's projector and the text tower
+    with its projector. The fused kernels run once per layer and
+    direction; the order statistic once per large layer."""
+    from atq_tpu_torch.nn.layers import _QuantizedLinear
+
+    layers = [m for name, m in model.named_modules()
+              if isinstance(m, _QuantizedLinear) and name.split(".")[0] in
+              ("image_encoder", "text_encoder", "text_projector")]
+    return len(layers), sum(m.weight.numel() >= 16384 for m in layers)
+
+
+def _retrieval_step0_setup(tmp, optimal_alphas=True):
+    """The README-width model on the CPU with dropout 0, after
+    --reinit_model and epoch 0 of the gradual schedule, at optimal alphas
+    (or at the recipe's alpha 1), and the first 16 synthetic training
+    pairs as float images (normalized, unflipped)."""
+    from atq_tpu_torch.core.quantize import adaptive_ternary_quantization
+    from atq_tpu_torch.core.schedules import GradualQuantizationScheduler
+    from atq_tpu_torch.data.flickr8k import Flickr8kDataset
+    from atq_tpu_torch.models.retrieval import ATQMultimodalRetrieval
+    from atq_tpu_torch.nn.layers import _QuantizedLinear
+    from atq_tpu_torch.train.retrieval import (
+        RetrievalConfig,
+        reinit_model_,
+        retrieval_sparsity_plan,
+    )
+
+    ds = Flickr8kDataset(os.path.join(tmp, "no_flickr8k"), "train",
+                         image_size=IMAGE_SIZE, max_length=SEQ_LEN)
+    images, ids, lengths = zip(*(ds[i] for i in range(RETRIEVAL_BATCH)))
+    batch = (np.stack(images).astype(np.float32), np.stack(ids),
+             np.asarray(lengths, np.int32))
+    cfg = RetrievalConfig(use_residual=True, reinit_model=True,
+                          gradual_quant=True, warmup_epochs=2,
+                          contrastive_reg=0.05, epochs=2)
+    model = ATQMultimodalRetrieval(
+        vocab_size=ds.vocab_size, embed_dim=192, hidden_dim=384,
+        use_residual=True, max_seq_length=SEQ_LEN, dropout=0.0,
+        device="cpu", generator=torch.Generator().manual_seed(0))
+    reinit_model_(model, torch.Generator().manual_seed(99))
+    GradualQuantizationScheduler(2, warmup_epochs=2).step(
+        model, 0, retrieval_sparsity_plan(cfg))
+    if not optimal_alphas:
+        return model, batch, cfg
+    with torch.no_grad():  # each ternary layer at its optimal alpha
+        for mod in model.modules():
+            if isinstance(mod, _QuantizedLinear):
+                _, alpha = adaptive_ternary_quantization(
+                    mod.weight, sparsity_target=mod.sparsity_target)
+                mod.alpha.fill_(float(alpha))
+    return model, batch, cfg
+
+
+@contextlib.contextmanager
+def _float64_forward():
+    """Tensor.float() keeps float64 tensors as they are, so a float64 copy
+    of the model runs in float64 throughout (the port computes its
+    LayerNorms and softmaxes in float32 whatever the input)."""
+    to_float = torch.Tensor.float
+    torch.Tensor.float = (lambda t, *a, **k: t if t.dtype == torch.float64
+                          else to_float(t, *a, **k))
+    try:
+        yield
+    finally:
+        torch.Tensor.float = to_float
+
+
+def _retrieval_step0(model, batch, cfg, device, fused, dtype=torch.float32):
+    """Loss, embeddings, every gradient and the kernel launches of one
+    retrieval train step (no update) of a copy of ``model`` on
+    ``device``; ``fused`` sets ATQ_FUSED=1; ``dtype`` float64 runs the
+    copy in float64 (on the CPU)."""
+    import copy
+
+    from atq_tpu_torch.losses.contrastive import HardNegativeMiningInfoNCE
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.train.retrieval import (
+        _batch_to,
+        build_retrieval_train_step,
+    )
+
+    dev = torch.device(device)
+    m = copy.deepcopy(model).to(dev, dtype)
+    criterion = HardNegativeMiningInfoNCE(lambda_reg=cfg.contrastive_reg)
+    criterion.set_epoch(0, cfg.epochs)
+    b = _batch_to(batch, dev)
+    b = (b[0].to(dtype),) + tuple(b[1:])
+    os.environ["ATQ_FUSED"] = "1" if fused else "0"
+    with (_float64_forward() if dtype == torch.float64
+          else contextlib.nullcontext()):
+        try:
+            _reset_launches()
+            loss = build_retrieval_train_step(m, _NoUpdate(), criterion,
+                                              cfg)(
+                b, torch.tensor(criterion.get_current_temperature(),
+                                device=dev, dtype=dtype),
+                torch.tensor(0, device=dev))
+            launches = kernel_launches()
+            with torch.no_grad():  # train mode again: the step's embeddings
+                img, txt = m(*b, return_embeddings=True, train=True)
+        finally:
+            os.environ["ATQ_FUSED"] = "0"
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             .detach().double().cpu() for n, p in m.named_parameters()}
+    return (float(loss), img.double().cpu(), txt.double().cpu(), grads,
+            launches)
+
+
+def _leaf_group(name, grad):
+    """``trunk`` (ResNet-18's float convolutions and BatchNorms),
+    ``scalar`` (one-element leaves: alphas, gates, the temperature) or
+    ``tensor`` (the projectors, the text tower and the rest)."""
+    if name.startswith("image_encoder.base_model."):
+        return "trunk"
+    return "scalar" if grad.numel() == 1 else "tensor"
+
+
+def _compare_retrieval_step0(what, got, want, grad_tol=None, leaf_tol=None,
+                             per_leaf=False):
+    """The loss's relative difference, the embeddings' largest difference,
+    the gradients against the model's largest |gradient| (elementwise) and
+    in L2 over the model, and leaf by leaf the L2 difference over the
+    leaf's L2 norm (the worst leaf of each ``_leaf_group``), leaving out
+    the leaves zero to rounding (RET_ROUNDING); ``per_leaf`` adds every
+    leaf's reading and its largest |difference| over its largest
+    |gradient|. With ``grad_tol`` and ``leaf_tol`` (a limit per group),
+    raises past them, past the loss and embedding tolerances, or when a
+    leaf zero to rounding in ``want`` is past RET_ROUNDING_GOT in
+    ``got``."""
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    emb = max((a - b).abs().max().item() for a, b in zip(got[1:3],
+                                                         want[1:3]))
+    gmax = {n: g.abs().max().item() for n, g in want[3].items()}
+    scale = max(gmax.values())
+    got_scale = max(g.abs().max().item() for g in got[3].values())
+    el = max((got[3][n] - g).abs().max().item()
+             for n, g in want[3].items()) / scale
+    l2 = (sum(((got[3][n] - g) ** 2).sum().item()
+              for n, g in want[3].items())
+          / sum((g ** 2).sum().item() for g in want[3].values())) ** 0.5
+    rounding = sorted(n for n, m in gmax.items()
+                      if m <= RET_ROUNDING * scale)
+    rounding_got = max((got[3][n].abs().max().item() / got_scale
+                        for n in rounding), default=0.0)
+    leaf_l2, worst = {}, {}
+    for n, g in want[3].items():
+        if n not in rounding:
+            leaf_l2[n] = ((got[3][n] - g).norm() / g.norm()).item()
+            group = _leaf_group(n, g)
+            if leaf_l2[n] >= worst.get(group, ("", -1.0))[1]:
+                worst[group] = (n, leaf_l2[n])
+    out = {"loss": got[0], "loss_rel_diff": rel,
+           "embedding_max_abs_diff": emb, "grad_max": scale,
+           "grad_max_abs_diff_over_max": el, "grad_l2_rel_diff": l2,
+           "leaf_l2_rel_diff": worst,
+           "rounding_leaves": [n for n in rounding if gmax[n] > 0],
+           "zero_leaves": sum(gmax[n] == 0 for n in rounding),
+           "rounding_leaves_got_over_max": rounding_got,
+           "grad_leaves": len(want[3])}
+    if per_leaf:
+        out["leaves"] = {n: [(got[3][n] - want[3][n]).abs().max().item()
+                             / gmax[n], v] for n, v in leaf_l2.items()}
+    if grad_tol is not None and (
+            rel > RET_LOSS_RTOL or emb > RET_EMBED_ATOL or el > grad_tol
+            or l2 > grad_tol or rounding_got > RET_ROUNDING_GOT
+            or any(v > leaf_tol[g] for g, (_, v) in worst.items())):
+        raise AssertionError(f"{what} step 0 past its tolerances (loss "
+                             f"{RET_LOSS_RTOL}, embeddings "
+                             f"{RET_EMBED_ATOL}, gradients {grad_tol}, "
+                             f"each leaf {leaf_tol}, rounding leaves "
+                             f"{RET_ROUNDING_GOT}): {json.dumps(out)}")
+    return out
+
+
+def _planted(result, fault):
+    """``result`` (a step-0 reading) with a fault planted in its
+    gradients: ``alpha`` drops every dα, ``text_projector`` scales the
+    text projector's weight gradient by 1.01, ``layer_norm`` scales one
+    text layer's norm2 scale gradient by 1.01."""
+    grads, hit = dict(result[3]), 0
+    for n in grads:
+        if ((fault == "alpha" and n.endswith(".alpha"))
+                or (fault == "text_projector"
+                    and n == "text_projector.weight")
+                or (fault == "layer_norm"
+                    and n == "text_encoder.layers_1.norm2.weight")):
+            grads[n] = torch.zeros_like(grads[n]) if fault == "alpha" \
+                else grads[n] * 1.01
+            hit += 1
+    if not hit:
+        raise AssertionError(f"planted fault {fault}: no such leaf")
+    return result[:3] + (grads,) + result[4:]
+
+
+def _check_launches(what, got, want):
+    for kernel, n in got.items():
+        if n != want.get(kernel, 0):
+            raise AssertionError(f"{what}: {kernel} {n} launches per step, "
+                                 f"expected {want.get(kernel, 0)}")
+
+
+def phase_train_retrieval(tmp):
+    """The retrieval slice on the card: the fused kernels at the step's
+    shapes; step 0 card against CPU and ATQ_FUSED=1 against dense; 2
+    epochs of ``python -m atq_tpu_torch.train.retrieval``'s main() on the
+    README recipe (counts reset before it and read after it, epoch 2
+    traced); then best_model.npz served by a fresh model."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from atq_tpu_torch.data.flickr8k import Flickr8kDataset, load_vocab_file
+    from atq_tpu_torch.models.retrieval import ATQMultimodalRetrieval
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.train.retrieval import (
+        _batch_to,
+        build_embed_fn,
+        main as retrieval_main,
+    )
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    t0 = time.perf_counter()
+    errs, f64, da_rel, cases = check_fused(
+        torch.Generator(device="cuda").manual_seed(12),
+        RETRIEVAL_FUSED_SHAPES)
+    fused_check = {"shapes": RETRIEVAL_FUSED_SHAPES, "max_abs_err": errs,
+                   "f64_rel_err": {k: v["kernel"] for k, v in f64.items()},
+                   "dalpha_max_rel_err": da_rel, "cases": cases}
+
+    model, batch, cfg = _retrieval_step0_setup(tmp)
+    n_layers, n_large = _retrieval_path_layers(model)
+    dense_launches = {"order_stat": n_large}
+    fused_launches = {"order_stat": n_large, "fused_forward": n_layers,
+                      "fused_dx": n_layers, "fused_dwda": n_layers}
+    cpu = _retrieval_step0(model, batch, cfg, "cpu", False)
+    dense = _retrieval_step0(model, batch, cfg, "cuda", False)
+    _check_launches("retrieval step 0 dense", dense[4], dense_launches)
+    fused = _retrieval_step0(model, batch, cfg, "cuda", True)
+    _check_launches("retrieval step 0 fused", fused[4], fused_launches)
+    step0 = {"vs_cpu": _compare_retrieval_step0(
+                 "dense", dense, cpu, RET_GRAD_TOL_CPU, RET_LEAF_TOL_CPU),
+             "fused_vs_dense": _compare_retrieval_step0(
+                 "fused", fused, dense, RET_GRAD_TOL_FUSED,
+                 RET_LEAF_TOL_FUSED),
+             "launches_dense": dense[4], "launches_fused": fused[4]}
+    del model, cpu, dense, fused
+    step0_s = time.perf_counter() - t0
+
+    out_dir = os.path.join(tmp, "retrieval_train")
+    argv = RETRIEVAL_TRAIN_ARGV + ["--output_dir", out_dir, "--data_dir",
+                                   os.path.join(tmp, "no_flickr8k")]
+    traced = {}
+
+    def epoch_context(epoch):
+        if epoch != 1:
+            return contextlib.nullcontext()
+        traced["prof"] = profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA])
+        return traced["prof"]
+
+    _reset_launches()
+    t1 = time.perf_counter()
+    state, history, report = retrieval_main(argv,
+                                            epoch_context=epoch_context)
+    wall = time.perf_counter() - t1
+    launches = kernel_launches()
+    stats = state["stats"]
+    losses = [x for epoch in stats["step_losses"] for x in epoch]
+    if len(losses) != 200 or not np.isfinite(losses).all():
+        raise AssertionError(f"train_retrieval: {len(losses)} step losses, "
+                             f"finite: {np.isfinite(losses).all()}")
+    for epoch, per_step in enumerate(stats["launches_per_step"]):
+        _check_launches(f"train_retrieval epoch {epoch}", per_step,
+                        dense_launches)
+    recalls = {"val": [{f"mean_R@{k}": m[f"mean_R@{k}"] for k in (1, 5, 10)}
+                       for m in history["val_metrics"]],
+               "test": {f"mean_R@{k}": report["test_metrics"][f"mean_R@{k}"]
+                        for k in (1, 5, 10)}}
+    if not np.isfinite([v for m in recalls["val"] + [recalls["test"]]
+                        for v in m.values()]).all():
+        raise AssertionError(f"train_retrieval: recalls {recalls}")
+    artifacts = sorted(os.listdir(out_dir))
+    missing = [f for f in RETRIEVAL_ARTIFACTS if f not in artifacts]
+    if missing:
+        raise AssertionError(f"train_retrieval: missing {missing}")
+    events = traced["prof"].key_averages()
+    steps = len(stats["step_losses"][1])
+    busy = {"share": _device_us(events) / 1e6 / stats["epoch_seconds"][1],
+            **_breakdown(events, steps)}
+
+    # best_model.npz served by a fresh model against the trainer's
+    # embedding function (whose model holds best_model.npz after the run).
+    vocab = load_vocab_file(os.path.join(out_dir, "vocab.json"))
+    served = ATQMultimodalRetrieval(vocab_size=len(vocab), embed_dim=192,
+                                    hidden_dim=384, use_residual=True,
+                                    max_seq_length=SEQ_LEN, device="cuda")
+    served.load_jax_variables(load_checkpoint(
+        os.path.join(out_dir, "best_model.npz")))
+    val = Flickr8kDataset(os.path.join(tmp, "no_flickr8k"), "val",
+                          image_size=IMAGE_SIZE, max_length=SEQ_LEN,
+                          vocab=vocab, raw_uint8=True)
+    images, ids, lengths = zip(*(val[i] for i in range(RETRIEVAL_BATCH)))
+    b = _batch_to((np.stack(images), np.stack(ids),
+                   np.asarray(lengths, np.int32)), torch.device("cuda"))
+    want = state["embed_fn"](b)
+    got = build_embed_fn(served)(b)
+    serve_err = max((g - w).abs().max().item() for g, w in zip(got, want))
+    if serve_err > SERVE_EMBED_ATOL:
+        raise AssertionError(f"served best_model.npz: {serve_err}")
+
+    emit({"phase": "train_retrieval", "argv": RETRIEVAL_TRAIN_ARGV,
+          "fused_kernels": fused_check, "step0": step0,
+          "step0_seconds": step0_s, "wall_s": wall,
+          "steps_per_epoch": len(stats["step_losses"][0]),
+          "pairs_per_s": stats["pairs_per_sec"],
+          "step_ms_p50": [float(np.percentile(t, 50))
+                          for t in stats["step_ms"]],
+          "epoch_seconds": stats["epoch_seconds"],
+          "launches_per_step": stats["launches_per_step"],
+          "launches": launches, "traced_epoch": busy,
+          "loss_first_step": losses[0], "loss_last_step": losses[-1],
+          "train_losses": history["train_losses"], "recalls": recalls,
+          "atq_inference_time_ms": report["atq_inference_time_ms"],
+          "artifacts": artifacts, "served_max_abs_diff": serve_err})
+    return launches
+
+
+def retrieval_step0_readings(tmp):
+    """``--retrieval-step0``: the readings behind the retrieval step-0
+    limits, at the recipe's alpha 1 and at optimal alphas. The dense step
+    on the card, again on the card, with ATQ_FUSED=1, on the CPU at 8 and
+    at 1 thread, and in float64 on the CPU; each held against the others
+    as the phase holds them, with the phase's verdict at its limits (the
+    fused runs at the fused limits, the rest at the CPU's), and the
+    planted faults of ``_planted`` in the card's gradients against the
+    CPU's."""
+    out = {}
+    for optimal in (False, True):
+        model, batch, cfg = _retrieval_step0_setup(tmp, optimal)
+        runs = {"cpu": _retrieval_step0(model, batch, cfg, "cpu", False),
+                "f64": _retrieval_step0(model, batch, cfg, "cpu", False,
+                                        torch.float64)}
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)
+        try:
+            runs["cpu1"] = _retrieval_step0(model, batch, cfg, "cpu", False)
+        finally:
+            torch.set_num_threads(threads)
+        for name, fused in (("dense", False), ("again", False),
+                            ("fused", True)):
+            runs[name] = _retrieval_step0(model, batch, cfg, "cuda", fused)
+        pairs = (("dense", "cpu"), ("fused", "dense"), ("again", "dense"),
+                 ("cpu1", "cpu"), ("dense", "f64"), ("fused", "f64"),
+                 ("cpu", "f64"))
+        cases = {f"{a}_vs_{b}": (runs[a], runs[b]) for a, b in pairs}
+        for fault in ("alpha", "text_projector", "layer_norm"):
+            cases[f"planted_{fault}_vs_cpu"] = (
+                _planted(runs["dense"], fault), runs["cpu"])
+        readings = {}
+        for name, (got, want) in cases.items():
+            readings[name] = _compare_retrieval_step0(name, got, want,
+                                                      per_leaf=True)
+            limits = ((RET_GRAD_TOL_FUSED, RET_LEAF_TOL_FUSED)
+                      if name.startswith("fused") else
+                      (RET_GRAD_TOL_CPU, RET_LEAF_TOL_CPU))
+            try:  # the phase's verdict on this pair
+                _compare_retrieval_step0(name, got, want, *limits)
+                readings[name]["within_phase_limits"] = True
+            except AssertionError:
+                readings[name]["within_phase_limits"] = False
+        out["optimal_alphas" if optimal else "alpha_1"] = readings
+        emit({"phase": "retrieval_step0_readings",
+              "alphas": "optimal" if optimal else "1",
+              "cpu_threads": threads,
+              **{k: {kk: vv for kk, vv in v.items() if kk != "leaves"}
+                 for k, v in readings.items()}})
+    return out
+
+
 # --compare: the packed kernels at serving's head shapes (M = 32 and 1),
 # the K-blocked shape and PACKED_SHAPES, and the fused kernels at the
 # recipe's two head layers, old against new.
@@ -2044,26 +2506,40 @@ def compare(parent, out_dir="outputs/compare"):
     emit({"per_batch_device_ms_old_new": per_batch})
 
 
+def _smi():
+    return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, timeout=60, check=True).stdout.strip()
+
+
 def main(argv=None):
     argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
+    from atq_tpu_torch.utils.platform import resolve_device
+
     if argv[:1] == ["--time-tree"]:
         time_tree(*argv[1:])
         return 0
     if argv[:1] == ["--compare"]:
         compare(*argv[1:3])
         return 0
+    if argv[:1] == ["--retrieval-step0"]:
+        resolve_device("cuda")
+        phase_build(_smi())
+        with tempfile.TemporaryDirectory() as tmp:
+            readings = retrieval_step0_readings(tmp)
+        if len(argv) > 1:
+            with open(argv[1], "w") as f:
+                json.dump(readings, f, indent=1)
+        return 0
     from atq_tpu_torch.data.mnist import synthetic_test_set
-    from atq_tpu_torch.utils.platform import resolve_device
 
     resolve_device("cuda")  # TF32 off for the cuDNN convs and matmuls
     os.environ["ATQ_NO_DOWNLOAD"] = "1"  # the synthetic data; no network
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    smi = _smi()
     phase_build(smi)
     errs, timings = phase_kernels()
 
@@ -2100,6 +2576,7 @@ def main(argv=None):
                                         dense_step0)
         phase_encoder_step0()
         encoder_launches = phase_train_encoder(tmp)
+        phase_train_retrieval(tmp)
 
     sources = {
         "order_stat": ("atq_tpu_torch/csrc/order_stat.cu",

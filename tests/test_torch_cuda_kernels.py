@@ -125,7 +125,10 @@ def test_matmul_counts_launches_and_rejects_bad_cuda_input(cuda):
 # cuBLAS over K = 3136), dalpha within 1e-4 relative (summed over N·K in
 # another order); the pattern itself is bit-exact by construction.
 FUSED_SHAPES = [(256, 128, 3136), (256, 10, 128), (7, 24, 100),
-                (2304, 128, 3136)]
+                (2304, 128, 3136),
+                # The retrieval text tower at batch 16 x sequence 50: the
+                # FFN's 800 x 192 -> 384 and 800 x 384 -> 192.
+                (800, 384, 192), (800, 192, 384)]
 
 
 def _fused_inputs(cuda, m, n, k, with_mask, seed=0):
@@ -288,6 +291,31 @@ def test_fused_autograd_op_on_cuda_equals_cpu(cuda):
                                                     a.grad)]
     for got, want in zip(out[str(cuda)], out["cpu"]):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("grad_mode", ["parity", "ste"])
+def test_fused_autograd_op_takes_text_tower_activations(cuda, grad_mode):
+    """The retrieval text tower's FFN on (batch 16, sequence 50, 192)
+    activations with an RPB mask: the op flattens them to 800 rows. Output
+    and gradients on the card against the CPU's plain versions."""
+    from atq_tpu_torch.ops.fused_linear import fused_quantized_linear
+
+    x, w, _, mask, scal = _fused_inputs(cuda, 800, 384, 192, True, seed=7)
+    g = torch.randn(16, 50, 384, generator=torch.Generator().manual_seed(8))
+    thr, alpha = scal[1].cpu(), torch.tensor([0.017])
+    out = {}
+    for dev in ("cpu", cuda):
+        xs = x.detach().to(dev).reshape(16, 50, 192).clone().requires_grad_()
+        ws, a = (t.detach().to(dev).clone().requires_grad_()
+                 for t in (w, alpha))
+        y = fused_quantized_linear(xs, ws, a, thr.to(dev), mask.to(dev),
+                                   grad_mode=grad_mode)
+        assert y.shape == (16, 50, 384)
+        (y * g.to(dev)).sum().backward()
+        out[str(dev)] = [t.detach().cpu() for t in (y, xs.grad, ws.grad,
+                                                    a.grad)]
+    for got, want in zip(out[str(cuda)], out["cpu"]):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 # Batched order statistic (csrc/order_stat.cu with a row index): every row's

@@ -1,6 +1,7 @@
 """The port stands alone: importing every ``atq_tpu_torch`` module (the
-training slices' ``train``, ``data`` and fused-op modules and the retrieval
-serving slice's models, int8 trunk, index and tokenizer included) pulls in
+training slices' ``train``, ``data`` and fused-op modules, the retrieval
+serving slice's models, int8 trunk, index and tokenizer, and the retrieval
+training slice's schedules, losses, fusion and trainer included) pulls in
 neither JAX nor the JAX package, and its entry points refuse to fall back
 to the CPU when no device is requested and no GPU is present."""
 
@@ -59,9 +60,14 @@ def _entry_points():
     )
     from atq_tpu_torch.utils.platform import resolve_device
 
+    from atq_tpu_torch.models.baseline_retrieval import (
+        BaselineRetrievalModel,
+    )
+    from atq_tpu_torch.models.fusion import MultimodalFusion
     from atq_tpu_torch.models.resnet import ResNetFeatures
     from atq_tpu_torch.models.retrieval import ATQMultimodalRetrieval
     from atq_tpu_torch.models.text_encoder import ATQTextEncoder
+    from atq_tpu_torch.nn.attention import TernaryCrossAttention
     from atq_tpu_torch.serve.index import EmbeddingIndex
     from atq_tpu_torch.serve.int8_trunk import export_int8_collection
 
@@ -79,6 +85,9 @@ def _entry_points():
         lambda: ResNetFeatures(),
         lambda: EmbeddingIndex(4),
         lambda: export_int8_collection({}, {}),
+        lambda: BaselineRetrievalModel(8, embed_dim=16, hidden_dim=16),
+        lambda: MultimodalFusion({"image": 8, "text": 8}, 16),
+        lambda: TernaryCrossAttention(16),
     ]
 
 
@@ -92,13 +101,16 @@ def test_expected_modules_exist():
                  "utils/timing.py", "train/scale.py", "core/packing.py",
                  "models/resnet.py", "models/text_encoder.py",
                  "models/retrieval.py", "serve/int8_trunk.py",
-                 "serve/index.py", "data/flickr8k.py", "data/treebank.py"):
+                 "serve/index.py", "data/flickr8k.py", "data/treebank.py",
+                 "core/schedules.py", "losses/contrastive.py",
+                 "train/retrieval.py", "train/retrieval_metrics.py",
+                 "models/fusion.py", "models/baseline_retrieval.py"):
         assert name in names, name
     for name in ("fused_linear.cu", "fused_attention.cu", "order_stat.cu"):
         assert (PKG / "csrc" / name).exists(), name
 
 
-@pytest.mark.parametrize("which", range(10))
+@pytest.mark.parametrize("which", range(13))
 def test_entry_points_without_device_raise_on_a_cpu_only_host(which):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present: the default device is valid here")
@@ -138,6 +150,24 @@ def test_training_cli_defaults_to_cuda(tmp_path):
         main(["--checkpoint-dir", str(tmp_path), "--subset-fraction",
               "0.01", "--data-dir", str(tmp_path / "data")])
     assert not (tmp_path / "data").exists()  # raised before any data
+
+
+def test_retrieval_training_cli_defaults_to_cuda(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid here")
+    from atq_tpu_torch.train.retrieval import (
+        RetrievalConfig,
+        build_parser,
+        main,
+    )
+
+    assert build_parser().parse_args([]).device == "cuda"
+    assert RetrievalConfig().device == "cuda"
+    out, data = tmp_path / "out", tmp_path / "data"
+    with pytest.raises(RuntimeError, match="no GPU"):
+        main(["--output_dir", str(out), "--data_dir", str(data),
+              "--epochs", "1"])
+    assert not out.exists() and not data.exists()  # raised before any file
 
 
 def test_scale_cli_defaults_to_cuda(tmp_path):

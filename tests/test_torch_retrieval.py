@@ -164,8 +164,12 @@ def test_similarity_and_embeddings_modes_match_jax(setup):
                                rtol=TOL, atol=TOL)
     np.testing.assert_allclose(got_txt.numpy(), np.asarray(want_txt),
                                rtol=TOL, atol=TOL)
-    with pytest.raises(NotImplementedError, match="slice E"):
-        port(*targs, return_fused=True)
+    # return_fused runs the ported fusion (tests/test_torch_fusion.py).
+    want_fused = np.asarray(jax.jit(lambda var, *a: s["model"].apply(
+        var, *a, return_fused=True))(v, *args))
+    with torch.no_grad():
+        got_fused = port(*targs, return_fused=True).numpy()
+    np.testing.assert_allclose(got_fused, want_fused, rtol=TOL, atol=TOL)
     with pytest.raises(NotImplementedError):
         ATQMultimodalRetrieval(vocab_size=10, embed_dim=EMBED,
                                hidden_dim=HIDDEN, text_moe_experts=2,
