@@ -58,9 +58,10 @@ def _digest(sources) -> str:
 
 def _declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.atq_order_stat_scratch_words.argtypes = [i32, i32]
-    lib.atq_order_stat_scratch_words.restype = i64
-    lib.atq_order_stat.argtypes = [i32, vp, i64, i32, vp, vp, vp, i32, vp]
+    ip = ctypes.POINTER(ctypes.c_int)
+    lib.atq_order_stat_plan.argtypes = [i32, i64, i32, ip, ip]
+    lib.atq_order_stat_plan.restype = i32
+    lib.atq_order_stat.argtypes = [i32, vp, i64, i32, vp, vp, vp]
     lib.atq_order_stat.restype = i32
     lib.atq_ternary_matmul.argtypes = [i32, vp, vp, vp, vp, vp, i32, i32,
                                        i32, i32, i32, vp]

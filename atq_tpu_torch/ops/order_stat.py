@@ -4,23 +4,26 @@ PyTorch counterpart of atq_tpu/ops/order_stat.py: the Pallas kernels
 ``_kernel`` behind ``order_statistic_reductions`` and ``_batched_kernel``
 behind ``order_statistic_reductions_batched`` (one statistic per row of a
 stacked (L, n) tensor). On a CUDA tensor each wrapper launches the
-radix-select kernel in ``csrc/order_stat.cu`` (the batched one with a row
-index); on a CPU tensor it takes the plain PyTorch version (sort, max,
-sum). There is no other route: a CUDA tensor the kernel cannot take raises.
-Each wrapper counts its own launches.
+radix-select kernel in ``csrc/order_stat.cu``: one thread block cluster a
+row, the row read from device memory once (held in the cluster's shared
+memory; a row longer than that holds a sample and keeps only the elements
+near the rank's bin), one launch a call and no scratch (the only
+allocation is the (L, 3) output). On a CPU tensor it takes the plain PyTorch version (sort,
+max, sum). There is no other route: a CUDA tensor the kernel cannot take,
+or a cluster launch the card refuses, raises. Each wrapper counts its own
+launches.
 
 The JAX side's 12 MiB VMEM budget gate does not apply here: the CUDA
-kernel takes any n below 2^31.
+kernel takes any n below 2^31 and any L below 2^16.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from atq_tpu_torch.ops._build import check, load_library
-
-_THREADS = 256
-_MAX_GRID = 132 * 4  # four blocks on each of the H100's 132 SMs
 
 
 def order_statistic_plain(abs_flat: torch.Tensor, rank: torch.Tensor):
@@ -64,24 +67,35 @@ def order_statistic_reductions(abs_flat: torch.Tensor, rank: torch.Tensor):
     return out[0, 0], out[0, 1], out[0, 2]
 
 
+def _device_index(device: torch.device) -> int:
+    return device.index if device.index is not None else 0
+
+
 def _launch(rows: torch.Tensor, ranks: torch.Tensor) -> torch.Tensor:
-    """The radix-select kernel over each row of ``rows`` (L, n); returns
-    (L, 3) float32 ``[stat, max, sum]``."""
+    """The radix-select kernel over each row of ``rows`` (L, n), one
+    cluster launch; returns (L, 3) float32 ``[stat, max, sum]``."""
     lib = load_library()
     lead, n = rows.shape
-    blocks = -(-n // (_THREADS * 8))
-    grid = max(1, min(-(-_MAX_GRID // lead), blocks))
     device = rows.device
     out = torch.empty((lead, 3), dtype=torch.float32, device=device)
-    scratch = torch.empty(lib.atq_order_stat_scratch_words(grid, lead),
-                          dtype=torch.int32, device=device)
     check(lib.atq_order_stat(
-        device.index if device.index is not None else 0,
-        rows.data_ptr(), n, lead, ranks.data_ptr(), out.data_ptr(),
-        scratch.data_ptr(), grid,
-        torch.cuda.current_stream(device).cuda_stream),
+        _device_index(device), rows.data_ptr(), n, lead, ranks.data_ptr(),
+        out.data_ptr(), torch.cuda.current_stream(device).cuda_stream),
         "order_stat kernel")
     return out
+
+
+def kernel_plan(n: int, rows: int, device) -> dict:
+    """The cluster size (CTAs a row) the kernel takes for ``rows`` rows of
+    ``n`` elements on ``device``, and whether a row is held whole in the
+    cluster's shared memory, as the launch picks them."""
+    lib = load_library()
+    cluster, resident = ctypes.c_int(), ctypes.c_int()
+    check(lib.atq_order_stat_plan(_device_index(torch.device(device)), n,
+                                  rows, ctypes.byref(cluster),
+                                  ctypes.byref(resident)),
+          "order_stat plan")
+    return {"cluster": cluster.value, "resident": bool(resident.value)}
 
 
 def order_statistic_batched_plain(abs2d: torch.Tensor, ranks: torch.Tensor):
@@ -96,7 +110,7 @@ def order_statistic_reductions_batched(abs2d: torch.Tensor,
                                        ranks: torch.Tensor):
     """Per row ``l`` of a stacked (L, n) non-negative float32 tensor,
     ``(sorted(abs2d[l])[ranks[l]], max, sum)`` as three (L,) float32
-    tensors, in one fixed sequence of launches whatever L is. ``ranks`` is
+    tensors, in one launch whatever L is. ``ranks`` is
     an (L,) int32 tensor on the same device (each clamped to [0, n-1]).
     Each statistic is bit-identical to the sort; on CUDA each row's sum is
     reduced in a fixed order."""

@@ -3,17 +3,17 @@
 
     python3 chip_smoke.py          # from the repo root, on a machine with
                                    # one NVIDIA H100 (sm_90a) and nvcc
-    python3 chip_smoke.py --compare DIR [OUT]
+    python3 chip_smoke.py --compare DIR [OUT [KIND ...]]
                                    # the packed, fused and attention kernels
-                                   # of another checkout (DIR) against this
-                                   # tree's, in
+                                   # and both order statistics of another
+                                   # checkout (DIR) against this tree's, in
                                    # turns DIR, this, this, DIR (device ms;
                                    # raw rows in OUT, default
-                                   # outputs/compare)
+                                   # outputs/compare; KIND as below)
     python3 chip_smoke.py --time-tree DIR OUT [KIND ...]
                                    # one tree's kernel times into OUT;
                                    # KIND (matmul, packed, fused,
-                                   # attention) limits them
+                                   # attention, order_stat) limits them
     python3 chip_smoke.py --retrieval-step0 [OUT]
                                    # the readings behind train_retrieval's
                                    # step-0 limits (alpha 1 and optimal
@@ -30,8 +30,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 instantiation (cuobjdump -sass).
   kernels       holds each kernel against its plain PyTorch version on the
                 card (order statistic bit-exact at every listed size and
-                rank; packed matmul within rtol 1e-5 / atol 5e-3, the JAX
-                package's own kernel tolerance) and times kernel, plain
+                rank, repeated bit for bit, one stream operation a call at
+                every main-path shape; packed matmul within rtol 1e-5 /
+                atol 5e-3, the JAX package's own kernel tolerance) and
+                times kernel, plain
                 version and a one-call PyTorch yardstick at the serving
                 shapes, beside the card's bound for the same work (the
                 packed kernels: bytes, or three bf16 passes a product at
@@ -145,9 +147,17 @@ Phases, one JSON line each; any failure exits non-zero:
                 embed a validation batch within 1e-5 of the trainer's
                 embedding function.
 
-The batched order statistic is held bit-exact (sum within 1e-6 relative)
-against a per-row sort at (12, 589,824), (12, 2,359,296) and (3, 16,385)
-with per-row ranks 0, n-1, 0.3n and 1; the attention kernels against their
+The order statistic is held bit-exact (max equal, sum within 1e-6
+relative) against the sort at OS_SIZES and RETRIEVAL_OS_SIZES (randn), at
+401,408, 18,432 and 2,359,296 with duplicates, zeros, an all-equal row, a
+row with over 90 % in one digit-0 bin and zeros and subnormals among
+normals, and a sorted 2,359,296 (its held sample is not the row), at ranks
+0, 1, 0.3n and n-1, each launched twice and repeated bit for bit. The
+batched one likewise per row at (12, 589,824), (12, 2,359,296),
+(3, 16,385), (1, 98,304) and (13, 20,000), its first rows of those kinds,
+with per-row ranks 0, n-1, 0.3n and 1. Both count the operations they put
+on the stream a call (profiler: kernels and memsets) at every main-path
+shape and fail unless it is 1. The attention kernels against their
 plain versions at (64, 12, 256, 64) f32, (4, 4, 512, 64) f32,
 (4, 4, 256, 64) bf16 and ATTN_CASES' edge cases (S = 1, 50, 64, 257, 512;
 D = 16, 20, 64, 128; both dtypes; padding biases with a fully padded row):
@@ -177,7 +187,10 @@ the element's Σ|a|·|b| within F64_REL_TOL (1e-5), which one TF32 pass on
 the same operands must miss at the two head layers.
 
 --compare also holds the attention backward's bits equal in all four runs
-(a digest of dq, dk, dv over ATTN_CASES) and fails if they differ.
+(a digest of dq, dk, dv over ATTN_CASES; when attention is among its
+kinds) and fails if they differ. Its order_stat rows give both wrappers'
+device ms, event ms and stream operations a call at the main paths'
+shapes.
 
 Then one line {"kernels": [...]} (launch counts from the main-path phase
 that runs each kernel: serve_dense, serve_packed, serve_retrieval_pack32,
@@ -214,6 +227,10 @@ PEAK_TF32_FLOP_PER_S = 495e12
 N_REQUESTS = 64
 MAX_BATCH = 32
 OS_SIZES = (401408, 802816, 16384, 16385, 2359296)
+# The order statistic's main-path sizes past serve_dense's n = 401,408: the
+# retrieval text tower's and projectors' layers of 16,384+ weights
+# (train_retrieval: 192x96, 192x192, 192x384, 512x192).
+RETRIEVAL_OS_SIZES = (18432, 36864, 73728, 98304)
 MM_SHAPES = ((128, 3136), (10, 128), (256, 3136), (10, 256))
 MM_RTOL, MM_ATOL = 1e-5, 5e-3
 # Edge shapes of the packed kernels, (M, K, N): the eligibility minima
@@ -241,7 +258,8 @@ FUSED_EDGE_SHAPES = DWDA_EDGE_SHAPES + ((17, 24, 99), (5, 10, 37))
 STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
 # Batched order statistic: bert-base's two stacked weight shapes (q/k/v/out,
 # linear1/linear2) and a ragged one.
-BATCHED_OS_SHAPES = ((12, 589824), (12, 2359296), (3, 16385))
+BATCHED_OS_SHAPES = ((12, 589824), (12, 2359296), (3, 16385), (1, 98304),
+                     (13, 20000))
 BERT_SPARSITY = 0.1  # the layers' initial sparsity, min(0.1, 0.3)
 # Attention: bert-base's shape first (the main path's, f32 under AMP).
 # Then the edge cases: S = 1, 50, 64, 257 and 512; D = 16, 20, 64 and 128;
@@ -465,13 +483,34 @@ def _sass_hmma(library, kind):
     return counts
 
 
+def _os_row(kind, n, gen):
+    """One non-negative float32 row of the order statistic's checks."""
+    x = torch.randn(n, device="cuda", generator=gen).abs()
+    u = torch.rand(n, device="cuda", generator=gen)
+    if kind == "duplicates":
+        return torch.randint(0, 8, (n,), device="cuda",
+                             generator=gen).float() / 4
+    if kind == "zeros":
+        return torch.zeros(n, device="cuda")
+    if kind == "equal":
+        return torch.full((n,), 0.37, device="cuda")
+    if kind == "bin90":  # > 90 % of the row in one digit-0 bin
+        return torch.where(u < 0.05, x * 40, torch.full_like(x, 1.5))
+    if kind == "subnormal":  # exact zeros and subnormals among normals
+        return torch.where(u < 0.3, torch.zeros_like(x),
+                           torch.where(u < 0.6, x * 1e-40, x))
+    if kind == "sorted":  # a longer row's held sample is not the row
+        return torch.sort(x).values
+    return x
+
+
 def _os_inputs(gen):
-    for n in OS_SIZES:
-        yield "randn", n, torch.randn(n, device="cuda", generator=gen).abs()
-    n = OS_SIZES[0]
-    dups = torch.randint(0, 8, (n,), device="cuda", generator=gen)
-    yield "duplicates", n, dups.float() / 4
-    yield "zeros", n, torch.zeros(n, device="cuda")
+    for n in OS_SIZES + RETRIEVAL_OS_SIZES:
+        yield "randn", n, _os_row("randn", n, gen)
+    for n in (OS_SIZES[0], 18432, 2359296):
+        for kind in ("duplicates", "zeros", "equal", "bin90", "subnormal"):
+            yield kind, n, _os_row(kind, n, gen)
+    yield "sorted", 2359296, _os_row("sorted", 2359296, gen)
 
 
 def check_order_stat(gen):
@@ -487,6 +526,9 @@ def check_order_stat(gen):
         for r in ranks:
             rank = torch.tensor([r], dtype=torch.int32, device="cuda")
             got = torch.stack(order_statistic_reductions(x, rank))
+            _same_bits(f"order_stat {kind} n={n} rank={r}",
+                       lambda: torch.stack(
+                           order_statistic_reductions(x, rank)), got)
             want = torch.stack(order_statistic_plain(x, rank))
             torch.cuda.synchronize()
             g, w = got.cpu(), want.cpu()
@@ -836,16 +878,23 @@ def check_batched_order_stat(gen):
         order_statistic_reductions_batched,
     )
 
+    kinds = ("duplicates", "equal", "bin90", "sorted", "subnormal")
     max_err, sum_rel_err, cases = 0.0, 0.0, 0
     for lead, n in BATCHED_OS_SHAPES:
-        x = torch.randn(lead, n, device="cuda", generator=gen).abs()
-        x[0] = torch.randint(0, 8, (n,), device="cuda",
-                             generator=gen).float() / 4  # duplicates
+        # Row i < 5 of kind kinds[i] (where the stack has it), the rest randn.
+        x = torch.stack([_os_row(kinds[i] if i < len(kinds) else "randn", n,
+                                 gen) for i in range(lead)])
         picks = [0, n - 1, int(np.floor(np.float32(0.3) * np.float32(n))),
                  1]
         ranks = torch.tensor([picks[i % 4] for i in range(lead)],
                              dtype=torch.int32, device="cuda")
-        got = torch.stack(order_statistic_reductions_batched(x, ranks)).cpu()
+
+        def launch():
+            return torch.stack(order_statistic_reductions_batched(x, ranks))
+
+        first = launch()
+        _same_bits(f"batched order stat ({lead}, {n})", launch, first)
+        got = first.cpu()
         want = torch.stack(order_statistic_batched_plain(x, ranks)).cpu()
         if not torch.equal(got[0].view(torch.int32),
                            want[0].view(torch.int32)):
@@ -853,13 +902,30 @@ def check_batched_order_stat(gen):
                                  f"{got[0]} != {want[0]}")
         if not torch.equal(got[1], want[1]):
             raise AssertionError(f"batched max ({lead}, {n})")
-        rel = ((got[2] - want[2]).abs() / want[2].abs()).max().item()
+        rel = ((got[2] - want[2]).abs()
+               / want[2].abs().clamp_min(1e-30)).max().item()
         if rel > 1e-6:
             raise AssertionError(f"batched sum ({lead}, {n}): rel {rel}")
         max_err = max(max_err, (got[:2] - want[:2]).abs().max().item())
         sum_rel_err = max(sum_rel_err, rel)
         cases += lead
     return max_err, sum_rel_err, cases
+
+
+def stream_ops_per_call(fn, iters=20):
+    """Operations ``fn`` puts on the stream a call, by the profiler: its
+    kernels and memsets (every device-side event)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters
 
 
 def _attn_inputs(gen, shape, dtype, with_bias):
@@ -1002,8 +1068,21 @@ def phase_kernels():
     bos_err, bos_sum_rel, bos_rows = check_batched_order_stat(gen)
     attn_errs, attn_cases = check_attention(gen)
     packed_errs, packed_cases = check_packed_kernels(gen)
+    # Both order statistics at the main paths' shapes, with their stream
+    # operations a call (each must be 1: one launch, no memset) and the
+    # launch's plan (CTAs a row, whether the row stays in shared memory).
+    from atq_tpu_torch.ops.order_stat import kernel_plan
+
+    os_rows = order_stat_rows(sys.modules[__name__], gen)
+    for row in os_rows:
+        row.update(kernel_plan(row["n"], row.get("lead", 1), "cuda"))
+    bad = [r for r in os_rows if r["stream_ops"] != 1]
+    if bad:
+        raise AssertionError(f"order statistic: not one stream operation "
+                             f"a call: {bad}")
     timings = {
-        "order_stat": [time_order_stat(gen, n) for n in OS_SIZES[:2]],
+        "order_stat": [r for r in os_rows if "lead" not in r],
+        "batched_order_stat": [r for r in os_rows if "lead" in r],
         "ternary_matmul": [time_matmul(gen, MAX_BATCH, n, k)
                            for n, k in MM_SHAPES[:2]]
         + [time_matmul(gen, 1, n, k) for n, k in MM_SHAPES[:2]]
@@ -1013,8 +1092,6 @@ def phase_kernels():
     for shape in FUSED_SHAPES[:2]:  # the recipe's two head layers
         for name, t in time_fused(gen, *shape).items():
             timings.setdefault(name, []).append(t)
-    timings["batched_order_stat"] = [time_batched_order_stat(gen, *shape)
-                                     for shape in BATCHED_OS_SHAPES[:2]]
     for name, t in time_attention(gen).items():
         timings[name] = [t]
     for shape in PACKED_SHAPES:
@@ -2362,22 +2439,61 @@ def attention_bwd_digest():
     return digest.hexdigest()
 
 
+def order_stat_rows(mod, gen):
+    """Both order-statistic wrappers of the tree whose chip_smoke is
+    ``mod`` at the main paths' shapes: its time_order_stat and
+    time_batched_order_stat rows, each with its stream operations a call
+    (this file's count, on the tree's wrappers)."""
+    from atq_tpu_torch.ops.order_stat import (
+        order_statistic_reductions,
+        order_statistic_reductions_batched,
+    )
+
+    rows = []
+    for n in (OS_SIZES[0],) + RETRIEVAL_OS_SIZES:
+        row = mod.time_order_stat(gen, n)
+        x = torch.randn(n, device="cuda", generator=gen).abs()
+        rank = torch.tensor([row["rank"]], dtype=torch.int32, device="cuda")
+        row["stream_ops"] = stream_ops_per_call(
+            lambda: order_statistic_reductions(x, rank))
+        rows.append(row)
+    for lead, n in BATCHED_OS_SHAPES[:2]:
+        row = mod.time_batched_order_stat(gen, lead, n)
+        x = torch.randn(lead, n, device="cuda", generator=gen).abs()
+        ranks = torch.full((lead,), row["rank"], dtype=torch.int32,
+                           device="cuda")
+        row["stream_ops"] = stream_ops_per_call(
+            lambda: order_statistic_reductions_batched(x, ranks))
+        rows.append(row)
+    return rows
+
+
+TIME_KINDS = ("matmul", "packed", "fused", "attention", "order_stat")
+
+
 def time_tree(tree, out, *kinds):
     """Times the kernels with ``tree``'s own chip_smoke.py and
     atq_tpu_torch (which build that tree's kernels) at COMPARE_MM
     (time_matmul), PACKED_SHAPES (time_packed), where the tree has
-    time_fused, the first two FUSED_SHAPES, and, where it has
-    time_attention, bert-base's attention call; writes them to ``out``.
-    ``kinds`` (matmul, packed, fused, attention) limits it to those;
-    ``attention`` also takes the attention backward's digest
-    (attention_bwd_digest, this file's, on the tree's kernels)."""
+    time_fused, the first two FUSED_SHAPES, where it has time_attention,
+    bert-base's attention call, and both order statistics at the main
+    paths' shapes (order_stat_rows); writes them to ``out``. ``kinds``
+    (TIME_KINDS) limits it to those; ``attention`` also takes the
+    attention backward's digest (attention_bwd_digest, this file's, on
+    the tree's kernels). Run it in a process that has not imported
+    atq_tpu_torch: the tree's package must be the one imported."""
     tree, out = os.path.abspath(tree), os.path.abspath(out)
     os.chdir(tree)
     sys.path.insert(0, tree)
     mod = importlib.import_module("chip_smoke")
+    import atq_tpu_torch
+
+    if not os.path.abspath(atq_tpu_torch.__file__).startswith(tree + os.sep):
+        raise AssertionError(f"--time-tree {tree} imported "
+                             f"{atq_tpu_torch.__file__}")
     gen = torch.Generator(device="cuda").manual_seed(0)
-    kinds = set(kinds or ("matmul", "packed", "fused", "attention"))
-    result = {"tree": tree,
+    kinds = set(kinds or TIME_KINDS)
+    result = {"tree": tree, "package": atq_tpu_torch.__file__,
               "matmul": [mod.time_matmul(gen, *s) for s in COMPARE_MM]
               if "matmul" in kinds else None,
               "packed": [mod.time_packed(gen, *s) for s in PACKED_SHAPES]
@@ -2389,22 +2505,28 @@ def time_tree(tree, out, *kinds):
               if "attention" in kinds and hasattr(mod, "time_attention")
               else None,
               "attention_bwd_digest": attention_bwd_digest()
-              if "attention" in kinds else None}
+              if "attention" in kinds else None,
+              "order_stat": order_stat_rows(
+                  mod, torch.Generator(device="cuda").manual_seed(0))
+              if "order_stat" in kinds else None}
     with open(out, "w") as f:
         json.dump(result, f)
 
 
-def compare(parent, out_dir="outputs/compare"):
-    """The packed kernels of ``parent`` (another checkout) and of this tree
-    on one card, in turns parent, this, this, parent, each in a process of
-    its own; device ms (torch.profiler) at every shape, and summed per
-    batch on each main path. Each run's rows go to ``out_dir``."""
+def compare(parent, out_dir="outputs/compare", *kinds):
+    """The kernels of ``parent`` (another checkout) and of this tree on one
+    card, in turns parent, this, this, parent, each in a process of its
+    own; device ms (torch.profiler) at every shape, and summed per batch
+    on each main path. ``kinds`` (TIME_KINDS, all by default) limits the
+    kernels. Each run's rows go to ``out_dir``."""
     os.makedirs(out_dir, exist_ok=True)
+    kinds = tuple(kinds) or TIME_KINDS
     runs = []
     for i, tree in enumerate((parent, ".", ".", parent)):
         path = os.path.abspath(os.path.join(out_dir, f"compare_{i}.json"))
         subprocess.run([sys.executable, os.path.abspath(__file__),
-                        "--time-tree", tree, path], check=True, timeout=900)
+                        "--time-tree", tree, path, *kinds], check=True,
+                       timeout=900)
         with open(path) as f:
             runs.append(json.load(f))
     old, new = (runs[0], runs[3]), (runs[1], runs[2])
@@ -2416,36 +2538,40 @@ def compare(parent, out_dir="outputs/compare"):
                                     if r["kernel_device_ms"] is not None]))
 
     ms = {}
-    cases = [("matmul", i, None, "ternary_matmul", (m, k, n))
-             for i, (m, n, k) in enumerate(COMPARE_MM)]
-    cases += [("packed", i, name, name, shape)
-              for i, shape in enumerate(PACKED_SHAPES)
-              for name in PACKED_KERNELS]
-    for what, i, key, name, (m, k, n) in cases:
-        old_rows, old_ms = pick(old, what, i, key)
-        new_rows, new_ms = pick(new, what, i, key)
-        ms[name, m, k, n] = (old_ms, new_ms)
-        emit({"compare": name, "m": m, "k": k, "n": n, "old_ms": old_ms,
-              "new_ms": new_ms, "new_over_old": new_ms / old_ms,
-              "old_runs": [r["kernel_device_ms"] for r in old_rows],
-              "new_runs": [r["kernel_device_ms"] for r in new_rows],
-              "library_ms": float(np.mean([r["library_device_ms"]
-                                           for r in new_rows])),
-              "bound_ms": new_rows[0]["bound_ms"],
-              "bound_by": new_rows[0]["bound_by"]})
-    # Per batch: serve_packed's head at M = 32; a text batch's 24 layer
-    # projections and attention_pool_0 at M = 1600; an image batch's
-    # projector.
-    text = ((16, 192, 192), (4, 192, 384), (4, 384, 192), (1, 192, 96))
-    per_batch = {"serve_packed": [sum(ms["ternary_matmul", MAX_BATCH, k, n][j]
-                                      for n, k in MM_SHAPES[:2])
-                                  for j in (0, 1)]}
-    for name in PACKED_KERNELS:
-        per_batch[f"text_batch_{name}"] = [
-            sum(c * ms[name, 1600, k, n][j] for c, k, n in text)
-            for j in (0, 1)]
-        per_batch[f"image_batch_{name}"] = list(ms[name, 32, 512, 192])
-    if all(r["fused"] for r in runs):
+    per_batch = {}
+    if "matmul" in kinds and "packed" in kinds:
+        cases = [("matmul", i, None, "ternary_matmul", (m, k, n))
+                 for i, (m, n, k) in enumerate(COMPARE_MM)]
+        cases += [("packed", i, name, name, shape)
+                  for i, shape in enumerate(PACKED_SHAPES)
+                  for name in PACKED_KERNELS]
+        for what, i, key, name, (m, k, n) in cases:
+            old_rows, old_ms = pick(old, what, i, key)
+            new_rows, new_ms = pick(new, what, i, key)
+            ms[name, m, k, n] = (old_ms, new_ms)
+            emit({"compare": name, "m": m, "k": k, "n": n,
+                  "old_ms": old_ms, "new_ms": new_ms,
+                  "new_over_old": new_ms / old_ms,
+                  "old_runs": [r["kernel_device_ms"] for r in old_rows],
+                  "new_runs": [r["kernel_device_ms"] for r in new_rows],
+                  "library_ms": float(np.mean([r["library_device_ms"]
+                                               for r in new_rows])),
+                  "bound_ms": new_rows[0]["bound_ms"],
+                  "bound_by": new_rows[0]["bound_by"]})
+        # Per batch: serve_packed's head at M = 32; a text batch's 24
+        # layer projections and attention_pool_0 at M = 1600; an image
+        # batch's projector.
+        text = ((16, 192, 192), (4, 192, 384), (4, 384, 192),
+                (1, 192, 96))
+        per_batch["serve_packed"] = [
+            sum(ms["ternary_matmul", MAX_BATCH, k, n][j]
+                for n, k in MM_SHAPES[:2]) for j in (0, 1)]
+        for name in PACKED_KERNELS:
+            per_batch[f"text_batch_{name}"] = [
+                sum(c * ms[name, 1600, k, n][j] for c, k, n in text)
+                for j in (0, 1)]
+            per_batch[f"image_batch_{name}"] = list(ms[name, 32, 512, 192])
+    if all(r.get("fused") for r in runs):
         # train_fused's step: each kernel once on each head layer.
         for name in FUSED_KERNELS:
             for i, (m, n, k) in enumerate(FUSED_SHAPES[:2]):
@@ -2492,17 +2618,49 @@ def compare(parent, out_dir="outputs/compare"):
                   "bound_by": new_rows[0]["bound_by"]})
             per_batch[f"train_encoder_step_{name}"] = [
                 per_step * old_ms, per_step * new_ms]
-    # Every run times the attention kind, so every run has a digest.
-    digests = [r.get("attention_bwd_digest") for r in runs]
-    emit({"compare": "fused_attention_bwd_bits",
-          "same_bits": len(set(digests)) == 1 and all(digests),
-          "digests": digests})
-    if not all(digests):
-        raise AssertionError("a run took no attention backward digest: "
-                             f"{digests}")
-    if len(set(digests)) != 1:
-        raise AssertionError("the attention backward's bits differ "
-                             f"between the trees: {digests}")
+    if "attention" in kinds:
+        # Every run times the attention kind, so every run has a digest.
+        digests = [r.get("attention_bwd_digest") for r in runs]
+        emit({"compare": "fused_attention_bwd_bits",
+              "same_bits": len(set(digests)) == 1 and all(digests),
+              "digests": digests})
+        if not all(digests):
+            raise AssertionError("a run took no attention backward "
+                                 f"digest: {digests}")
+        if len(set(digests)) != 1:
+            raise AssertionError("the attention backward's bits differ "
+                                 f"between the trees: {digests}")
+    if "order_stat" in kinds:
+        # Both wrappers at the main paths' shapes: device ms (profiler),
+        # event ms and stream operations a call; train_encoder's step takes
+        # the batched one 4 times at (12, 589,824) and twice at
+        # (12, 2,359,296).
+        for i, new_row in enumerate(runs[1]["order_stat"]):
+            shape = {k: new_row[k] for k in ("lead", "n") if k in new_row}
+            rows = {j: r["order_stat"][i] for j, r in enumerate(runs)}
+            old_ms, new_ms = (float(np.mean([rows[j]["kernel_device_ms"]
+                                             for j in js]))
+                              for js in ((0, 3), (1, 2)))
+            emit({"compare": "batched_order_stat" if "lead" in shape
+                  else "order_stat", **shape,
+                  "old_ms": old_ms, "new_ms": new_ms,
+                  "new_over_old": new_ms / old_ms,
+                  "old_runs": [rows[j]["kernel_device_ms"] for j in (0, 3)],
+                  "new_runs": [rows[j]["kernel_device_ms"] for j in (1, 2)],
+                  "old_event_ms": [rows[j]["kernel_ms"] for j in (0, 3)],
+                  "new_event_ms": [rows[j]["kernel_ms"] for j in (1, 2)],
+                  "old_stream_ops": [rows[j]["stream_ops"] for j in (0, 3)],
+                  "new_stream_ops": [rows[j]["stream_ops"] for j in (1, 2)],
+                  "library_ms": float(np.mean(
+                      [rows[j]["library_device_ms"] for j in (1, 2)])),
+                  "plain_ms": float(np.mean(
+                      [rows[j]["plain_device_ms"] for j in (1, 2)])),
+                  "bound_ms": new_row["bound_ms"],
+                  "bound_by": new_row["bound_by"]})
+            if shape.get("lead") == 12:
+                calls = 4 if shape["n"] == 589824 else 2
+                per_batch[f"train_encoder_step_batched_order_stat_"
+                          f"{shape['n']}"] = [calls * old_ms, calls * new_ms]
     emit({"per_batch_device_ms_old_new": per_batch})
 
 
@@ -2518,14 +2676,14 @@ def main(argv=None):
         print("chip_smoke: no CUDA device; this script runs on the GPU only",
               file=sys.stderr)
         return 1
-    from atq_tpu_torch.utils.platform import resolve_device
-
     if argv[:1] == ["--time-tree"]:
-        time_tree(*argv[1:])
+        time_tree(*argv[1:])  # before importing this tree's atq_tpu_torch
         return 0
     if argv[:1] == ["--compare"]:
-        compare(*argv[1:3])
+        compare(*argv[1:])
         return 0
+    from atq_tpu_torch.utils.platform import resolve_device
+
     if argv[:1] == ["--retrieval-step0"]:
         resolve_device("cuda")
         phase_build(_smi())

@@ -8,7 +8,8 @@ conftest:
     python -m pytest --noconftest -q -m cuda tests/test_torch_cuda_kernels.py
 
 Tolerances: the order statistic is bit-exact (max equal, sum within
-rtol 1e-6); the packed matmuls (uint8 planes, planar32 words, and the fused
+rtol 1e-6), repeats bit for bit and is one stream operation a call; the
+packed matmuls (uint8 planes, planar32 words, and the fused
 RPB correction) are held to rtol 1e-5 / atol 5e-3, the JAX package's own
 kernel tolerance (tests/test_pallas_interpret.py), and repeat bit for bit.
 """
@@ -49,21 +50,71 @@ def _abs_input(kind, n, seed=0):
     if kind == "dups":
         return torch.from_numpy((rng.randint(0, 6, n) / 4.0).astype(
             np.float32))
-    return torch.from_numpy(np.abs(rng.randn(n)).astype(np.float32))
+    if kind == "equal":
+        return torch.full((n,), 0.37)
+    x = np.abs(rng.randn(n)).astype(np.float32)
+    u = rng.rand(n)
+    if kind == "bin90":  # > 90 % of the row in one digit-0 bin
+        x = np.where(u < 0.05, x * 40, np.float32(1.5)).astype(np.float32)
+    elif kind == "subnormal":  # exact zeros and subnormals among normals
+        x = np.where(u < 0.3, 0.0,
+                     np.where(u < 0.6, x * 1e-40, x)).astype(np.float32)
+    elif kind == "sorted":  # a longer row's held sample is not the row
+        x = np.sort(x)
+    return torch.from_numpy(x)
 
 
-@pytest.mark.parametrize("kind,n", [("randn", 401408), ("randn", 16385),
-                                    ("dups", 100000), ("zeros", 20000)])
+# Sizes: serve_dense's 401,408; the retrieval layers' 18,432-98,304; one
+# CTA's edge (16,384 and 16,385); rows longer than a cluster holds
+# (2,359,296: the window, its overflow and its miss).
+@pytest.mark.parametrize("kind,n", [
+    ("randn", 401408), ("randn", 16385), ("dups", 100000), ("zeros", 20000),
+    ("randn", 16384), ("randn", 18432), ("randn", 36864), ("randn", 73728),
+    ("randn", 98304), ("equal", 401408), ("bin90", 401408),
+    ("subnormal", 401408), ("randn", 2359296), ("equal", 2359296),
+    ("bin90", 2359296), ("subnormal", 2359296), ("sorted", 2359296)])
 def test_order_stat_bit_exact_vs_plain(cuda, kind, n):
     x = _abs_input(kind, n).to(cuda)
     for r in sorted({0, 1, int(np.floor(np.float32(0.3) * np.float32(n))),
                      n - 1}):
         rank = torch.tensor([r], dtype=torch.int32, device=cuda)
         got = torch.stack(order_statistic_reductions(x, rank)).cpu()
+        again = torch.stack(order_statistic_reductions(x, rank)).cpu()
         want = torch.stack(order_statistic_plain(x, rank)).cpu()
         assert got[0].view(torch.int32) == want[0].view(torch.int32), r
         assert got[1] == want[1]
         assert abs(got[2] - want[2]) <= 1e-6 * abs(want[2])
+        assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+
+
+def _stream_ops(fn, iters=10):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.count for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / iters
+
+
+@pytest.mark.parametrize("lead,n", [(1, 401408), (1, 18432), (1, 98304),
+                                    (12, 589824), (12, 2359296)])
+def test_order_stat_is_one_stream_operation_a_call(cuda, lead, n):
+    from atq_tpu_torch.ops.order_stat import (
+        order_statistic_reductions_batched,
+    )
+
+    x = _abs_input("randn", lead * n).to(cuda).reshape(lead, n)
+    ranks = torch.full((lead,), n // 10, dtype=torch.int32, device=cuda)
+    if lead == 1:
+        assert _stream_ops(
+            lambda: order_statistic_reductions(x[0], ranks)) == 1
+    assert _stream_ops(
+        lambda: order_statistic_reductions_batched(x, ranks)) == 1
 
 
 def test_order_stat_counts_launches_and_rejects_bad_cuda_input(cuda):
@@ -321,7 +372,9 @@ def test_fused_autograd_op_takes_text_tower_activations(cuda, grad_mode):
 # Batched order statistic (csrc/order_stat.cu with a row index): every row's
 # statistic and max bit-exact against the per-row sort, each row's sum within
 # rtol 1e-6.
-@pytest.mark.parametrize("lead,n", [(3, 16385), (12, 589824), (2, 2359296)])
+# Rows past the first: all equal, > 90 % in one bin, sorted, subnormals.
+@pytest.mark.parametrize("lead,n", [(3, 16385), (12, 589824), (2, 2359296),
+                                    (1, 98304), (13, 20000), (5, 2359296)])
 def test_batched_order_stat_bit_exact_vs_plain(cuda, lead, n):
     from atq_tpu_torch.ops.order_stat import (
         order_statistic_batched_plain,
@@ -331,6 +384,9 @@ def test_batched_order_stat_bit_exact_vs_plain(cuda, lead, n):
     rng = np.random.RandomState(lead)
     x = torch.from_numpy(np.abs(rng.randn(lead, n)).astype(np.float32))
     x[0] = torch.from_numpy((rng.randint(0, 6, n) / 4.0).astype(np.float32))
+    for i, kind in enumerate(("equal", "bin90", "sorted", "subnormal"), 1):
+        if i < lead:
+            x[i] = _abs_input(kind, n, seed=i)
     x = x.to(cuda)
     picks = [0, n - 1, int(np.floor(np.float32(0.3) * np.float32(n))), 1]
     ranks = torch.tensor([picks[i % 4] for i in range(lead)],
@@ -338,10 +394,12 @@ def test_batched_order_stat_bit_exact_vs_plain(cuda, lead, n):
     before = order_statistic_reductions_batched.launches
     got = torch.stack(order_statistic_reductions_batched(x, ranks)).cpu()
     assert order_statistic_reductions_batched.launches == before + 1
+    again = torch.stack(order_statistic_reductions_batched(x, ranks)).cpu()
     want = torch.stack(order_statistic_batched_plain(x, ranks)).cpu()
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1])
     torch.testing.assert_close(got[2], want[2], rtol=1e-6, atol=0)
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
 
 
 def test_batched_order_stat_rejects_bad_cuda_input(cuda):
