@@ -8,20 +8,46 @@
 // than one Hopper block's 227 KB of shared memory. So a block here takes a
 // tile of query rows (64 in the forward, 32 in the backward, which holds two
 // score tiles) against all S keys: the softmax still sees whole rows and
-// stays exact, and the tile's scores (128 KB at S = 512 in the forward)
-// stay in shared memory. K and V stream through one shared chunk of
-// kChunk keys. The numerics are the JAX kernel's: float32 products and sums
-// (inputs widened from bf16), the scale applied after the first product, the
-// bias added, the row max guarded at -1e30 (a fully padded row becomes
-// uniform, not NaN), and p/l rounded to the input type before the second
-// product.
+// stays exact, and p can be rounded to the input type before the second
+// product, as the JAX kernel does (a running softmax could not). The
+// numerics are the JAX kernel's: float32 products and sums (inputs widened
+// from bf16), the scale applied after the first product, the bias added,
+// the row max guarded at -1e30 (a fully padded row becomes uniform, not
+// NaN), and p = e / l rounded to the input type before the second product.
 //
-// Forward bound: at bert-base (64, 12, 256, 64) the work is compute, 4·S²·D
-// flops a head, 0.19 ms a call at the 67 TFLOP/s float32 rate. Its products
-// are float32 FMA loops from shared memory: each thread holds a 4 rows x 4
-// keys register tile and reads its operands as float4, four reduction steps
-// per load; rows are padded by 4 floats, which keeps float4 rows aligned and
-// the loads free of bank conflicts.
+// Forward, attn_fwd_kernel, one launch: a block of 256 threads (8 warps)
+// takes 64 query rows of one head (grid (ceil(S/64), H, B): 3,072 blocks at
+// bert-base) and all S keys, in three phases:
+//   1. s = q·kᵀ·scale + bias for the tile's whole rows, into shared memory.
+//      Each warp splits its 16 rows of q into TF32 hi and lo once, into
+//      registers; K comes in chunks of 64 keys, and warp (wr, wc) forms
+//      rows 16·wr.. x keys 32·wc.. of each chunk (mma_step_sum, the
+//      fragment slots of mma_nt16), keeping each row's running max.
+//   2. the softmax by warps over whole rows (8 rows a warp, 4 at a time, a
+//      row's values in registers): m = max(rowmax(s), -1e30) from phase
+//      1's maxima, e = exp(s − m), l = Σ e, p = e / l (the IEEE quotient,
+//      by one reciprocal a row and Markstein's correction) rounded to the
+//      input type, 0 for keys past S.
+//   3. o = p·v: V in chunks of 64 keys; warp (rh, ch, kh) forms rows
+//      32·rh.. (two m16 tiles) x columns (DC / 2)·ch.. (the fragment slots
+//      of mma_nn16) over keys 32·kh.. of each chunk, so that each split
+//      operand feeds more MMAs; the two key halves' sums are added at the
+//      end, and o is written rounded to the input type.
+// q, the K chunks and the V chunks pass through one 2-stage ring of 16-byte
+// cp.async copies: the next item is in flight while this one computes (the
+// first V chunk during the softmax). Only the MMA steps that D reaches run
+// in phase 1, and only those that a short last chunk's keys reach in phase
+// 3; key tiles past S are skipped. A chunk that needs none of these guards
+// takes a path without branches between its MMA steps, so that their MMAs
+// overlap. Shared rows are padded to 8 mod 32 words (V: 4 mod 32), which
+// keeps every fragment load and score store free of bank conflicts. Each
+// o element is summed by one warp pair in a fixed order, so a launch
+// repeats bit for bit.
+//
+// Forward bound at bert-base (64, 12, 256, 64) f32: the two products as
+// three TF32 products each, 3·4·S²·D·B·H = 38.7 GFLOP, 0.078 ms at 495
+// TFLOP/s, against 4·B·H·S·D·4 = 201 MB (q, k, v read; o written), 0.060 ms
+// at 3.35 TB/s: operations bound it.
 //
 // Backward, in two launches on the tensor cores, without float atomics:
 //   1. attn_bwd_rows_kernel, per 32 query rows against all S keys:
@@ -66,6 +92,9 @@
 // written), 0.105 ms at 3.35 TB/s: operations bound it.
 //
 // Shared memory (floats; ld = DC + 8, lds = S padded to 64, + 8):
+//   forward: 64·lds + 2·64·ld, and 512 bytes of row maxima: 104,960 bytes
+//            at S = 256, D = 64 (2 blocks an SM); 170,496 at S = 512,
+//            D = 64; 203,264 at S = 512, D = 128;
 //   pass 1: (2·32 + 64)·ld + 2·32·lds: 104,448 bytes at S = 256, D = 64
 //           (2 blocks an SM); 202,752 at S = 512, D = 128;
 //   pass 2: 2·64·ld + 2·(2·32·ld + 128) + 2·32·72 + 64: 93,440 bytes at D = 64
@@ -84,11 +113,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16: ty picks rows, tx picks columns
-constexpr int kFwdRows = 64;   // forward: query rows per block (4 per ty)
-constexpr int kChunk = 64;     // keys per shared K/V chunk (4 per tx)
-constexpr int kMaxD = 128;     // head dim: 4 or 8 columns per tx
-constexpr int kPad = 4;        // floats of padding per shared row
+constexpr int kThreads = 256;  // 8 warps, every kernel here
+constexpr int kMaxS = 512;     // sequence length
+constexpr int kMaxD = 128;     // head dim
 constexpr float kGuard = -1e30f;
 constexpr unsigned kFull = 0xFFFFFFFFu;
 
@@ -123,211 +150,6 @@ __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
-}
-
-__device__ __forceinline__ const float4& f4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ void fma4(float& acc, const float4& a,
-                                     const float4& b) {
-  acc += a.x * b.x;
-  acc += a.y * b.y;
-  acc += a.z * b.z;
-  acc += a.w * b.w;
-}
-
-__device__ __forceinline__ void axpy4(float* acc, float p, const float4& v) {
-  acc[0] += p * v.x;
-  acc[1] += p * v.y;
-  acc[2] += p * v.z;
-  acc[3] += p * v.w;
-}
-
-// rows x D4 of src (row stride D, rows from row0) into dst (row stride ldd),
-// widened to float; rows past S and columns past D read as 0.
-template <typename T>
-__device__ __forceinline__ void load_rows(float* dst, int ldd, const T* src,
-                                          int row0, int rows, int S, int D,
-                                          int D4) {
-  for (int idx = threadIdx.x; idx < rows * D4; idx += kThreads) {
-    const int r = idx / D4, d = idx - r * D4;
-    const int g = row0 + r;
-    dst[r * ldd + d] =
-        (g < S && d < D) ? to_f(src[(long long)g * D + d]) : 0.f;
-  }
-}
-
-// out[r][c0 + c] = a_r · b_c for the block's 16·RPT rows a (stride ldd)
-// against one chunk of kChunk rows b (stride ldd), then scaled and biased
-// when `scale_bias`. Thread (ty, tx) owns rows ty·RPT.. and keys tx + 16j.
-// Columns past S are not written.
-template <int RPT>
-__device__ __forceinline__ void tile_dots(const float* a, const float* b,
-                                          int ldd, int D4, float* out,
-                                          int lds, int c0, int S,
-                                          bool scale_bias, float scale,
-                                          const float* bias) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  float acc[RPT][4] = {};
-  for (int d = 0; d < D4; d += 4) {
-    float4 av[RPT], bv[4];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) av[i] = f4(a + (ty * RPT + i) * ldd + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = f4(b + (tx + 16 * j) * ldd + d);
-#pragma unroll
-    for (int i = 0; i < RPT; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) fma4(acc[i][j], av[i], bv[j]);
-  }
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const int c = c0 + tx + 16 * j;
-    if (c >= S) continue;
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) {
-      float s = acc[i][j];
-      if (scale_bias) {
-        s *= scale;
-        if (bias != nullptr) s += bias[c];
-      }
-      out[(ty * RPT + i) * lds + c] = s;
-    }
-  }
-}
-
-// acc[i][·] += Σ_c p[row i][c0 + c] · v[c][d] over one chunk (v rows of
-// stride ldd, c < cn; p zero past S). Thread (ty, tx) owns rows ty·RPT..
-// and columns tx·4 + 64jj.
-template <int RPT>
-__device__ __forceinline__ void accumulate_pv(float (*acc)[8],
-                                              const float* p, int lds,
-                                              int c0, int cn, const float* v,
-                                              int ldd, int D4) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  for (int c = 0; c < cn; c += 4) {
-    float4 pv[RPT];
-#pragma unroll
-    for (int i = 0; i < RPT; ++i) pv[i] = f4(p + (ty * RPT + i) * lds + c0 + c);
-#pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const float* vrow = v + (c + k) * ldd;
-#pragma unroll
-      for (int jj = 0; jj < 2; ++jj) {
-        const int d = tx * 4 + 64 * jj;
-        if (d >= D4) continue;
-        const float4 vv = f4(vrow + d);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i) {
-          const float pk = k == 0 ? pv[i].x : k == 1 ? pv[i].y
-                         : k == 2 ? pv[i].z : pv[i].w;
-          axpy4(acc[i] + 4 * jj, pk, vv);
-        }
-      }
-    }
-  }
-}
-
-// Writes acc (scaled) as rows r0 + ty·RPT.. of a (S, D) output.
-template <typename T, int RPT>
-__device__ __forceinline__ void store_rows(T* out, const float (*acc)[8],
-                                           int r0, int S, int D,
-                                           float scale) {
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-#pragma unroll
-  for (int i = 0; i < RPT; ++i) {
-    const int r = r0 + ty * RPT + i;
-    if (r >= S) continue;
-#pragma unroll
-    for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int d = tx * 4 + 64 * jj + e;
-        if (d < D) out[(long long)r * D + d] = from_f<T>(acc[i][4 * jj + e] * scale);
-      }
-  }
-}
-
-// s[r][:S] <- exp(s - max(max_c s, -1e30)) for `rows` rows; the row sums go
-// to `lsum`. One warp per row, fixed-order sums.
-__device__ __forceinline__ void softmax_rows(float* s, int lds, int S,
-                                             int rows, float* lsum) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int r = warp; r < rows; r += kThreads / 32) {
-    float* row = s + r * lds;
-    float m = -INFINITY;
-    for (int c = lane; c < S; c += 32) m = fmaxf(m, row[c]);
-    m = fmaxf(warp_max(m), kGuard);
-    float l = 0.f;
-    for (int c = lane; c < S; c += 32) {
-      const float e = expf(row[c] - m);
-      row[c] = e;
-      l += e;
-    }
-    l = warp_sum(l);
-    if (lane == 0) lsum[r] = l;
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                const T* __restrict__ v, const float* __restrict__ bias,
-                T* __restrict__ o, int H, int S, int D, int Sp, float scale) {
-  extern __shared__ float4 smem4[];
-  const int D4 = (D + 3) & ~3, ldd = D4 + kPad, lds = Sp + kPad;
-  float* sq = reinterpret_cast<float*>(smem4);  // kFwdRows x ldd
-  float* skv = sq + kFwdRows * ldd;             // kChunk x ldd
-  float* ss = skv + kChunk * ldd;               // kFwdRows x lds
-  __shared__ float lsum[kFwdRows];
-  const int r0 = blockIdx.x * kFwdRows, h = blockIdx.y, b = blockIdx.z;
-  const long long head = ((long long)b * H + h) * S * D;
-  const float* brow = bias == nullptr ? nullptr : bias + (long long)b * S;
-
-  load_rows(sq, ldd, q + head, r0, kFwdRows, S, D, D4);
-  for (int c0 = 0; c0 < S; c0 += kChunk) {
-    __syncthreads();  // the previous chunk is consumed (and sq is loaded)
-    load_rows(skv, ldd, k + head, c0, kChunk, S, D, D4);
-    __syncthreads();
-    tile_dots<4>(sq, skv, ldd, D4, ss, lds, c0, S, true, scale, brow);
-  }
-  __syncthreads();
-  softmax_rows(ss, lds, S, kFwdRows, lsum);
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < kFwdRows * Sp; idx += kThreads) {
-    const int r = idx / Sp, c = idx - r * Sp;
-    ss[r * lds + c] = c < S ? round_to<T>(ss[r * lds + c] / lsum[r]) : 0.f;
-  }
-
-  float acc[4][8] = {};
-  for (int c0 = 0; c0 < S; c0 += kChunk) {
-    __syncthreads();
-    load_rows(skv, ldd, v + head, c0, kChunk, S, D, D4);
-    __syncthreads();
-    accumulate_pv<4>(acc, ss, lds, c0, min(kChunk, S - c0), skv, ldd, D4);
-  }
-  store_rows<T, 4>(o + head, acc, r0, S, D, 1.f);
-}
-
-inline int padded(int S) { return (S + kChunk - 1) / kChunk * kChunk; }
-inline int pad4(int D) { return (D + 3) & ~3; }
-
-template <typename T>
-int launch_forward(const void* q, const void* k, const void* v,
-                   const float* bias, void* o, int B, int H, int S, int D,
-                   float scale, cudaStream_t s) {
-  const int Sp = padded(S), ldd = pad4(D) + kPad;
-  const size_t bytes = sizeof(float) *
-      (size_t)((kFwdRows + kChunk) * ldd + kFwdRows * (Sp + kPad));
-  cudaError_t err = cudaFuncSetAttribute(
-      attn_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((S + kFwdRows - 1) / kFwdRows, H, B);
-  attn_fwd_kernel<T><<<grid, kThreads, bytes, s>>>(
-      (const T*)q, (const T*)k, (const T*)v, bias, (T*)o, H, S, D, Sp, scale);
-  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -718,6 +540,361 @@ int launch_backward(const void* q, const void* k, const void* v,
                                        stats, B, H, S, D, scale, s);
 }
 
+// ---------------------------------------------------------------------------
+// Forward: one launch on the tensor cores (3xTF32 mma.sync, tf32x3.cuh).
+// ---------------------------------------------------------------------------
+
+namespace fwd {
+
+constexpr int kRows = 64;              // query rows a block
+constexpr int kKeys = 64;              // keys a ring item (a K or V chunk)
+constexpr int kStages = 2;             // ring stages
+constexpr int kWarps = kThreads / 32;  // 8
+constexpr int kHalf = kKeys / 2;       // keys of a chunk a warp takes
+
+// Phase 1 on one K chunk: the warp's 16 rows x 32 keys (four n8 tiles) of
+// s = q·kᵀ·scale + bias into out (ss at the warp's rows and first key),
+// and each row's running max over the keys below S into mrow[h] (rows g,
+// g + 8). qf: the rows' q fragments, hi and lo, a step over d each; sk:
+// the chunk's rows of the warp's keys. kFull: all four tiles below S and
+// all kSteps steps, with no branch between the steps (so that their MMAs
+// overlap); else only the tiles that reach below S and the steps below D.
+// Either way each element sums its steps in order: the same bits.
+template <bool kFull, bool kSplit, int kSteps, int kLd>
+__device__ __forceinline__ void score_chunk(
+    const uint32_t (&qf)[kSteps][2][4], const float* sk, float* out,
+    int lds, int d_steps, float scale, const float* brow, int key0, int S,
+    int g, int t, float (&mrow)[2]) {
+  const int tiles = (S - key0 + 7) / 8;  // n8 tiles that reach below S
+  float acc[4][4] = {};
+#pragma unroll
+  for (int ks = 0; ks < kSteps; ++ks) {
+    if (!kFull && ks >= d_steps) break;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (!kFull && j >= tiles) break;
+      // B slots t, t + 4 of key g hold d = 8ks + 2t, 8ks + 2t + 1, as
+      // the q fragments do (mma_nt16's order): one float2 load.
+      const float2 kv =
+          *(const float2*)(sk + (8 * j + g) * kLd + 8 * ks + 2 * t);
+      uint32_t bh[2], bl[2];
+      split_or_keep<kSplit>(kv.x, bh[0], bl[0]);
+      split_or_keep<kSplit>(kv.y, bh[1], bl[1]);
+      mma_step_sum<kSplit>(acc[j], qf[ks][0], qf[ks][1], bh, bl);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    if (!kFull && j >= tiles) break;
+    const int col = key0 + 8 * j + 2 * t;
+    const float b0 = brow != nullptr && col < S ? brow[col] : 0.f;
+    const float b1 = brow != nullptr && col + 1 < S ? brow[col + 1] : 0.f;
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const float s0 = bwd::score(acc[j][2 * hh], scale, b0);
+      const float s1 = bwd::score(acc[j][2 * hh + 1], scale, b1);
+      *(float2*)(out + (g + 8 * hh) * lds + 8 * j + 2 * t) =
+          make_float2(s0, s1);
+      if (kFull || col < S) mrow[hh] = fmaxf(mrow[hh], s0);
+      if (kFull || col + 1 < S) mrow[hh] = fmaxf(mrow[hh], s1);
+    }
+  }
+}
+
+// Phase 2: the softmax of the block's rows, warp w taking rows w, w + 8, ...
+// kAt at a time (their loads, shuffles and sums interleave), a row's kVals
+// · 32 values (kVals · 32 >= S) in registers: m = max(row max, -1e30) from
+// phase 1's maxima (smax: each row's two warps'), e = exp(s − m), l = Σ e
+// (each lane's values in order, then warp_sum's tree), p = e / l rounded to
+// T, and p = 0 for keys S..Sp - 1. e / l is the IEEE quotient, as
+// Markstein's correction of e·RN(1/l) gives it: one reciprocal a row and
+// three operations a value, not a division.
+template <typename T, int kVals>
+__device__ __forceinline__ void softmax_rows(float* ss, int lds,
+                                             const float* smax, int S,
+                                             int Sp, int warp, int lane) {
+  constexpr int kAt = kVals >= 16 ? 2 : 4;
+  for (int it = 0; it < kRows / kWarps; it += kAt) {
+    float* row[kAt];
+    float x[kAt][kVals], m[kAt], l[kAt];
+#pragma unroll
+    for (int a = 0; a < kAt; ++a) {
+      const int r = warp + kWarps * (it + a);
+      row[a] = ss + r * lds;
+      m[a] = fmaxf(fmaxf(smax[2 * r], smax[2 * r + 1]), kGuard);
+      l[a] = 0.f;
+#pragma unroll
+      for (int i = 0; i < kVals; ++i) {
+        const int c = lane + 32 * i;
+        x[a][i] = c < S ? expf(__fsub_rn(row[a][c], m[a])) : 0.f;
+        l[a] += x[a][i];
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)  // warp_sum, kAt rows at once
+#pragma unroll
+      for (int a = 0; a < kAt; ++a)
+        l[a] += __shfl_xor_sync(kFull, l[a], off);
+#pragma unroll
+    for (int a = 0; a < kAt; ++a) {
+      const float rl = __frcp_rn(l[a]);  // l >= 1: the row's largest e is 1
+#pragma unroll
+      for (int i = 0; i < kVals; ++i) {
+        const int c = lane + 32 * i;
+        const float q0 = __fmul_rn(x[a][i], rl);
+        const float p = __fmaf_rn(__fmaf_rn(-q0, l[a], x[a][i]), rl, q0);
+        if (c < Sp) row[a][c] = c < S ? round_to<T>(p) : 0.f;
+      }
+    }
+  }
+}
+
+// Phase 3 on one V chunk: acc += the warp's 32 rows of p (two m16 tiles;
+// pc: at the warp's first row and key, row stride lds) times the V rows of
+// its kHalf keys (sv: at the first of them and the warp's first column),
+// kPairs groups of 16 columns (column slot g of n8 tile j is column
+// 2g + j, as in mma_nn16). kFull: all kHalf / 8 steps and all groups, with
+// no branch between them; else only the steps that the keys below S reach
+// and the groups below D. Either way each element sums its steps in order:
+// the same bits.
+template <bool kFull, bool kSplit, int kPairs, int kLdV>
+__device__ __forceinline__ void pv_chunk(float (&acc)[2][kPairs][2][4],
+                                         const float* pc, int lds,
+                                         const float* sv, int steps,
+                                         int groups, int g, int t) {
+#pragma unroll
+  for (int ks = 0; ks < kHalf / 8; ++ks) {
+    if (!kFull && ks >= steps) break;
+    const int kc = 8 * ks + 2 * t;  // slots t, t + 4: keys kc, kc + 1
+    uint32_t a[2][2][4];            // [m16 tile][hi, lo][fragment]
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi) {
+      const float2 a0 = *(const float2*)(pc + (16 * mi + g) * lds + kc);
+      const float2 a1 = *(const float2*)(pc + (16 * mi + g + 8) * lds + kc);
+      split_or_keep<kSplit>(a0.x, a[mi][0][0], a[mi][1][0]);
+      split_or_keep<kSplit>(a1.x, a[mi][0][1], a[mi][1][1]);
+      split_or_keep<kSplit>(a0.y, a[mi][0][2], a[mi][1][2]);
+      split_or_keep<kSplit>(a1.y, a[mi][0][3], a[mi][1][3]);
+    }
+#pragma unroll
+    for (int pr = 0; pr < kPairs; ++pr) {
+      if (!kFull && pr >= groups) break;
+      const float* pb = sv + kc * kLdV + 16 * pr + 2 * g;
+      const float2 b0 = *(const float2*)pb;
+      const float2 b1 = *(const float2*)(pb + kLdV);
+      uint32_t bf[2][2][2];  // [hi, lo][tile][fragment]
+      split_or_keep<kSplit>(b0.x, bf[0][0][0], bf[1][0][0]);
+      split_or_keep<kSplit>(b1.x, bf[0][0][1], bf[1][0][1]);
+      split_or_keep<kSplit>(b0.y, bf[0][1][0], bf[1][1][0]);
+      split_or_keep<kSplit>(b1.y, bf[0][1][1], bf[1][1][1]);
+#pragma unroll
+      for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          mma_step_sum<kSplit>(acc[mi][pr][j], a[mi][0], a[mi][1],
+                               bf[0][j], bf[1][j]);
+    }
+  }
+}
+
+// s, the softmax and o for kRows query rows of one head against all S keys
+// (the note at the top). Ring items: 0 is q, 1..n_chunks the K chunks,
+// then n_chunks V chunks; item i goes to stage i % kStages.
+template <typename T, int DC>
+__global__ void __launch_bounds__(kThreads, DC == 64 ? 2 : 1)
+attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const float* __restrict__ bias,
+                T* __restrict__ o, int H, int S, int D, int Sp, float scale,
+                int vec) {
+  constexpr int kLd = DC + 8;   // q and K rows: 8 mod 32 words
+  constexpr int kLdV = DC + 4;  // V rows: 4 mod 32 words (mma_nn16's B)
+  constexpr int kStage = kKeys * kLd;
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  constexpr int kSteps = DC / 8;   // MMA steps over d
+  constexpr int kPairs = DC / 32;  // 16-column groups of o a warp
+  extern __shared__ float4 smem4[];
+  __shared__ float smax[2 * kRows];  // each row's max, from its two warps
+  const int lds = Sp + 8;
+  float* ss = reinterpret_cast<float*>(smem4);  // kRows x lds: s, then p
+  float* ring = ss + kRows * lds;               // kStages x kStage
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * kRows, h = blockIdx.y, b = blockIdx.z;
+  const long long head = ((long long)b * H + h) * S * D;
+  const float* brow = bias == nullptr ? nullptr : bias + (long long)b * S;
+  const int n_chunks = Sp / kKeys;
+  const int d_steps = (D + 7) / 8;  // the steps over d that D reaches
+
+  auto issue = [&](int i) {
+    float* st = ring + (i % kStages) * kStage;
+    if (i == 0)
+      bwd::stage_rows<T, DC>(st, kLd, q + head, r0, kRows, S, D, vec);
+    else if (i <= n_chunks)
+      bwd::stage_rows<T, DC>(st, kLd, k + head, (i - 1) * kKeys, kKeys, S,
+                             D, vec);
+    else if (i <= 2 * n_chunks)
+      bwd::stage_rows<T, DC>(st, kLdV, v + head,
+                             (i - 1 - n_chunks) * kKeys, kKeys, S, D, vec);
+    cp_async_commit();  // an empty group past the end keeps the count
+  };
+
+  // 1. s = q·kᵀ·scale + bias: warp (wr, wc) forms rows 16·wr.. x keys
+  // 32·wc.. of each chunk. The warp's 16 rows of q as TF32 fragments, hi
+  // and lo, for every step over d: split once, kept in registers.
+  const int wr = warp & 3, wc = warp >> 2;
+  issue(0);
+  issue(1);
+  cp_async_wait<1>();  // q has landed; K chunk 0 is in flight
+  __syncthreads();
+  uint32_t qf[kSteps][2][4];  // [step][hi, lo][fragment]
+  {
+    const float* sq = ring + 16 * wr * kLd;
+#pragma unroll
+    for (int ks = 0; ks < kSteps; ++ks) {
+      const int d = 8 * ks + 2 * t;
+      const float2 a0 = *(const float2*)(sq + g * kLd + d);
+      const float2 a1 = *(const float2*)(sq + (g + 8) * kLd + d);
+      split_or_keep<kSplit>(a0.x, qf[ks][0][0], qf[ks][1][0]);
+      split_or_keep<kSplit>(a1.x, qf[ks][0][1], qf[ks][1][1]);
+      split_or_keep<kSplit>(a0.y, qf[ks][0][2], qf[ks][1][2]);
+      split_or_keep<kSplit>(a1.y, qf[ks][0][3], qf[ks][1][3]);
+    }
+  }
+  float mrow[2] = {-INFINITY, -INFINITY};  // rows g, g + 8: running max
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<0>();  // K chunk c (item c + 1) has landed for this thread
+    __syncthreads();     // for every thread; item c is consumed
+    issue(c + 2);
+    const int key0 = c * kKeys + 32 * wc;
+    const float* sk = ring + ((c + 1) % kStages) * kStage + 32 * wc * kLd;
+    float* out = ss + 16 * wr * lds + key0;
+    if (S - key0 >= 32 && d_steps == kSteps)
+      score_chunk<true, kSplit, kSteps, kLd>(qf, sk, out, lds, d_steps,
+                                             scale, brow, key0, S, g, t,
+                                             mrow);
+    else
+      score_chunk<false, kSplit, kSteps, kLd>(qf, sk, out, lds, d_steps,
+                                              scale, brow, key0, S, g, t,
+                                              mrow);
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {  // the max over the quad's lanes
+    mrow[hh] = fmaxf(mrow[hh], __shfl_xor_sync(kFull, mrow[hh], 1));
+    mrow[hh] = fmaxf(mrow[hh], __shfl_xor_sync(kFull, mrow[hh], 2));
+    if (t == 0) smax[2 * (16 * wr + g + 8 * hh) + wc] = mrow[hh];
+  }
+  __syncthreads();  // every score and row max is in shared memory
+
+  // 2. The softmax over whole rows, a row's values in registers.
+  if (Sp <= 64)
+    softmax_rows<T, 2>(ss, lds, smax, S, Sp, warp, lane);
+  else if (Sp <= 128)
+    softmax_rows<T, 4>(ss, lds, smax, S, Sp, warp, lane);
+  else if (Sp <= 256)
+    softmax_rows<T, 8>(ss, lds, smax, S, Sp, warp, lane);
+  else
+    softmax_rows<T, kMaxS / 32>(ss, lds, smax, S, Sp, warp, lane);
+
+  // 3. o = p·v: warp (rh, ch, kh) forms rows 32·rh.. x columns col0.. over
+  // keys 32·kh.. of each chunk, kPairs groups of 16 columns; the two key
+  // halves' sums are added at the end, o = half 0 + half 1.
+  const int rh = warp & 1, ch = (warp >> 1) & 1, kh = warp >> 2;
+  const int col0 = (DC / 2) * ch;
+  const int groups = (D - col0 + 15) / 16;  // column groups below D
+  float acc[2][kPairs][2][4] = {};
+  const float* sp = ss + 32 * rh * lds + kHalf * kh;
+  for (int c = 0; c < n_chunks; ++c) {
+    cp_async_wait<0>();  // V chunk c (item n_chunks + 1 + c) has landed
+    __syncthreads();     // for every thread; p is whole; last item consumed
+    issue(n_chunks + 2 + c);
+    const float* sv = ring + ((n_chunks + 1 + c) % kStages) * kStage +
+                      kHalf * kh * kLdV + col0;
+    const int keys = min(kHalf, S - c * kKeys - kHalf * kh);  // below S
+    const int steps = (keys + 7) / 8;  // may be <= 0: none
+    if (steps == kHalf / 8 && groups >= kPairs)
+      pv_chunk<true, kSplit, kPairs, kLdV>(acc, sp + c * kKeys, lds, sv,
+                                           steps, groups, g, t);
+    else
+      pv_chunk<false, kSplit, kPairs, kLdV>(acc, sp + c * kKeys, lds, sv,
+                                            steps, groups, g, t);
+  }
+
+  // Lane (g, t) owns rows g, g + 8 of each m16 tile and columns 4t..4t+3
+  // of each group: element (g + 8h, 4t + c) is acc[mi][pr][c & 1][2h +
+  // (c >> 1)]. Key half 1 leaves its sums in the ring (no copy is in
+  // flight any more), key half 0 adds them and writes o.
+  float* part = ring;  // kRows x kLdV
+  __syncthreads();     // every warp is done with the last V chunk
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 32 * rh + 16 * mi + g + 8 * hh;
+#pragma unroll
+      for (int pr = 0; pr < kPairs; ++pr) {
+        const int col = col0 + 16 * pr + 4 * t;
+        float4* at = reinterpret_cast<float4*>(part + r * kLdV + col);
+        const float4 x = make_float4(
+            acc[mi][pr][0][2 * hh], acc[mi][pr][1][2 * hh],
+            acc[mi][pr][0][2 * hh + 1], acc[mi][pr][1][2 * hh + 1]);
+        if (kh == 1) *at = x;
+      }
+    }
+  __syncthreads();
+  if (kh == 1) return;
+#pragma unroll
+  for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int r = 32 * rh + 16 * mi + g + 8 * hh;
+      if (r0 + r >= S) continue;
+#pragma unroll
+      for (int pr = 0; pr < kPairs; ++pr) {
+        const int col = col0 + 16 * pr + 4 * t;
+        const float4 y =
+            *reinterpret_cast<const float4*>(part + r * kLdV + col);
+        const float x[4] = {
+            __fadd_rn(acc[mi][pr][0][2 * hh], y.x),
+            __fadd_rn(acc[mi][pr][1][2 * hh], y.y),
+            __fadd_rn(acc[mi][pr][0][2 * hh + 1], y.z),
+            __fadd_rn(acc[mi][pr][1][2 * hh + 1], y.w)};
+        bwd::store4<T>(o + head + (long long)(r0 + r) * D + col, col, D, x,
+                       1.f, vec);
+      }
+    }
+}
+
+template <typename T, int DC>
+int launch(const void* q, const void* k, const void* v, const float* bias,
+           void* o, int B, int H, int S, int D, float scale, cudaStream_t s) {
+  const int Sp = (S + kKeys - 1) / kKeys * kKeys;
+  const auto a16 = [](const void* p) { return ((uintptr_t)p & 15) == 0; };
+  const int vec = std::is_same<T, float>::value && D % 4 == 0 && a16(q) &&
+                  a16(k) && a16(v) && a16(o);
+  const size_t bytes = sizeof(float) * ((size_t)kRows * (Sp + 8) +
+                                        (size_t)kStages * kKeys * (DC + 8));
+  cudaError_t err = cudaFuncSetAttribute(
+      attn_fwd_kernel<T, DC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((S + kRows - 1) / kRows, H, B);
+  attn_fwd_kernel<T, DC><<<grid, kThreads, bytes, s>>>(
+      (const T*)q, (const T*)k, (const T*)v, bias, (T*)o, H, S, D, Sp, scale,
+      vec);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace fwd
+
+template <typename T>
+int launch_forward(const void* q, const void* k, const void* v,
+                   const float* bias, void* o, int B, int H, int S, int D,
+                   float scale, cudaStream_t s) {
+  return D <= 64 ? fwd::launch<T, 64>(q, k, v, bias, o, B, H, S, D, scale, s)
+                 : fwd::launch<T, 128>(q, k, v, bias, o, B, H, S, D, scale,
+                                       s);
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 bfloat16 (q, k, v, o share it). q, k, v, o: (B, H, S,
@@ -729,7 +906,7 @@ extern "C" int atq_attention_forward(int device, int dtype, const void* q,
                                      int S, int D, float scale, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (D > kMaxD) return (int)cudaErrorInvalidValue;
+  if (D > kMaxD || S > kMaxS) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   return dtype == 1 ? launch_forward<__nv_bfloat16>(q, k, v, bias, o, B, H, S,
                                                     D, scale, s)

@@ -1,9 +1,12 @@
 // Shared helpers of the tensor-core kernels that keep float32 accuracy
 // (fused_linear.cu's gemm_tc_kernel and dwda_kernel, fused_attention.cu's
-// backward): cp.async copies into shared memory, and 3xTF32 products on
-// mma.sync with three fragment readers: mma_tf32x3 (both operands with the
-// reduction as their slow axis), mma_nt16 (both with it contiguous) and
-// mma_nn16 (A with it contiguous, B with it slow).
+// forward and backward): cp.async copies into shared memory, and 3xTF32
+// products on mma.sync with three fragment readers: mma_tf32x3 (both
+// operands with the reduction as their slow axis), mma_nt16 (both with it
+// contiguous) and mma_nn16 (A with it contiguous, B with it slow). The
+// attention forward keeps q's split fragments in registers and reads its
+// other operands in mma_nt16's and mma_nn16's slots with its own loops,
+// around mma_step_sum.
 //
 // 3xTF32: each f32 operand value v is split as hi = rna(v), lo = rna(v − hi),
 // both TF32 values (hi + lo is v within 2^-22·|v|), and mma.sync m16n8k8

@@ -13,7 +13,17 @@
     python3 chip_smoke.py --time-tree DIR OUT [KIND ...]
                                    # one tree's kernel times into OUT;
                                    # KIND (matmul, packed, fused,
-                                   # attention, order_stat) limits them
+                                   # attention, order_stat) limits them;
+                                   # KIND encoder, only when named, also
+                                   # runs train_encoder's step (ms/step,
+                                   # tokens/s, MFU; attention device ms
+                                   # of a traced step)
+    python3 chip_smoke.py --encoder-step0 OUT [DIR]
+                                   # the readings behind encoder_step0's
+                                   # AMP limits (einsum, fused as shipped,
+                                   # unhoisted, the forward swapped for its
+                                   # plain version and for float64) from
+                                   # DIR's package (this tree by default)
     python3 chip_smoke.py --retrieval-step0 [OUT]
                                    # the readings behind train_retrieval's
                                    # step-0 limits (alpha 1 and optimal
@@ -25,9 +35,9 @@ Phases, one JSON line each; any failure exits non-zero:
   build         compiles the CUDA kernels from atq_tpu_torch/csrc (nvcc);
                 ptxas's registers and spills by kernel, and
                 the HMMA count of each tiled_packed_kernel,
-                gemm_tc_kernel, dwda_kernel and attention backward
-                (attn_bwd_rows_kernel, attn_bwd_keys_kernel)
-                instantiation (cuobjdump -sass).
+                gemm_tc_kernel, dwda_kernel and attention forward and
+                backward (attn_fwd_kernel, attn_bwd_rows_kernel,
+                attn_bwd_keys_kernel) instantiation (cuobjdump -sass).
   kernels       holds each kernel against its plain PyTorch version on the
                 card (order statistic bit-exact at every listed size and
                 rank, repeated bit for bit, one stream operation a call at
@@ -38,9 +48,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 shapes, beside the card's bound for the same work (the
                 packed kernels: bytes, or three bf16 passes a product at
                 the tensor-core rate; the fused linear kernels and the
-                attention backward: bytes, or three TF32 products a
-                product at the TF32 rate; the others: bytes or f32
-                operations).
+                attention forward and backward: bytes, or three TF32
+                products a product at the TF32 rate; the others: bytes or
+                f32 operations).
   serve_dense   starts the port's HTTP server in-process on a seeded,
                 full-width Fashion-MNIST RPB classifier (28x28x1 input,
                 3136 -> 128 -> 10 head) written as a JAX-layout .npz, posts
@@ -117,8 +127,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 bf16 peak, peak memory, the losses (finite, the last below
                 the first), launches per step (batched order statistic 6,
                 attention forward 24 with remat's recompute, backward 12),
-                then the device busy share and top kernels of two traced
-                steps.
+                then the device busy share, top kernels and the attention
+                kernels' device ms of two traced steps.
   train_retrieval
                 the retrieval slice (python -m atq_tpu_torch.train.retrieval)
                 at the README recipe's widths. First the fused kernels at
@@ -161,8 +171,11 @@ shape and fail unless it is 1. The attention kernels against their
 plain versions at (64, 12, 256, 64) f32, (4, 4, 512, 64) f32,
 (4, 4, 256, 64) bf16 and ATTN_CASES' edge cases (S = 1, 50, 64, 257, 512;
 D = 16, 20, 64, 128; both dtypes; padding biases with a fully padded row):
-o, dq, dk, dv within rtol/atol 1e-4 (f32) or 2e-2 (bf16), each backward
-launched twice and repeated bit for bit. The attention rows of phase
+o, dq, dk, dv within rtol/atol 1e-4 (f32) or 2e-2 (bf16), the forward and
+the backward each launched twice and repeated bit for bit. The float32
+forward's o is also held against a float64 forward: each element's error
+over its Σ_j p_j·|v_j| within F64_REL_TOL (1e-5), which one TF32 pass a
+product on the same inputs must miss. The attention rows of phase
 kernels give the backward's device ms by launch (its two kernels) and the
 kernels SDPA ran, by the profiler's names.
 
@@ -188,7 +201,9 @@ the same operands must miss at the two head layers.
 
 --compare also holds the attention backward's bits equal in all four runs
 (a digest of dq, dk, dv over ATTN_CASES; when attention is among its
-kinds) and fails if they differ. Its order_stat rows give both wrappers'
+kinds) and fails if they differ. With the kind encoder it gives each run's
+train_encoder step: ms/step, tokens/s, MFU, and the attention kernels'
+device ms in a traced pair of steps. Its order_stat rows give both wrappers'
 device ms, event ms and stream operations a call at the main paths'
 shapes.
 
@@ -244,7 +259,9 @@ FUSED_TOL = 1e-4  # rtol/atol on y, dx, dw; relative on dalpha
 # over the element's Σ|a|·|b|: 3xTF32 with step sums sits near 1e-7 there,
 # one TF32 pass near 1e-4 (tests/test_torch_fused_gemm_tc.py). dx's values
 # are about 1e-3, so FUSED_TOL's atol alone would pass one TF32 pass; this
-# bound does not.
+# bound does not. The attention forward's o is held the same way, each
+# element's error over its Σ_j p_j·|v_j| (tests/test_torch_attention_fwd_
+# tiled.py: 3xTF32 with step sums near 3e-7, one TF32 pass 5e-5 to 1e-3).
 F64_REL_TOL = 1e-5
 # Edge shapes of the dW/dalpha kernel, (M, N, K): N = 10 and 24, K = 100 and
 # 200 (ragged 64 x 32 tiles, unaligned rows), M = 1, 7 and 17 (a partial
@@ -438,8 +455,8 @@ def phase_build(smi: str):
         log = f.read()
     hmma = {kind: _sass_hmma(build_info["library"], kind)
             for kind in ("tiled_packed_kernel", "gemm_tc_kernel",
-                         "dwda_kernel", "attn_bwd_rows_kernel",
-                         "attn_bwd_keys_kernel")}
+                         "dwda_kernel", "attn_fwd_kernel",
+                         "attn_bwd_rows_kernel", "attn_bwd_keys_kernel")}
     for kind, counts in hmma.items():  # the tensor-core kernels use them
         if counts is not None and (not counts or 0 in counts.values()):
             raise AssertionError(f"{kind}: no HMMA in its SASS: {counts}")
@@ -942,10 +959,57 @@ def _attn_inputs(gen, shape, dtype, with_bias):
     return q, k, v, do, bias
 
 
+def _attn_f64(q, k, v, scale, bias, one_tf32_pass=False):
+    """A float64 forward of float32 q, k, v on the card: o, and each
+    element's Σ_j p_j·|v_j|. With ``one_tf32_pass``, every operand of the
+    two products (q, k, then p and v) is rounded to TF32 first and each
+    product summed exactly: one TF32 pass, the control."""
+    def operand(x):
+        x = x.float().contiguous()
+        return (_tf32_rna(x) if one_tf32_pass else x).double()
+
+    s = operand(q) @ operand(k).transpose(-1, -2) * scale
+    if bias is not None:
+        s = s + bias.double()
+    # The kernel's guard, -1e30 in float32 (below -1e30 in float64, and
+    # equal to the padding bias, so a fully padded row stays uniform).
+    m = torch.clamp(s.amax(dim=-1, keepdim=True),
+                    min=float(np.float32(-1e30)))
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)
+    if one_tf32_pass:
+        p = operand(p)
+    vv = operand(v)
+    return p @ vv, p @ vv.abs()
+
+
+def _attn_f64_rel_err(name, o, q, k, v, scale, bias):
+    """The float32 forward's o against float64, each element's error over
+    its Σ_j p_j·|v_j|; fails past F64_REL_TOL. One TF32 pass a product on
+    the same inputs must fail that bound, so that it tells 3xTF32 from one
+    pass on this data. Returns both errors."""
+    want, size = _attn_f64(q, k, v, scale, bias)
+
+    def rel(out):
+        return ((out.double() - want).abs() / size).max().item()
+
+    err = rel(o)
+    if err > F64_REL_TOL:
+        raise AssertionError(f"{name}: {err} of Σ p|v| from float64 "
+                             f"(bound {F64_REL_TOL})")
+    one = rel(_attn_f64(q, k, v, scale, bias, one_tf32_pass=True)[0])
+    if one <= F64_REL_TOL:
+        raise AssertionError(f"{name}: one TF32 pass, {one}, meets the "
+                             f"bound {F64_REL_TOL}: it cannot tell")
+    return err, one
+
+
 def check_attention(gen):
     """Forward and backward kernels against their plain versions; o and
-    dq, dk, dv within rtol/atol 1e-4 (float32) or 2e-2 (bfloat16); the
-    backward launched twice a case, and the two must agree bit for bit."""
+    dq, dk, dv within rtol/atol 1e-4 (float32) or 2e-2 (bfloat16); each
+    kernel launched twice a case, and the two must agree bit for bit. The
+    float32 forward also against float64 (_attn_f64_rel_err), with one
+    TF32 pass as the control."""
     from atq_tpu_torch.ops import fused_attention as fa
 
     errs = {"fused_attention_fwd": 0.0, "fused_attention_bwd": 0.0}
@@ -954,13 +1018,22 @@ def check_attention(gen):
         q, k, v, do, bias = _attn_inputs(gen, shape, dtype, with_bias)
         scale = 1.0 / float(np.sqrt(shape[3]))
         tol = ATTN_TOL[dtype]
-        o = fa.fused_attention_forward(q, k, v, scale, bias)
+
+        def forward():
+            return fa.fused_attention_forward(q, k, v, scale, bias)
+
+        o = forward()
+        _same_bits(f"attention fwd {shape} {dtype}", forward, o)
         if not torch.isfinite(o).all():
             raise AssertionError(f"attention {shape}: non-finite output")
         case = {"shape": shape, "dtype": str(dtype), "bias": with_bias}
         case["fwd"] = _err(f"attention fwd {shape} {dtype}", o.float(),
                            fa.forward_plain(q, k, v, scale, bias).float(),
                            tol)
+        if dtype == torch.float32:
+            case["fwd_f64_rel_err"], case["fwd_one_tf32_pass"] = \
+                _attn_f64_rel_err(f"attention fwd {shape}", o, q, k, v,
+                                  scale, bias)
 
         def backward():
             return torch.cat([g.flatten() for g in fa.fused_attention_backward(
@@ -1027,7 +1100,10 @@ def time_attention(gen):
         return torch.autograd.grad(o_sdpa, leaves, do, retain_graph=True)
 
     elems = b * h * s * d
-    fwd_ms, fwd_by = bound(4 * elems * 4, 4 * s * s * d * b * h)
+    # The forward's two products on the tensor cores as 3xTF32: three TF32
+    # products each, 3 * 4 * S^2 * D operations a head.
+    fwd_ms, fwd_by = bound(4 * elems * 4, 3 * 4 * s * s * d * b * h,
+                           PEAK_TF32_FLOP_PER_S)
     # The backward's five products on the tensor cores as 3xTF32: three
     # TF32 products each, 3 * 10 * S^2 * D operations a head.
     bwd_ms, bwd_by = bound(7 * elems * 4, 3 * 10 * s * s * d * b * h,
@@ -1109,6 +1185,13 @@ def phase_kernels():
           "batched_order_stat_max_abs_err": bos_err,  # statistic and max
           "batched_order_stat_sum_max_rel_err": bos_sum_rel,
           "attention_cases": attn_cases,
+          # float32 forward over Σ p|v| from float64: the kernel's largest,
+          # one TF32 pass's least (F64_REL_TOL between them)
+          "attention_fwd_f64_rel_err": {
+              "kernel": max(c["fwd_f64_rel_err"] for c in attn_cases
+                            if "fwd_f64_rel_err" in c),
+              "one_tf32_pass": min(c["fwd_one_tf32_pass"] for c in attn_cases
+                                   if "fwd_one_tf32_pass" in c)},
           "packed_cases": packed_cases,
           "packed_max_abs_err": packed_errs, "timings": timings})
     return {"order_stat": os_err, "ternary_matmul": mm_err,
@@ -1892,6 +1975,81 @@ def _compare_encoder(what, got, want, loss_rtol, rtol, atol):
             "grad_max": top, "grad_leaves": len(want[1])}
 
 
+def _enter_tree(tree, flag):
+    """Makes ``tree`` (a checkout) the working directory and imports its
+    atq_tpu_torch; fails if another was imported (the process must not
+    have imported one before). Returns the tree's absolute path."""
+    tree = os.path.abspath(tree)
+    os.chdir(tree)
+    sys.path.insert(0, tree)
+    import atq_tpu_torch
+
+    if not os.path.abspath(atq_tpu_torch.__file__).startswith(tree + os.sep):
+        raise AssertionError(f"{flag} {tree} imported "
+                             f"{atq_tpu_torch.__file__}")
+    return tree
+
+
+def encoder_step0_readings(out, tree="."):
+    """The readings behind encoder_step0's AMP limits, from ``tree``'s
+    package (this file's functions; run it in a process that has not
+    imported atq_tpu_torch): step 0 under AMP with einsum+unhoisted (the
+    phase's reference), fused+hoisted as it ships, fused unhoisted,
+    einsum+hoisted, and fused+hoisted with the attention forward swapped
+    for its plain version and for a float64 forward rounded to float32;
+    each against the reference with its largest difference over the
+    largest |gradient| and the phase's verdict. JSON in ``out``."""
+    out = os.path.abspath(out)
+    tree = _enter_tree(tree, "--encoder-step0")
+    from atq_tpu_torch.ops import fused_attention as fa
+    from atq_tpu_torch.utils.platform import resolve_device
+
+    resolve_device("cuda")
+
+    def forward64(q, k, v, scale, bias=None):
+        s = q.double() @ k.double().transpose(-1, -2) * scale
+        if bias is not None:
+            s = s + bias.double()
+        return (torch.softmax(s, dim=-1) @ v.double()).to(q.dtype)
+
+    variants = {"einsum": ("einsum", False, None),
+                "fused_hoist": ("fused", True, None),
+                "fused": ("fused", False, None),
+                "einsum_hoist": ("einsum", True, None),
+                "fused_hoist_plain_forward": ("fused", True,
+                                              fa.forward_plain),
+                "fused_hoist_float64_forward": ("fused", True, forward64)}
+    shipped = fa.fused_attention_forward
+    runs = {}
+    for name, (attn, hoist, forward) in variants.items():
+        fa.fused_attention_forward = forward or shipped
+        try:
+            runs[name] = _encoder_step0("cuda", True, attn, hoist)
+        finally:
+            fa.fused_attention_forward = shipped
+    ref = runs["einsum"]
+    top = max(g.abs().max().item() for g in ref[1].values())
+    readings = {"tree": tree, "grad_max": top,
+                "amp_limits": [AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_ATOL],
+                "loss": {name: r[0] for name, r in runs.items()}}
+    for name, run in runs.items():
+        if name == "einsum":
+            continue
+        worst = max(((run[1][n] - g).abs().max().item() / top, n)
+                    for n, g in ref[1].items())
+        try:
+            _compare_encoder(name, run, ref, AMP_LOSS_RTOL, AMP_GRAD_RTOL,
+                             AMP_GRAD_ATOL)
+            verdict = "pass"
+        except AssertionError as e:
+            verdict = str(e).splitlines()[0]
+        readings[name] = {"grad_max_abs_diff_over_max": worst[0],
+                          "worst_leaf": worst[1], "verdict": verdict}
+    with open(out, "w") as f:
+        json.dump(readings, f, indent=1)
+    emit(readings)
+
+
 def phase_encoder_step0():
     """Step 0 at bert-base widths (2 layers, batch 8, sequence 256):
     fused+hoisted on the card against the CPU's plain versions in float32,
@@ -1944,8 +2102,34 @@ def _trace_encoder():
         wall = time.perf_counter() - t1
     events = prof.key_averages()
     busy_s = _device_us(events) / 1e6
+    attention = {name: sum(e.self_device_time_total for e in events
+                           if name in e.key) / 1e3 / steps
+                 for name in ("attn_fwd_kernel", "attn_bwd_rows_kernel",
+                              "attn_bwd_keys_kernel")}
     return {"build_s": build_s, "traced_steps": steps, "wall_s": wall,
-            "busy_share": busy_s / wall, **_breakdown(events, steps, top=12)}
+            "busy_share": busy_s / wall,
+            "attention_device_ms_per_step": attention,
+            **_breakdown(events, steps, top=12)}
+
+
+def encoder_run():
+    """One ``python -m atq_tpu_torch.train.scale --configs bert-base --attn
+    fused --hoist`` run (its main(): 2 warm-up and 8 timed steps) and a
+    traced pair of steps (_trace_encoder), with the imported package."""
+    from atq_tpu_torch.train.scale import main as scale_main
+
+    with tempfile.TemporaryDirectory() as tmp:
+        row = scale_main(ENCODER_ARGV + ["--out",
+                                         os.path.join(tmp, "scale.json")])[0]
+    if "error" in row:
+        raise AssertionError(f"encoder run: {row['error']}")
+    trace = _trace_encoder()
+    return {**{k: row[k] for k in ("ms_per_step", "tokens_per_sec",
+                                   "mfu_pct")},
+            "traced_device_ms_per_step": trace["device_ms_per_step"],
+            "traced_busy_share": trace["busy_share"],
+            "attention_device_ms_per_step":
+                trace["attention_device_ms_per_step"]}
 
 
 def phase_train_encoder(tmp):
@@ -2468,6 +2652,8 @@ def order_stat_rows(mod, gen):
     return rows
 
 
+# The kinds --time-tree and --compare take by default; "encoder"
+# (encoder_run, about a minute a run) only when named.
 TIME_KINDS = ("matmul", "packed", "fused", "attention", "order_stat")
 
 
@@ -2482,15 +2668,11 @@ def time_tree(tree, out, *kinds):
     attention backward's digest (attention_bwd_digest, this file's, on
     the tree's kernels). Run it in a process that has not imported
     atq_tpu_torch: the tree's package must be the one imported."""
-    tree, out = os.path.abspath(tree), os.path.abspath(out)
-    os.chdir(tree)
-    sys.path.insert(0, tree)
+    out = os.path.abspath(out)
+    tree = _enter_tree(tree, "--time-tree")
     mod = importlib.import_module("chip_smoke")
     import atq_tpu_torch
 
-    if not os.path.abspath(atq_tpu_torch.__file__).startswith(tree + os.sep):
-        raise AssertionError(f"--time-tree {tree} imported "
-                             f"{atq_tpu_torch.__file__}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     kinds = set(kinds or TIME_KINDS)
     result = {"tree": tree, "package": atq_tpu_torch.__file__,
@@ -2508,7 +2690,8 @@ def time_tree(tree, out, *kinds):
               if "attention" in kinds else None,
               "order_stat": order_stat_rows(
                   mod, torch.Generator(device="cuda").manual_seed(0))
-              if "order_stat" in kinds else None}
+              if "order_stat" in kinds else None,
+              "encoder": encoder_run() if "encoder" in kinds else None}
     with open(out, "w") as f:
         json.dump(result, f)
 
@@ -2661,6 +2844,17 @@ def compare(parent, out_dir="outputs/compare", *kinds):
                 calls = 4 if shape["n"] == 589824 else 2
                 per_batch[f"train_encoder_step_batched_order_stat_"
                           f"{shape['n']}"] = [calls * old_ms, calls * new_ms]
+    if "encoder" in kinds:
+        # train_encoder's step in each run: ms/step, tokens/s and MFU from
+        # the timed window, device ms from the traced pair of steps.
+        keys = ("ms_per_step", "tokens_per_sec", "mfu_pct",
+                "traced_device_ms_per_step", "traced_busy_share")
+        for what, pair in (("old", old), ("new", new)):
+            emit({"compare": "train_encoder", "tree": what,
+                  **{key: [r["encoder"][key] for r in pair] for key in keys},
+                  "attention_device_ms_per_step": [
+                      r["encoder"]["attention_device_ms_per_step"]
+                      for r in pair]})
     emit({"per_batch_device_ms_old_new": per_batch})
 
 
@@ -2681,6 +2875,9 @@ def main(argv=None):
         return 0
     if argv[:1] == ["--compare"]:
         compare(*argv[1:])
+        return 0
+    if argv[:1] == ["--encoder-step0"]:
+        encoder_step0_readings(*argv[1:])  # before importing atq_tpu_torch
         return 0
     from atq_tpu_torch.utils.platform import resolve_device
 

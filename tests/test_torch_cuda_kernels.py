@@ -453,6 +453,26 @@ def _attn_inputs(cuda, shape, dtype, with_bias, seed=0):
     return q, k, v, do, bias
 
 
+# The float32 forward's o against a float64 forward on the same inputs:
+# each element's error over its Σ_j p_j·|v_j| within 1e-5 (chip_smoke.py's
+# F64_REL_TOL), which one TF32 pass a product does not meet
+# (tests/test_torch_attention_fwd_tiled.py).
+ATTN_F64_REL_TOL = 1e-5
+
+
+def _attn_f64_rel_err(o, q, k, v, scale, bias):
+    s = q.double() @ k.double().transpose(-1, -2) * scale
+    if bias is not None:
+        s = s + bias.double()
+    # The kernel's guard, -1e30 in float32 (the padding bias's value).
+    m = torch.clamp(s.amax(dim=-1, keepdim=True),
+                    min=float(np.float32(-1e30)))
+    e = torch.exp(s - m)
+    p = e / e.sum(dim=-1, keepdim=True)
+    want = p @ v.double()
+    return ((o.double() - want).abs() / (p @ v.double().abs())).max().item()
+
+
 @pytest.mark.parametrize("shape,dtype,with_bias", ATTN_CASES)
 def test_fused_attention_kernels_match_plain(cuda, shape, dtype, with_bias):
     from atq_tpu_torch.ops import fused_attention as fa
@@ -470,6 +490,9 @@ def test_fused_attention_kernels_match_plain(cuda, shape, dtype, with_bias):
     assert torch.isfinite(o).all()
     torch.testing.assert_close(o.float(), fa.forward_plain(
         q, k, v, scale, bias).float(), rtol=tol, atol=tol)
+    if dtype == torch.float32:
+        err = _attn_f64_rel_err(o, q, k, v, scale, bias)
+        assert err <= ATTN_F64_REL_TOL, f"o: {err} of Σ p|v| from float64"
     for name, got, want in zip("qkv", grads, fa.backward_plain(
             q, k, v, scale, bias, do)):
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
@@ -490,6 +513,21 @@ def test_fused_attention_backward_repeats_bit_for_bit(cuda, shape, dtype,
     again = fa.fused_attention_backward(q, k, v, scale, bias, do)
     for name, a, b in zip("qkv", first, again):
         assert torch.equal(a, b), f"d{name} differs between two launches"
+
+
+@pytest.mark.parametrize("shape,dtype,with_bias",
+                         [((2, 3, 257, 64), torch.float32, True),
+                          ((2, 2, 50, 20), torch.bfloat16, True),
+                          ((1, 2, 512, 128), torch.float32, False)])
+def test_fused_attention_forward_repeats_bit_for_bit(cuda, shape, dtype,
+                                                     with_bias):
+    from atq_tpu_torch.ops import fused_attention as fa
+
+    q, k, v, _, bias = _attn_inputs(cuda, shape, dtype, with_bias, seed=1)
+    scale = 1.0 / np.sqrt(shape[3])
+    first = fa.fused_attention_forward(q, k, v, scale, bias)
+    again = fa.fused_attention_forward(q, k, v, scale, bias)
+    assert torch.equal(first, again), "o differs between two launches"
 
 
 def test_fused_attention_backward_allocates_no_score_tensor(cuda):
