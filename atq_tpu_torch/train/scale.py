@@ -126,19 +126,20 @@ class Encoder(nn.Module):
 
 def build_step(embed, ffn, heads, layers, seq, batch, remat, scan,
                use_amp=True, grad_mode="ste", remat_policy="save_quantized",
-               attn_impl="einsum", hoist_quant=False, device=None):
+               attn_impl="einsum", hoist_quant=False, device=None, seed=0):
     """``(step, step_fn, state, n_params)`` as the JAX harness returns
     them; ``state`` is ``(model, optimizer)`` and ``step(state)`` returns
-    ``(state, loss)`` with the loss left on the device."""
+    ``(state, loss)`` with the loss left on the device. ``seed`` draws the
+    batch and the init (the harness's is 0)."""
     device = resolve_device(device)
     dtype = torch.bfloat16 if use_amp else None
-    rng = np.random.RandomState(0)
+    rng = np.random.RandomState(seed)
     tokens = torch.from_numpy(rng.randint(0, VOCAB, (batch, seq))).to(device)
     labels = torch.from_numpy(rng.randint(0, N_CLASSES, (batch,))).to(device)
     model = Encoder(embed, ffn, heads, layers, remat, scan, dtype=dtype,
                     grad_mode=grad_mode, remat_policy=remat_policy,
                     attn_impl=attn_impl, hoist_quant=hoist_quant,
-                    generator=torch.Generator().manual_seed(0)).to(device)
+                    generator=torch.Generator().manual_seed(seed)).to(device)
     opt = AdamChain(model.named_parameters(), lambda _: LEARNING_RATE,
                     decoupled_weight_decay=WEIGHT_DECAY)
     n_params = sum(p.numel() for p in model.parameters())

@@ -20,10 +20,11 @@
                                    # of a traced step)
     python3 chip_smoke.py --encoder-step0 OUT [DIR]
                                    # the readings behind encoder_step0's
-                                   # AMP limits (einsum, fused as shipped,
-                                   # unhoisted, the forward swapped for its
-                                   # plain version and for float64) from
-                                   # DIR's package (this tree by default)
+                                   # limits at seeds 0-2 (fused as shipped,
+                                   # the forward swapped for its plain
+                                   # version, for float64 and for two
+                                   # planted faults) from DIR's package
+                                   # (this tree by default)
     python3 chip_smoke.py --retrieval-step0 [OUT]
                                    # the readings behind train_retrieval's
                                    # step-0 limits (alpha 1 and optimal
@@ -113,13 +114,18 @@ Phases, one JSON line each; any failure exits non-zero:
                 and the attention kernels) against the CPU's plain
                 versions, loss within 1e-5 relative and gradients within
                 rtol 1e-4 and 1e-5 of the largest |gradient| (train_dense's
-                rule);
+                rule), with one TF32 pass a product in the attention
+                forward as a planted fault that must fail those limits;
                 then, on the card under AMP, fused+hoisted against
                 einsum+unhoisted: loss within 1e-4, gradients within rtol
-                1e-3 and 1e-3 of the largest (the attention is float32 on
-                both paths and the bf16 products take the same weights, but
-                the two softmaxes sum in another order and a bf16 rounding
-                of an activation may flip).
+                1e-3 and 1e-3 of the largest, the α leaves (one element a
+                layer, which sums a whole layer's bf16 roundings) within
+                1e-2 of the largest (AMP_ALPHA_ATOL), with the attention in
+                bfloat16 as a planted fault that must fail them (it does at
+                this seed, not at every seed). Under AMP no limit tells one
+                TF32 pass from a correct forward: bf16 roundings of
+                activations flip with the attention's last bits (PERF.md,
+                PR 14).
   train_encoder that module's main() with --configs bert-base --attn fused
                 --hoist (12 layers, batch 64, sequence 256, AMP, remat
                 save_quantized, AdamW 1e-4): 2 warm-up and 8 timed steps on
@@ -228,6 +234,7 @@ import time
 import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
+from unittest import mock
 
 import numpy as np
 import torch
@@ -298,6 +305,8 @@ ATTN_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # Encoder step 0: bert-base widths, 2 layers, batch 8, sequence 256.
 ENCODER_STEP0 = (768, 3072, 12, 2, 256, 8, True, True)
 AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_ATOL = 1e-4, 1e-3, 1e-3
+AMP_ALPHA_ATOL = 1e-2  # the α leaves' atol under AMP (phase_encoder_step0)
+ENCODER_STEP0_SEEDS = (0, 1, 2)  # the seeds --encoder-step0 reads
 ENCODER_ARGV = ["--configs", "bert-base", "--attn", "fused", "--hoist",
                 "--steps", "8"]
 ENCODER_PER_STEP = {"batched_order_stat": 6, "fused_attention_fwd": 24,
@@ -1940,39 +1949,99 @@ def _calibrate_alphas(model):
                 mod.alpha.copy_(a.reshape(mod.alpha.shape))
 
 
-def _encoder_step0(device, use_amp, attn, hoist):
+def _encoder_step0(device, use_amp, attn, hoist, seed=0, forward=None):
     """Loss and every gradient of step 0 of the port's QAT step at
-    ENCODER_STEP0 on ``device``, from the seed-0 init with calibrated
-    alphas."""
+    ENCODER_STEP0 on ``device``, from the ``seed`` init with calibrated
+    alphas. ``forward``, a function of plain PyTorch, takes the place of
+    the attention kernel's wrapper (a reading or a planted fault); the step
+    must call it."""
+    from atq_tpu_torch.ops import fused_attention as fa
     from atq_tpu_torch.train.scale import build_step
 
     step, _, state, _ = build_step(*ENCODER_STEP0, use_amp=use_amp,
                                    attn_impl=attn, hoist_quant=hoist,
-                                   device=device)
+                                   device=device, seed=seed)
     _calibrate_alphas(state[0])
-    state, loss = step(state)
+    if forward is None:
+        state, loss = step(state)
+    else:
+        calls = [0]
+
+        def counted(*args):
+            calls[0] += 1
+            return forward(*args)
+
+        with mock.patch.object(fa, "fused_attention_forward", counted):
+            state, loss = step(state)
+        if not calls[0]:
+            raise AssertionError("encoder step 0: the swapped attention "
+                                 "forward was never called")
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              .detach().cpu() for n, p in state[0].named_parameters()}
     return float(loss), grads
 
 
-def _compare_encoder(what, got, want, loss_rtol, rtol, atol):
-    """Raises past the tolerances (atol relative to the largest
-    |gradient|); returns the largest differences."""
-    loss_rel = abs(got[0] - want[0]) / abs(want[0])
-    if loss_rel > loss_rtol:
-        raise AssertionError(f"{what}: loss {got[0]} vs {want[0]}")
+def _forward_f64(q, k, v, scale, bias=None):
+    """The attention forward in float64 (_attn_f64), rounded to q's type."""
+    return _attn_f64(q, k, v, scale, bias)[0].to(q.dtype)
+
+
+def _forward_one_tf32_pass(q, k, v, scale, bias=None):
+    """A planted fault: the attention forward with one TF32 pass a product
+    (_attn_f64's control) where the kernel takes three."""
+    return _attn_f64(q, k, v, scale, bias, one_tf32_pass=True)[0].to(q.dtype)
+
+
+def _forward_bf16(q, k, v, scale, bias=None):
+    """A planted fault: the attention in bfloat16 (the plain version on q,
+    k and v rounded to bfloat16), as if the projections' float32 bias no
+    longer promoted them under AMP; o back in q's type."""
+    from atq_tpu_torch.ops.fused_attention import forward_plain
+
+    return forward_plain(q.bfloat16(), k.bfloat16(), v.bfloat16(), scale,
+                         bias).to(q.dtype)
+
+
+def _step0_diffs(got, want):
+    """got's distance from want: the loss's relative difference, and the
+    largest gradient difference over the largest |gradient| of want, on
+    the α leaves (one element a layer) and on the others, each with its
+    leaf."""
     top = max(g.abs().max().item() for g in want[1].values())
-    worst, worst_name = 0.0, None
+    worst = {"alpha": (0.0, None), "other": (0.0, None)}
     for name, g in want[1].items():
-        torch.testing.assert_close(got[1][name], g, rtol=rtol, atol=atol * top,
-                                   msg=lambda m: f"{what} grad {name}: {m}")
+        kind = "alpha" if name.endswith(".alpha") else "other"
         err = (got[1][name] - g).abs().max().item() / top
-        if err > worst:
-            worst, worst_name = err, name
-    return {"loss": [got[0], want[0]], "loss_rel_diff": loss_rel,
-            "grad_max_abs_diff_over_max": worst, "worst_leaf": worst_name,
-            "grad_max": top, "grad_leaves": len(want[1])}
+        if err > worst[kind][0]:
+            worst[kind] = (err, name)
+    return {"loss_rel": abs(got[0] - want[0]) / abs(want[0]),
+            "alpha": worst["alpha"], "other": worst["other"],
+            "grad_max": top}
+
+
+def _compare_encoder(what, got, want, loss_rtol, rtol, atol, alpha_atol=None):
+    """Raises past the tolerances (atol relative to the largest |gradient|;
+    ``alpha_atol``, when given, in its place on the α leaves); returns
+    _step0_diffs."""
+    diffs = _step0_diffs(got, want)
+    if diffs["loss_rel"] > loss_rtol:
+        raise AssertionError(f"{what}: loss {got[0]} vs {want[0]}")
+    for name, g in want[1].items():
+        a = alpha_atol if alpha_atol and name.endswith(".alpha") else atol
+        torch.testing.assert_close(got[1][name], g, rtol=rtol,
+                                   atol=a * diffs["grad_max"],
+                                   msg=lambda m: f"{what} grad {name}: {m}")
+    return {"loss": [got[0], want[0]], **diffs}
+
+
+def _must_fail(what, got, want, *limits):
+    """A planted fault's distance from want: it must fail _compare_encoder
+    at ``limits``, so that the check tells it from a correct step."""
+    try:
+        _compare_encoder(what, got, want, *limits)
+    except AssertionError as e:
+        return {**_step0_diffs(got, want), "fails": str(e).splitlines()[0]}
+    raise AssertionError(f"{what} meets the limits: the check cannot tell it")
 
 
 def _enter_tree(tree, flag):
@@ -1991,72 +2060,75 @@ def _enter_tree(tree, flag):
 
 
 def encoder_step0_readings(out, tree="."):
-    """The readings behind encoder_step0's AMP limits, from ``tree``'s
-    package (this file's functions; run it in a process that has not
-    imported atq_tpu_torch): step 0 under AMP with einsum+unhoisted (the
-    phase's reference), fused+hoisted as it ships, fused unhoisted,
-    einsum+hoisted, and fused+hoisted with the attention forward swapped
-    for its plain version and for a float64 forward rounded to float32;
-    each against the reference with its largest difference over the
-    largest |gradient| and the phase's verdict. JSON in ``out``."""
+    """The readings behind encoder_step0's limits, from ``tree``'s package
+    (run it in a process that has not imported atq_tpu_torch), at each of
+    ENCODER_STEP0_SEEDS. Under AMP, against einsum+unhoisted (the phase's
+    reference) and against the float32 einsum step on the card: fused+
+    hoisted as it ships, with the attention forward swapped for its plain
+    version and for float64 (correct forwards), for one TF32 pass a
+    product and for the attention in bfloat16 (planted faults). In float32,
+    against the CPU's plain step: fused+hoisted as it ships and with one
+    TF32 pass. Each with _step0_diffs and the phase's verdict. JSON in
+    ``out``."""
     out = os.path.abspath(out)
     tree = _enter_tree(tree, "--encoder-step0")
-    from atq_tpu_torch.ops import fused_attention as fa
+    from atq_tpu_torch.ops.fused_attention import forward_plain
     from atq_tpu_torch.utils.platform import resolve_device
 
     resolve_device("cuda")
+    amp_variants = {"fused_hoist": None, "plain_forward": forward_plain,
+                    "float64_forward": _forward_f64,
+                    "fault_one_tf32_pass": _forward_one_tf32_pass,
+                    "fault_bf16": _forward_bf16}
+    f32_variants = {"fused_hoist": None,
+                    "fault_one_tf32_pass": _forward_one_tf32_pass}
+    limits = {"amp": (AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_ATOL,
+                      AMP_ALPHA_ATOL),
+              "f32": (STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL)}
+    readings = {"tree": tree, "config": ENCODER_STEP0, "limits": limits,
+                "seeds": {}}
 
-    def forward64(q, k, v, scale, bias=None):
-        s = q.double() @ k.double().transpose(-1, -2) * scale
-        if bias is not None:
-            s = s + bias.double()
-        return (torch.softmax(s, dim=-1) @ v.double()).to(q.dtype)
-
-    variants = {"einsum": ("einsum", False, None),
-                "fused_hoist": ("fused", True, None),
-                "fused": ("fused", False, None),
-                "einsum_hoist": ("einsum", True, None),
-                "fused_hoist_plain_forward": ("fused", True,
-                                              fa.forward_plain),
-                "fused_hoist_float64_forward": ("fused", True, forward64)}
-    shipped = fa.fused_attention_forward
-    runs = {}
-    for name, (attn, hoist, forward) in variants.items():
-        fa.fused_attention_forward = forward or shipped
+    def verdict(what, got, want, kind):
         try:
-            runs[name] = _encoder_step0("cuda", True, attn, hoist)
-        finally:
-            fa.fused_attention_forward = shipped
-    ref = runs["einsum"]
-    top = max(g.abs().max().item() for g in ref[1].values())
-    readings = {"tree": tree, "grad_max": top,
-                "amp_limits": [AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_ATOL],
-                "loss": {name: r[0] for name, r in runs.items()}}
-    for name, run in runs.items():
-        if name == "einsum":
-            continue
-        worst = max(((run[1][n] - g).abs().max().item() / top, n)
-                    for n, g in ref[1].items())
-        try:
-            _compare_encoder(name, run, ref, AMP_LOSS_RTOL, AMP_GRAD_RTOL,
-                             AMP_GRAD_ATOL)
-            verdict = "pass"
+            _compare_encoder(what, got, want, *limits[kind])
+            return "pass"
         except AssertionError as e:
-            verdict = str(e).splitlines()[0]
-        readings[name] = {"grad_max_abs_diff_over_max": worst[0],
-                          "worst_leaf": worst[1], "verdict": verdict}
+            return str(e).splitlines()[0]
+
+    for seed in ENCODER_STEP0_SEEDS:
+        amp_ref = _encoder_step0("cuda", True, "einsum", False, seed)
+        f32_ref = _encoder_step0("cuda", False, "einsum", False, seed)
+        cpu = _encoder_step0("cpu", False, "fused", True, seed)
+        row = {"amp_ref_vs_f32": _step0_diffs(amp_ref, f32_ref),
+               "f32_ref_vs_cpu": _step0_diffs(f32_ref, cpu)}
+        for name, forward in amp_variants.items():
+            run = _encoder_step0("cuda", True, "fused", True, seed, forward)
+            row["amp_" + name] = {**_step0_diffs(run, amp_ref),
+                                  "vs_f32": _step0_diffs(run, f32_ref),
+                                  "verdict": verdict(name, run, amp_ref,
+                                                     "amp")}
+        for name, forward in f32_variants.items():
+            run = _encoder_step0("cuda", False, "fused", True, seed, forward)
+            row["f32_" + name] = {**_step0_diffs(run, cpu),
+                                  "verdict": verdict(name, run, cpu, "f32")}
+        readings["seeds"][seed] = row
+        emit({"seed": seed, **row})
     with open(out, "w") as f:
         json.dump(readings, f, indent=1)
-    emit(readings)
 
 
 def phase_encoder_step0():
     """Step 0 at bert-base widths (2 layers, batch 8, sequence 256):
     fused+hoisted on the card against the CPU's plain versions in float32,
-    then fused+hoisted against einsum+unhoisted on the card under AMP."""
+    then fused+hoisted against einsum+unhoisted on the card under AMP;
+    each with a planted fault in the attention forward that must fail its
+    comparison (one TF32 pass a product in float32, the attention in
+    bfloat16 under AMP)."""
     from atq_tpu_torch.ops import kernel_launches
 
     t0 = time.perf_counter()
+    f32_limits = (STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL)
+    amp_limits = (AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_ATOL, AMP_ALPHA_ATOL)
     cpu = _encoder_step0("cpu", False, "fused", True)
     _reset_launches()
     card = _encoder_step0("cuda", False, "fused", True)
@@ -2065,14 +2137,22 @@ def phase_encoder_step0():
         if not launches[k]:
             raise AssertionError(f"encoder step 0: {k} never launched")
     f32 = _compare_encoder("encoder step 0 card vs cpu", card, cpu,
-                           STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL)
-    amp_fused = _encoder_step0("cuda", True, "fused", True)
+                           *f32_limits)
+    f32_fault = _must_fail(
+        "encoder step 0 card vs cpu, one TF32 pass",
+        _encoder_step0("cuda", False, "fused", True,
+                       forward=_forward_one_tf32_pass), cpu, *f32_limits)
     amp_einsum = _encoder_step0("cuda", True, "einsum", False)
-    amp = _compare_encoder("encoder step 0 fused+hoist vs einsum (AMP)",
-                           amp_fused, amp_einsum, AMP_LOSS_RTOL,
-                           AMP_GRAD_RTOL, AMP_GRAD_ATOL)
+    amp = _compare_encoder(
+        "encoder step 0 fused+hoist vs einsum (AMP)",
+        _encoder_step0("cuda", True, "fused", True), amp_einsum, *amp_limits)
+    amp_fault = _must_fail(
+        "encoder step 0 fused+hoist vs einsum (AMP), bfloat16 attention",
+        _encoder_step0("cuda", True, "fused", True, forward=_forward_bf16),
+        amp_einsum, *amp_limits)
     emit({"phase": "encoder_step0", "config": ENCODER_STEP0,
-          "card_vs_cpu_f32": f32, "fused_hoist_vs_einsum_amp": amp,
+          "card_vs_cpu_f32": f32, "fault_one_tf32_pass_f32": f32_fault,
+          "fused_hoist_vs_einsum_amp": amp, "fault_bf16_amp": amp_fault,
           "launches_card_f32": launches,
           "seconds": time.perf_counter() - t0})
 
