@@ -330,7 +330,9 @@ class Flickr8kLoader:
         self.seed = seed
         self.drop_remainder = drop_remainder
         self.with_image_ids = with_image_ids
-        self._epoch = 0
+        # Epochs iterated so far (each draws its shuffle from seed + epoch);
+        # a resumed run sets it.
+        self.epoch = 0
 
     def __len__(self):
         n = len(self.dataset)
@@ -340,8 +342,8 @@ class Flickr8kLoader:
 
     def __iter__(self) -> Iterator:
         n = len(self.dataset)
-        rng = np.random.RandomState(self.seed + self._epoch)
-        self._epoch += 1
+        rng = np.random.RandomState(self.seed + self.epoch)
+        self.epoch += 1
         order = rng.permutation(n) if self.shuffle else np.arange(n)
         stop = (n // self.batch_size * self.batch_size
                 if self.drop_remainder else n)

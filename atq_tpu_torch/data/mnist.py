@@ -194,7 +194,9 @@ class ArrayLoader:
     raw: bool = False
 
     def __post_init__(self):
-        self._epoch = 0
+        # Epochs iterated so far (each draws its shuffle from seed + epoch);
+        # a resumed run sets it.
+        self.epoch = 0
 
     def __len__(self):
         n = len(self.images)
@@ -204,8 +206,8 @@ class ArrayLoader:
 
     def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         n = len(self.images)
-        rng = np.random.RandomState(self.seed + self._epoch)
-        self._epoch += 1
+        rng = np.random.RandomState(self.seed + self.epoch)
+        self.epoch += 1
         order = rng.permutation(n) if self.shuffle else np.arange(n)
         mean, std = self.stats
         stop = (n // self.batch_size * self.batch_size

@@ -10,11 +10,18 @@ state dict name for name; utils/jax_interop.py carries the flax HWIO
 kernels across as OIHW.
 
 BatchNorm follows flax's torch-like settings (momentum 0.1, eps 1e-5); the
-serving port runs it in eval mode with the running statistics. The 3x3/2 max
-pool pads with -inf, as flax's ``nn.max_pool`` does. When an int8 trunk is
-attached (serve/int8_trunk.py ``attach_int8_collection``), ResNetFeatures
-serves from it instead of the float path, as the JAX module does when it
-finds ``('int8', 'trunk')``.
+serving port runs it in eval mode with the running statistics.
+
+``dtype`` is the convolutions' compute dtype (AMP, as the JAX modules'
+``dtype``): a convolution casts its input and kernel to it and gives its
+output in it, as flax's ``nn.Conv(dtype=bfloat16)`` does; BatchNorm takes
+its input as float32 and computes in float32 (the JAX ``_BN`` has
+``dtype=float32``), so everything between two convolutions stays float32.
+
+The 3x3/2 max pool pads with -inf, as flax's ``nn.max_pool`` does. When
+an int8 trunk is attached (serve/int8_trunk.py ``attach_int8_collection``),
+ResNetFeatures serves from it instead of the float path, as the JAX module
+does when it finds ``('int8', 'trunk')``.
 
 ``ATQ_S2D_STEM`` and ``ATQ_FAST_POOL`` select XLA rewrites in the JAX package
 (ops/s2d_stem.py, ops/fast_pool.py); they are not ported yet (ROADMAP.md
@@ -45,43 +52,59 @@ def _check_unported_flags() -> None:
                 f"{flag}=1 is not ported yet (ROADMAP.md queue 1 item 8)")
 
 
-def _conv(cin: int, cout: int, kernel: int, stride: int, padding: int,
-          generator) -> nn.Conv2d:
-    """flax ``nn.Conv(cout, (k, k), use_bias=False)`` with its default
-    ``lecun_normal`` init."""
-    conv = nn.Conv2d(cin, cout, kernel, stride=stride, padding=padding,
-                     bias=False, device="meta").to_empty(device="cpu")
-    lecun_normal_(conv.weight.data, generator=generator)
-    return conv
+class Conv(nn.Conv2d):
+    """flax ``nn.Conv(cout, (k, k), use_bias=False, dtype=dtype)`` with its
+    default ``lecun_normal`` init: under a compute ``dtype`` the input and
+    the kernel are cast to it and the output stays in it."""
 
-
-def _bn(features: int) -> _BatchNorm:
-    return _BatchNorm(features, eps=1e-5, momentum=0.1)
-
-
-class StemConv(nn.Conv2d):
-    """The 7x7/stride-2/padding-3 stem conv (``conv1``), no bias."""
-
-    def __init__(self, cin: int, features: int, generator=None):
-        super().__init__(cin, features, 7, stride=2, padding=3, bias=False,
-                         device="meta")
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int,
+                 padding: int, generator=None, dtype=None):
+        super().__init__(cin, cout, kernel, stride=stride, padding=padding,
+                         bias=False, device="meta")
         self.to_empty(device="cpu")
         lecun_normal_(self.weight.data, generator=generator)
+        self.compute_dtype = dtype
+
+    def forward(self, x):
+        if self.compute_dtype is None:
+            return super().forward(x)
+        return self._conv_forward(x.to(self.compute_dtype),
+                                  self.weight.to(self.compute_dtype), None)
+
+
+class StemConv(Conv):
+    """The 7x7/stride-2/padding-3 stem conv (``conv1``), no bias."""
+
+    def __init__(self, cin: int, features: int, generator=None, dtype=None):
+        super().__init__(cin, features, 7, 2, 3, generator, dtype)
+
+
+class _BatchNorm32(_BatchNorm):
+    """The JAX ``_BN``: its input is taken as float32 (a compute-dtype
+    convolution's output is cast up before it) and it computes in float32.
+    A float32 input passes as it is."""
+
+    def forward(self, x):
+        return super().forward(x.float())
+
+
+def _bn(features: int) -> _BatchNorm32:
+    return _BatchNorm32(features, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, cin: int, features: int, strides: int = 1,
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
-        self.conv1 = _conv(cin, features, 3, strides, 1, generator)
+        self.conv1 = Conv(cin, features, 3, strides, 1, generator, dtype)
         self.bn1 = _bn(features)
-        self.conv2 = _conv(features, features, 3, 1, 1, generator)
+        self.conv2 = Conv(features, features, 3, 1, 1, generator, dtype)
         self.bn2 = _bn(features)
         if strides != 1 or cin != features:
-            self.downsample_conv = _conv(cin, features, 1, strides, 0,
-                                         generator)
+            self.downsample_conv = Conv(cin, features, 1, strides, 0,
+                                        generator, dtype)
             self.downsample_bn = _bn(features)
 
     def forward(self, x):  # NCHW
@@ -97,17 +120,19 @@ class Bottleneck(nn.Module):
     expansion = 4
 
     def __init__(self, cin: int, features: int, strides: int = 1,
-                 generator=None):
+                 generator=None, dtype=None):
         super().__init__()
         out = features * self.expansion
-        self.conv1 = _conv(cin, features, 1, 1, 0, generator)
+        self.conv1 = Conv(cin, features, 1, 1, 0, generator, dtype)
         self.bn1 = _bn(features)
-        self.conv2 = _conv(features, features, 3, strides, 1, generator)
+        self.conv2 = Conv(features, features, 3, strides, 1, generator,
+                          dtype)
         self.bn2 = _bn(features)
-        self.conv3 = _conv(features, out, 1, 1, 0, generator)
+        self.conv3 = Conv(features, out, 1, 1, 0, generator, dtype)
         self.bn3 = _bn(out)
         if strides != 1 or cin != out:
-            self.downsample_conv = _conv(cin, out, 1, strides, 0, generator)
+            self.downsample_conv = Conv(cin, out, 1, strides, 0, generator,
+                                        dtype)
             self.downsample_bn = _bn(out)
 
     def forward(self, x):  # NCHW
@@ -122,15 +147,16 @@ class Bottleneck(nn.Module):
 
 class ResNetFeatures(nn.Module):
     """Headless ResNet: NHWC images -> pooled features (B, feat_dim).
-    Built in eval mode."""
+    Built in eval mode; ``dtype`` is the convolutions' compute dtype."""
 
     def __init__(self, stage_sizes: Sequence[int] = (2, 2, 2, 2),
                  block=BasicBlock, width: int = 64, in_channels: int = 3,
-                 device=None, generator: Optional[torch.Generator] = None):
+                 device=None, generator: Optional[torch.Generator] = None,
+                 dtype=None):
         super().__init__()
         self.stage_sizes = tuple(stage_sizes)
         self.block = block
-        self.conv1 = StemConv(in_channels, width, generator)
+        self.conv1 = StemConv(in_channels, width, generator, dtype)
         self.bn1 = _bn(width)
         cin = width
         for stage, num_blocks in enumerate(self.stage_sizes):
@@ -138,7 +164,7 @@ class ResNetFeatures(nn.Module):
             for b in range(num_blocks):
                 strides = 2 if stage > 0 and b == 0 else 1
                 setattr(self, f"layer{stage + 1}_{b}",
-                        block(cin, features, strides, generator))
+                        block(cin, features, strides, generator, dtype))
                 cin = features * block.expansion
         # Serving tree from serve/int8_trunk.py (attach_int8_collection).
         self.int8_trunk = None

@@ -11,6 +11,11 @@
   the extra image projector), or with ``return_embeddings`` the two
   embeddings, or with ``return_fused`` the fused embedding.
 
+``compute_dtype`` (``--use_amp``: bfloat16) is the JAX model's: latent
+weights, quantizer thresholds, LayerNorm, BatchNorm and softmax stay
+float32; the effective weights and activations are cast at each matmul and
+convolution. Both embeddings come out float32.
+
 ``forward(..., train=True)`` is flax's ``train`` flag: BatchNorm normalizes
 with the batch statistics and moves its running statistics (the module is
 put in training mode), and dropout is active, its masks drawn from the
@@ -56,7 +61,7 @@ _BACKBONES = {"resnet18": ((2, 2, 2, 2), BasicBlock),
 class ImageEncoder(nn.Module):
     def __init__(self, embed_dim: int = 256, use_rpb: bool = True,
                  sparsity_target: float = 0.3, base_model: str = "resnet18",
-                 grad_mode: str = "parity",
+                 grad_mode: str = "parity", dtype=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if base_model not in _BACKBONES:
@@ -64,11 +69,11 @@ class ImageEncoder(nn.Module):
         initial_sparsity = min(0.1, sparsity_target)
         stages, block = _BACKBONES[base_model]
         self.base_model = ResNetFeatures(stages, block, device="cpu",
-                                         generator=generator)
+                                         generator=generator, dtype=dtype)
         feat = FEATURE_DIMS[base_model]
         self.feature_norm = LayerNorm32(feat)
         self.projector = _proj(use_rpb, feat, embed_dim, 0.2,
-                               initial_sparsity, grad_mode,
+                               initial_sparsity, grad_mode, dtype,
                                generator=generator)
         self.proj_norm = LayerNorm32(embed_dim)
         self.scaling = nn.Parameter(torch.full((1,), 4.0))
@@ -91,7 +96,7 @@ class ATQMultimodalRetrieval(nn.Module):
                  base_model: str = "resnet18", grad_mode: str = "parity",
                  text_moe_experts: int = 0, text_scan_layers: bool = False,
                  text_attn_impl: str = "einsum", max_seq_length: int = 50,
-                 dropout: float = 0.1, device=None,
+                 dropout: float = 0.1, compute_dtype=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         initial_vision = min(0.1, vision_threshold)
@@ -99,24 +104,25 @@ class ATQMultimodalRetrieval(nn.Module):
         self.image_encoder = ImageEncoder(
             embed_dim=embed_dim, use_rpb=use_residual,
             sparsity_target=initial_vision, base_model=base_model,
-            grad_mode=grad_mode, generator=generator)
+            grad_mode=grad_mode, dtype=compute_dtype, generator=generator)
         self.text_encoder = ATQTextEncoder(
             vocab_size=vocab_size, embed_dim=embed_dim, num_heads=8,
             num_layers=4, dim_feedforward=hidden_dim, dropout=dropout,
             use_rpb=use_residual, sparsity_target=initial_text,
             max_seq_length=max_seq_length, grad_mode=grad_mode,
             moe_experts=text_moe_experts, scan_layers=text_scan_layers,
-            attn_impl=text_attn_impl, device="cpu", generator=generator)
+            attn_impl=text_attn_impl, dtype=compute_dtype, device="cpu",
+            generator=generator)
         self.fusion = MultimodalFusion(
             {"image": embed_dim, "text": embed_dim}, embed_dim,
             fusion_method="cross_attention", num_heads=4,
             use_rpb=use_residual, grad_mode=grad_mode, dropout=dropout,
-            device="cpu", generator=generator)
+            dtype=compute_dtype, device="cpu", generator=generator)
         self.text_projector = _proj(use_residual, embed_dim, embed_dim, 0.2,
-                                    initial_text, grad_mode,
+                                    initial_text, grad_mode, compute_dtype,
                                     generator=generator)
         self.image_projector = _proj(use_residual, embed_dim, embed_dim, 0.2,
-                                     initial_vision, grad_mode,
+                                     initial_vision, grad_mode, compute_dtype,
                                      generator=generator)
         self.img_norm = LayerNorm32(embed_dim)
         self.text_norm = LayerNorm32(embed_dim)

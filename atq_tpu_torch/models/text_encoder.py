@@ -18,7 +18,8 @@ Kept from the JAX module:
 ``moe_experts > 0`` raises NotImplementedError (slice H); the reference's
 from-scratch init (``apply_reference_text_init``) is not ported yet
 (ROADMAP.md queue 1). Dropout masks come from the ``generator`` passed to
-``forward``.
+``forward``. ``dtype`` is the layers' matmul compute dtype (AMP); the
+embedding, the LayerNorms and the pooling's softmax stay float32.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ class ATQTextEncoder(nn.Module):
                  use_rpb: bool = True, sparsity_target: float = 0.3,
                  max_seq_length: int = 256, grad_mode: str = "parity",
                  moe_experts: int = 0, scan_layers: bool = False,
-                 attn_impl: str = "einsum", device=None,
+                 attn_impl: str = "einsum", dtype=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         if moe_experts > 0:
@@ -88,22 +89,22 @@ class ATQTextEncoder(nn.Module):
                 num_layers, embed_dim, num_heads,
                 dim_feedforward=dim_feedforward, dropout=dropout,
                 use_rpb=use_rpb, sparsity_target=initial_sparsity,
-                grad_mode=grad_mode, attn_impl=attn_impl, device="cpu",
-                generator=generator)
+                grad_mode=grad_mode, dtype=dtype, attn_impl=attn_impl,
+                device="cpu", generator=generator)
         else:
             for i in range(num_layers):
                 setattr(self, f"layers_{i}", TernaryTransformerLayer(
                     embed_dim, num_heads, dim_feedforward=dim_feedforward,
                     dropout=dropout, use_rpb=use_rpb,
                     sparsity_target=initial_sparsity, layer_idx=i,
-                    grad_mode=grad_mode, attn_impl=attn_impl, device="cpu",
-                    generator=generator))
+                    grad_mode=grad_mode, dtype=dtype, attn_impl=attn_impl,
+                    device="cpu", generator=generator))
         self.norm = LayerNorm32(embed_dim)
         self.attention_pool_0 = _proj(use_rpb, embed_dim, embed_dim // 2,
-                                      0.2, initial_sparsity, grad_mode,
+                                      0.2, initial_sparsity, grad_mode, dtype,
                                       generator=generator)
         self.attention_pool_2 = _proj(use_rpb, embed_dim // 2, 1, 0.2,
-                                      initial_sparsity, grad_mode,
+                                      initial_sparsity, grad_mode, dtype,
                                       generator=generator)
         self.scaling = nn.Parameter(torch.full((1,), 4.0))
         self.to(resolve_device(device))

@@ -5,10 +5,13 @@
 
 The flags match train.py's one for one; ``--device`` (default ``cuda``) is
 the port's own. Without a GPU the run raises unless ``--device cpu`` is
-given. Flags of features not ported yet (``--resume``, ``--profile-dir``,
-``--tensorboard-dir``, ``--grad-accum-steps`` > 1, ``--dp``/``--tp``/
-``--fsdp``) raise ``NotImplementedError``. Plots are written when
-matplotlib is installed and skipped otherwise.
+given. ``--grad-accum-steps N`` averages N microbatches' gradients into one
+update; every ``--orbax-freq`` epochs the whole training state goes to
+``--checkpoint-dir``/orbax_<dataset>/step_N, and ``--resume`` continues from
+the newest one. Flags of features not ported yet (``--profile-dir``,
+``--tensorboard-dir``, ``--dp``/``--tp``/``--fsdp``) raise
+``NotImplementedError``. Plots are written when matplotlib is installed and
+skipped otherwise.
 """
 
 from __future__ import annotations
@@ -65,8 +68,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--subset-fraction", type=float, default=1.0,
                         help="Fraction of the dataset to use (quick runs)")
     parser.add_argument("--resume", action="store_true",
-                        help="Resume from a full training state (not ported "
-                             "yet)")
+                        help="Resume from the newest full training state")
     parser.add_argument("--profile-dir", type=str, default=None,
                         help="Trace epoch 1 here (not ported yet)")
     parser.add_argument("--checkpoint-dir", type=str, default="checkpoints",
@@ -74,12 +76,11 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--plots-dir", type=str, default="plots",
                         help="Directory for the training plots")
     parser.add_argument("--orbax-freq", type=int, default=5,
-                        help="Epochs between full-state saves (the port "
-                             "writes none yet)")
+                        help="Epochs between full training-state saves")
     parser.add_argument("--tensorboard-dir", type=str, default=None,
                         help="TensorBoard scalars (not ported yet)")
     parser.add_argument("--grad-accum-steps", type=int, default=1,
-                        help="Microbatches per update (only 1 is ported)")
+                        help="Microbatches per update (gradients averaged)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="Device to train on (default: cuda)")
     return parser

@@ -22,9 +22,18 @@ waits for the device. On a CUDA device the order statistic runs every step
 (the default, dense path), and with ``ATQ_FUSED=1`` the head's forward, dx
 and dW/dalpha run as the fused CUDA kernels.
 
-Not ported yet (each raises ``NotImplementedError``): gradient
-accumulation, Orbax resume, TensorBoard, ``profile_dir`` traces, and data,
-tensor or fully-sharded parallelism (ROADMAP.md queue 1).
+``grad_accum_steps`` N > 1 splits each batch into N microbatches: each
+runs the teacher's and then the student's forward and backward from the
+pre-update parameters (BatchNorm statistics move through them in order),
+the gradients are their mean, and each model takes one update, as the JAX
+``accum_train_step``. Every ``orbax_freq`` epochs (and after the last) the
+whole training state goes to ``checkpoint_dir/orbax_<dataset>/step_N``
+(:func:`classifier_train_state`, train/checkpoint.py); ``resume`` continues
+from the newest one along the same trajectory.
+
+Not ported yet (each raises ``NotImplementedError``): TensorBoard,
+``profile_dir`` traces, and data, tensor or fully-sharded parallelism
+(ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
@@ -48,6 +57,15 @@ from atq_tpu_torch.models.image_classifier import (
     BaselineCNNClassifier,
 )
 from atq_tpu_torch.ops import kernel_launches
+from atq_tpu_torch.train.checkpoint import (
+    copy_into,
+    numpy_rng_state,
+    restore_train_state,
+    save_train_state,
+    set_numpy_rng_state,
+    state_digest,
+    to_host,
+)
 from atq_tpu_torch.train.schedules_lr import (
     step_lr_schedule,
     warmup_cosine_schedule,
@@ -92,8 +110,6 @@ class ClassifierConfig:
 
 def _check_supported(cfg: ClassifierConfig) -> None:
     later = [
-        (cfg.grad_accum_steps > 1, "grad_accum_steps > 1"),
-        (cfg.resume, "resume (Orbax training state)"),
         (cfg.tensorboard_dir is not None, "tensorboard_dir"),
         (cfg.profile_dir is not None, "profile_dir"),
         (cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp,
@@ -165,7 +181,11 @@ class _OptaxChain:
     (so its decay and its moments still apply). Runs on the parameters'
     device with ``torch._foreach`` ops; the host never reads a value.
     ``schedule(i)`` is the learning rate of update ``i`` (from 0).
+    ``state_dict``/``load_state_dict`` carry the update count and the
+    moments (``MOMENTS``) for a resumable training state.
     """
+
+    MOMENTS = ()
 
     def __init__(self, named_params, schedule: Callable[[int], float],
                  clip_norm: Optional[float] = None, weight_decay: float = 0.0,
@@ -212,6 +232,18 @@ class _OptaxChain:
                 grads[i] = g
         return grads
 
+    def state_dict(self) -> dict:
+        """The update count and the moments (the live tensors)."""
+        return {"count": self.count,
+                **{k: list(getattr(self, k)) for k in self.MOMENTS}}
+
+    def load_state_dict(self, state: dict) -> None:
+        """Restore :meth:`state_dict`'s values, bit for bit, onto the
+        moments' devices."""
+        self.count = int(state["count"])
+        for k in self.MOMENTS:
+            copy_into(getattr(self, k), state[k])
+
 
 class AdamChain(_OptaxChain):
     """optax's ``chain(clip_by_global_norm(1.0)?, masked(
@@ -220,6 +252,8 @@ class AdamChain(_OptaxChain):
     ``decoupled_weight_decay`` (``optax.adamw``'s order) the update becomes
     ``m̂/(√v̂ + eps) + wd·p`` before the ``×(−lr)``, on every parameter.
     The betas and eps default to optax's."""
+
+    MOMENTS = ("mu", "nu")
 
     def __init__(self, named_params, schedule: Callable[[int], float],
                  clip_norm: Optional[float] = None, weight_decay: float = 0.0,
@@ -258,6 +292,8 @@ class SgdChain(_OptaxChain):
     """optax's ``chain(clip_by_global_norm(1.0)?, add_decayed_weights(wd)?,
     sgd(schedule, momentum))``: the trace ``t = g + momentum·t`` (not
     Nesterov), then ``p −= lr(i)·t``."""
+
+    MOMENTS = ("trace",)
 
     def __init__(self, named_params, schedule: Callable[[int], float],
                  clip_norm: Optional[float] = None, weight_decay: float = 0.0,
@@ -310,13 +346,27 @@ def build_train_step(atq_model, base_model, atq_opt, base_opt,
     step (teacher update first, then the student distilled from the
     teacher's pre-update logits). ``generator`` drives augmentation and
     dropout. After the call each parameter's ``.grad`` holds this step's
-    gradient; the metrics are device tensors."""
+    gradient; the metrics are device tensors. With ``cfg.grad_accum_steps``
+    N > 1 the step is ``accum_train_step`` (the module docstring); a batch
+    that N does not divide raises ``ValueError``, as in JAX."""
 
-    def train_step(images, labels, l1_weight):
+    def student_loss(images, labels, base_logits, l1_weight):
+        logits = atq_model(images, generator=generator)
+        loss = _cross_entropy(logits, labels)
+        if cfg.distill:
+            loss = 0.7 * loss + 0.3 * _kd_loss(logits, base_logits.detach())
+        if cfg.use_l1:
+            loss = loss + l1_weight * _l1_penalty(atq_model)
+        return loss, logits
+
+    def prepare(images):
         if cfg.device_augment and images.dtype == torch.uint8:
             # Only raw uint8 batches; float batches are already normalized.
             images = normalize_augment(images, cfg.dataset, generator)
+        return images
 
+    def train_step(images, labels, l1_weight):
+        images = prepare(images)
         base_model.zero_grad(set_to_none=True)
         base_logits = base_model(images, generator=generator)
         base_loss = _cross_entropy(base_logits, labels)
@@ -324,12 +374,7 @@ def build_train_step(atq_model, base_model, atq_opt, base_opt,
         base_opt.step()
 
         atq_model.zero_grad(set_to_none=True)
-        logits = atq_model(images, generator=generator)
-        loss = _cross_entropy(logits, labels)
-        if cfg.distill:
-            loss = 0.7 * loss + 0.3 * _kd_loss(logits, base_logits.detach())
-        if cfg.use_l1:
-            loss = loss + l1_weight * _l1_penalty(atq_model)
+        loss, logits = student_loss(images, labels, base_logits, l1_weight)
         loss.backward()
         atq_opt.step()
         return {
@@ -339,7 +384,37 @@ def build_train_step(atq_model, base_model, atq_opt, base_opt,
             "base_correct": (base_logits.argmax(-1) == labels).sum(),
         }
 
-    return train_step
+    n_accum = cfg.grad_accum_steps
+
+    def accum_train_step(images, labels, l1_weight):
+        total = images.shape[0]
+        if total % n_accum:
+            raise ValueError(f"batch size {total} not divisible by "
+                             f"grad_accum_steps {n_accum}")
+        micro = total // n_accum
+        base_model.zero_grad(set_to_none=True)
+        atq_model.zero_grad(set_to_none=True)
+        sums = None
+        for i in range(n_accum):
+            part = slice(i * micro, (i + 1) * micro)
+            x, y = prepare(images[part]), labels[part]
+            base_logits = base_model(x, generator=generator)
+            base_loss = _cross_entropy(base_logits, y)
+            # .grad sums the microbatches: each backward carries 1/N.
+            (base_loss / n_accum).backward()
+            loss, logits = student_loss(x, y, base_logits, l1_weight)
+            (loss / n_accum).backward()
+            m = {"loss": loss.detach() / n_accum,
+                 "base_loss": base_loss.detach() / n_accum,
+                 "atq_correct": (logits.argmax(-1) == y).sum(),
+                 "base_correct": (base_logits.argmax(-1) == y).sum()}
+            sums = m if sums is None else {k: sums[k] + v
+                                           for k, v in m.items()}
+        base_opt.step()
+        atq_opt.step()
+        return sums
+
+    return train_step if n_accum <= 1 else accum_train_step
 
 
 def _to_device(array: np.ndarray, device) -> torch.Tensor:
@@ -407,6 +482,37 @@ def _weight_distribution(atq_model) -> str:
             f"+1: {pct[2]:.1f}%")
 
 
+def classifier_train_state(atq_model, base_model, atq_opt, base_opt,
+                           step_gen, train_loader, epoch: int,
+                           best_val_acc: float) -> dict:
+    """Everything a resumed run needs to go on along the same trajectory
+    (the live tensors): both models' parameters and buffers, both
+    optimizers, the epochs done, the best validation accuracy, the step
+    generator, the train loader's epoch and numpy's global RNG."""
+    return {"epoch": epoch, "best_val_acc": float(best_val_acc),
+            "atq_model": atq_model.state_dict(),
+            "base_model": base_model.state_dict(),
+            "atq_optimizer": atq_opt.state_dict(),
+            "base_optimizer": base_opt.state_dict(),
+            "generator": step_gen.get_state(),
+            "loader_epoch": getattr(train_loader, "epoch", None),
+            "numpy_rng": numpy_rng_state()}
+
+
+def load_classifier_train_state(state: dict, atq_model, base_model, atq_opt,
+                                base_opt, step_gen, train_loader) -> None:
+    """Put :func:`classifier_train_state`'s values into the live objects,
+    bit for bit (the epoch and best accuracy are the caller's)."""
+    atq_model.load_state_dict(state["atq_model"])
+    base_model.load_state_dict(state["base_model"])
+    atq_opt.load_state_dict(state["atq_optimizer"])
+    base_opt.load_state_dict(state["base_optimizer"])
+    step_gen.set_state(state["generator"])
+    if state["loader_epoch"] is not None:
+        train_loader.epoch = state["loader_epoch"]
+    set_numpy_rng_state(state["numpy_rng"])
+
+
 def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
                      epoch_context=None):
     """Full training run; returns ``(state, results)``. ``state`` holds the
@@ -470,7 +576,32 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
     os.makedirs(cfg.checkpoint_dir, exist_ok=True)
     ckpt_path = os.path.join(cfg.checkpoint_dir,
                              f"atq_model_{cfg.dataset}.npz")
-    for epoch in range(cfg.epochs):
+
+    def train_state(epoch):
+        return classifier_train_state(atq_model, base_model, atq_opt,
+                                      base_opt, step_gen, train_loader,
+                                      epoch, best_val_acc)
+
+    orbax_dir = os.path.join(cfg.checkpoint_dir, f"orbax_{cfg.dataset}")
+    start_epoch = 0
+    if cfg.resume:
+        try:
+            saved, start_epoch = restore_train_state(orbax_dir)
+        except FileNotFoundError:
+            if verbose:
+                print("No checkpoint to resume from; starting fresh")
+        else:
+            load_classifier_train_state(saved, atq_model, base_model,
+                                        atq_opt, base_opt, step_gen,
+                                        train_loader)
+            best_val_acc = saved["best_val_acc"]
+            if verbose:
+                print(f"Resumed from {orbax_dir} at epoch {start_epoch}")
+                print(f"Restored training state (sha256 "
+                      f"{state_digest(to_host(train_state(start_epoch)))})",
+                      flush=True)
+
+    for epoch in range(start_epoch, cfg.epochs):
         current_sparsity = initial_sparsity + (
             final_sparsity - initial_sparsity
         ) * min(1.0, epoch / (cfg.epochs * 0.7))
@@ -533,6 +664,14 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
                             ckpt_path)
             if verbose:
                 print(f"Model saved with accuracy: {best_val_acc:.1f}%")
+        if (epoch + 1) % cfg.orbax_freq == 0 or (epoch + 1) == cfg.epochs:
+            # After this epoch's best-accuracy update (JAX writes before
+            # it, so its resumed run forgets that epoch's accuracy).
+            host = to_host(train_state(epoch + 1))
+            state_path = save_train_state(orbax_dir, epoch + 1, host)
+            if verbose:
+                print(f"Saved training state to {state_path} (sha256 "
+                      f"{state_digest(host)})", flush=True)
 
     test_acc, _ = _run_eval(atq_model, test_loader, device)
     base_test_acc, _ = _run_eval(base_model, test_loader, device)
@@ -541,8 +680,8 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
         "test_acc": test_acc,
         "baseline_test_acc": base_test_acc,
         "best_val_acc": best_val_acc,
-        "mean_imgs_per_sec": float(np.mean(ips[1:]) if len(ips) > 1
-                                   else ips[0]),
+        "mean_imgs_per_sec": (float(np.mean(ips[1:]) if len(ips) > 1
+                                    else ips[0]) if ips else None),
         "checkpoint": ckpt_path if best_val_acc > 0 else None,
     })
     if verbose:
@@ -572,5 +711,6 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
               f"Speed {base_time / max(1e-9, atq_time):.2f}x | "
               f"Acc Delta {test_acc - base_test_acc:.1f}%")
     state = {"atq_model": atq_model, "base_model": base_model,
-             "atq_opt": atq_opt, "base_opt": base_opt}
+             "atq_opt": atq_opt, "base_opt": base_opt,
+             "generator": step_gen}
     return state, results

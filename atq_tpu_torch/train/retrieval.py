@@ -33,11 +33,18 @@ writes the sparsity schedule into the ``sparsity_target`` buffers
 ``training_history.json`` and ``final_report.json``; a checkpoint serves on
 ``python -m atq_tpu_torch.serve --task retrieval`` and on serve.py.
 
+``--use_amp`` builds the model with ``compute_dtype=bfloat16`` (the JAX
+semantics: float32 latent weights, quantizer, norms and softmax; bf16
+matmuls and convolutions). ``--grad_accum_steps N`` > 1 takes the GradCache
+step (:func:`_gradcache_step`): the full batch stays the negative pool at
+one microbatch's activation memory. Every ``--checkpoint_freq`` epochs the
+whole training state goes to ``output_dir/orbax/step_N``
+(:func:`retrieval_train_state`, train/checkpoint.py), and ``--resume``
+continues from the newest one along the same trajectory.
+
 Not ported yet (each raises ``NotImplementedError``, ROADMAP.md queue 1):
-``--use_amp``, ``--grad_accum_steps`` > 1 (GradCache), ``--moe_experts``,
-``--scan_layers``, ``--dp``/``--tp``/``--fsdp``, ``--resume`` (and with it
-the optimizer state in ``checkpoint_epoch_N.npz``), ``--tensorboard_dir``,
-``--profile_dir`` and ``--imagenet_weights``.
+``--moe_experts``, ``--scan_layers``, ``--dp``/``--tp``/``--fsdp``,
+``--tensorboard_dir``, ``--profile_dir`` and ``--imagenet_weights``.
 """
 
 from __future__ import annotations
@@ -74,6 +81,15 @@ from atq_tpu_torch.models.retrieval import (
     get_model_size_info,
 )
 from atq_tpu_torch.ops import kernel_launches
+from atq_tpu_torch.train.checkpoint import (
+    copy_into,
+    numpy_rng_state,
+    restore_train_state,
+    save_train_state,
+    set_numpy_rng_state,
+    state_digest,
+    to_host,
+)
 from atq_tpu_torch.train.classifier import (
     AdamChain,
     SgdChain,
@@ -154,13 +170,10 @@ class RetrievalConfig:
 
 def _check_supported(cfg: RetrievalConfig) -> None:
     later = [
-        (cfg.use_amp, "use_amp (the bf16 compute dtype)"),
-        (cfg.grad_accum_steps > 1, "grad_accum_steps > 1 (GradCache)"),
         (cfg.moe_experts > 0, "moe_experts (the MoE FFN, slice H)"),
         (cfg.scan_layers, "scan_layers"),
         (cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp,
          "dp/tp/fsdp parallelism (slice H)"),
-        (cfg.resume, "resume (the training state, slice G)"),
         (cfg.tensorboard_dir is not None, "tensorboard_dir"),
         (cfg.profile_dir is not None, "profile_dir"),
         (cfg.imagenet_weights is not None,
@@ -316,15 +329,28 @@ def build_retrieval_train_step(model, optimizer, criterion,
     """``train_step(batch, temperature, curriculum_kind,
     baseline_embeds=None) -> loss`` (a device tensor). ``generator`` draws
     the flips and the dropout masks; ``ema_params`` (a list aligned with
-    ``model.parameters()``) is moved towards the updated parameters."""
+    ``model.parameters()``) is moved towards the updated parameters. With
+    ``cfg.grad_accum_steps`` > 1 the step is :func:`_gradcache_step`'s."""
     params = list(model.parameters())
+
+    def prepare(images):
+        if images.dtype == torch.uint8:
+            images = random_hflip(normalize_images(images), generator)
+        return images
+
+    def update():
+        optimizer.step()
+        if ema_params is not None:
+            with torch.no_grad():
+                torch._foreach_mul_(ema_params, EMA_DECAY)
+                torch._foreach_add_(ema_params, torch._foreach_mul(
+                    params, 1 - EMA_DECAY))
 
     def train_step(batch, temperature, curriculum_kind,
                    baseline_embeds=None):
         images, captions, lengths = batch[:3]
         image_ids = batch[3] if cfg.use_multi_positive else None
-        if images.dtype == torch.uint8:
-            images = random_hflip(normalize_images(images), generator)
+        images = prepare(images)
         model.zero_grad(set_to_none=True)
         if cfg.grad_checkpointing:
             img_emb, txt_emb = _checkpointed_forward(
@@ -343,15 +369,97 @@ def build_retrieval_train_step(model, optimizer, criterion,
         if cfg.grad_checkpointing:
             with torch.no_grad():
                 torch._foreach_copy_(stats, saved)
-        optimizer.step()
-        if ema_params is not None:
-            with torch.no_grad():
-                torch._foreach_mul_(ema_params, EMA_DECAY)
-                torch._foreach_add_(ema_params, torch._foreach_mul(
-                    params, 1 - EMA_DECAY))
+        update()
         return loss.detach()
 
-    return train_step
+    def gradcache_step(batch, temperature, curriculum_kind,
+                       baseline_embeds=None):
+        loss = _gradcache_step(model, criterion, cfg, generator, prepare,
+                               batch, temperature, curriculum_kind,
+                               baseline_embeds)
+        update()
+        return loss
+
+    return train_step if cfg.grad_accum_steps <= 1 else gradcache_step
+
+
+def _gradcache_step(model, criterion, cfg: RetrievalConfig, generator,
+                    prepare, batch, temperature, curriculum_kind,
+                    baseline_embeds):
+    """GradCache (Gao et al., "Scaling Deep Contrastive Learning Batch Size
+    under Memory Limited Setup"), as the JAX step
+    (atq_tpu/train/retrieval.py:381-533): the loss keeps the whole batch
+    as its negative pool while activations live one microbatch at a time.
+    Leaves in every parameter's ``.grad`` the gradient of the full-pool
+    loss and returns the loss.
+
+    - Pass 1 embeds the ``N = cfg.grad_accum_steps`` microbatches in turn
+      without gradients; BatchNorm's running statistics move through them
+      in order (the JAX scan's carry), and the generator's state before
+      each microbatch is kept.
+    - The full-pool :func:`pool_loss` of the float32 embeddings (with the
+      whole batch's ``baseline_embeds`` and image ids) and its gradient
+      with respect to them.
+    - Pass 2 re-encodes each microbatch from its kept generator state (the
+      same flips and dropout masks as pass 1) and backpropagates its slice
+      of that gradient; ``.grad`` sums the N microbatches. There is no
+      1/N: the slices already carry it. Train-mode BatchNorm normalizes
+      with batch statistics, so pass 2's outputs do not depend on the
+      running statistics it moves; they are set back to pass 1's final
+      ones, and the generator to its state after pass 1.
+
+    A batch that N does not divide raises ``ValueError``, as in JAX."""
+    images, captions, lengths = batch[:3]
+    image_ids = batch[3] if cfg.use_multi_positive else None
+    n_accum = cfg.grad_accum_steps
+    total = images.shape[0]
+    if total % n_accum:
+        raise ValueError(f"batch size {total} not divisible by "
+                         f"grad_accum_steps {n_accum}")
+    micro = total // n_accum
+    parts = [slice(i * micro, (i + 1) * micro) for i in range(n_accum)]
+
+    def replay(state):
+        if generator is not None:
+            generator.set_state(state)
+
+    starts, img_parts, txt_parts = [], [], []
+    with torch.no_grad():
+        for part in parts:
+            starts.append(generator.get_state() if generator is not None
+                          else None)
+            img, txt = model(prepare(images[part]), captions[part],
+                             lengths[part], return_embeddings=True,
+                             train=True, generator=generator)
+            img_parts.append(img.float())
+            txt_parts.append(txt.float())
+    end = generator.get_state() if generator is not None else None
+    stats = _batchnorm_stats(model)
+    final_stats = [s.clone() for s in stats]
+
+    img_emb = torch.cat(img_parts).requires_grad_()
+    txt_emb = torch.cat(txt_parts).requires_grad_()
+    loss = pool_loss(img_emb, txt_emb, temperature, curriculum_kind,
+                     baseline_embeds, image_ids, cfg, criterion)
+    cot_img, cot_txt = torch.autograd.grad(loss, (img_emb, txt_emb))
+
+    model.zero_grad(set_to_none=True)
+    for part, start in zip(parts, starts):
+        replay(start)
+        x = prepare(images[part])
+        if cfg.grad_checkpointing:
+            img, txt = _checkpointed_forward(model, generator, x,
+                                             captions[part], lengths[part])
+        else:
+            img, txt = model(x, captions[part], lengths[part],
+                             return_embeddings=True, train=True,
+                             generator=generator)
+        torch.autograd.backward((img.float(), txt.float()),
+                                (cot_img[part], cot_txt[part]))
+    with torch.no_grad():
+        torch._foreach_copy_(stats, final_stats)
+    replay(end)
+    return loss.detach()
 
 
 def build_baseline_train_step(baseline_model, baseline_optimizer, criterion,
@@ -463,6 +571,81 @@ def _ms_per_call(fn, device, iters: int = 20, warmup: int = 3) -> float:
     return (time.perf_counter() - t0) / iters * 1000.0
 
 
+def retrieval_train_state(model, optimizer, ema, baseline, baseline_opt,
+                          generators, train_loader, epoch: int,
+                          best_val_r1: float) -> Dict:
+    """Everything a resumed run needs to go on along the same trajectory
+    (the live tensors; checkpoint.py's ``save_train_state`` writes it):
+    the model's parameters and buffers (quant, BatchNorm, constants), the
+    optimizer's count and moments, the EMA, the co-trained baseline and its
+    optimizer, the epochs done, the best validation R@1, the state of
+    every stateful generator, the train loader's epoch (its shuffle) and
+    numpy's global RNG."""
+    state = {"epoch": epoch, "best_val_r1": float(best_val_r1),
+             "model": model.state_dict(),
+             "optimizer": optimizer.state_dict(),
+             "generators": {k: g.get_state() for k, g in generators.items()},
+             "loader_epoch": getattr(train_loader, "epoch", None),
+             "numpy_rng": numpy_rng_state()}
+    if ema is not None:
+        state["ema_params"] = list(ema)
+    if baseline is not None:
+        state["baseline"] = baseline.state_dict()
+        state["baseline_optimizer"] = baseline_opt.state_dict()
+    return state
+
+
+def load_retrieval_train_state(state: Dict, model, optimizer, ema, baseline,
+                               baseline_opt, generators,
+                               train_loader) -> None:
+    """Put :func:`retrieval_train_state`'s values into the live objects,
+    bit for bit (the epoch and best R@1 are the caller's)."""
+    model.load_state_dict(state["model"])
+    optimizer.load_state_dict(state["optimizer"])
+    if (ema is None) != ("ema_params" not in state) or \
+            (baseline is None) != ("baseline" not in state):
+        raise ValueError("the saved training state was written with other "
+                         "--use_ema / --train_baseline flags")
+    if ema is not None:
+        copy_into(ema, state["ema_params"])
+    if baseline is not None:
+        baseline.load_state_dict(state["baseline"])
+        baseline_opt.load_state_dict(state["baseline_optimizer"])
+    if sorted(state["generators"]) != sorted(generators):
+        raise ValueError("the saved generators are "
+                         f"{sorted(state['generators'])}, this run has "
+                         f"{sorted(generators)}")
+    for k, g in generators.items():
+        g.set_state(state["generators"][k])
+    if state["loader_epoch"] is not None:
+        train_loader.epoch = state["loader_epoch"]
+    set_numpy_rng_state(state["numpy_rng"])
+
+
+def optax_state_tree(cfg: RetrievalConfig, optimizer, model) -> Dict:
+    """The optimizer's state under the paths of the JAX trainer's optax
+    chain (``checkpoint_epoch_N.npz``'s ``optimizer_state_dict``): the
+    clip (when on) is element 0 of the outer chain, then adamw's
+    ``(ScaleByAdamState, _, ScaleByScheduleState)``, sgd's
+    ``(_, ((TraceState,), ScaleByScheduleState))`` or adam's
+    ``(_, ScaleByAdamState, ScaleByScheduleState)``; moments in the
+    params' JAX layout, counts int32."""
+    count = np.asarray(optimizer.count, np.int32)
+
+    def tree(moments):
+        return _variables(model, moments)["params"]
+
+    if cfg.optimizer == "sgd":
+        inner = {"1": {"0": {"trace": tree(optimizer.trace)},
+                       "1": {"count": count}}}
+    else:
+        adam = {"count": count, "mu": tree(optimizer.mu),
+                "nu": tree(optimizer.nu)}
+        inner = {"0" if cfg.optimizer == "adamw" else "1": adam,
+                 "2": {"count": count}}
+    return {"1" if cfg.clip_grad else "0": inner}
+
+
 def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
                     epoch_context=None):
     """Full training run; returns ``(state, history, report)`` as the JAX
@@ -496,8 +679,9 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
         hidden_dim=cfg.hidden_dim, vision_threshold=cfg.vision_sparsity,
         text_threshold=cfg.text_sparsity, use_residual=cfg.use_residual,
         grad_mode=cfg.grad_mode, max_seq_length=cfg.max_seq_length,
-        text_attn_impl=cfg.attn_impl, device=device,
-        generator=torch.Generator().manual_seed(cfg.seed))
+        text_attn_impl=cfg.attn_impl,
+        compute_dtype=torch.bfloat16 if cfg.use_amp else None,
+        device=device, generator=torch.Generator().manual_seed(cfg.seed))
     if cfg.reinit_model:
         if verbose:
             print("Reinitializing model weights...")
@@ -530,7 +714,8 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
            if cfg.use_ema else None)
     step_gen = torch.Generator(device=device).manual_seed(cfg.seed + 7)
 
-    baseline = baseline_step = None
+    generators = {"step": step_gen}
+    baseline = baseline_opt = baseline_step = None
     if cfg.train_baseline:
         from atq_tpu_torch.models.baseline_retrieval import (
             BaselineRetrievalModel,
@@ -546,9 +731,10 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
         baseline_opt = AdamChain(baseline.named_parameters(),
                                  lambda _: cfg.learning_rate,
                                  decoupled_weight_decay=cfg.weight_decay)
+        generators["baseline"] = torch.Generator(
+            device=device).manual_seed(cfg.seed + 11)
         baseline_step = build_baseline_train_step(
-            baseline, baseline_opt, criterion,
-            torch.Generator(device=device).manual_seed(cfg.seed + 11))
+            baseline, baseline_opt, criterion, generators["baseline"])
 
     train_step = build_retrieval_train_step(model, optimizer, criterion, cfg,
                                             step_gen, ema)
@@ -561,7 +747,30 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
     metrics_path = os.path.join(cfg.output_dir, "metrics.jsonl")
     core = ("params", "quant", "constants", "batch_stats")
 
-    for epoch in range(cfg.epochs):
+    def train_state(epoch):
+        return retrieval_train_state(model, optimizer, ema, baseline,
+                                     baseline_opt, generators, train_loader,
+                                     epoch, best_val_r1)
+
+    orbax_dir = os.path.join(cfg.output_dir, "orbax")
+    start_epoch = 0
+    if cfg.resume:
+        try:
+            saved, start_epoch = restore_train_state(orbax_dir)
+        except FileNotFoundError:
+            if verbose:
+                print("No checkpoint to resume from; starting fresh")
+        else:
+            load_retrieval_train_state(saved, model, optimizer, ema,
+                                       baseline, baseline_opt, generators,
+                                       train_loader)
+            best_val_r1 = saved["best_val_r1"]
+            if verbose:
+                print(f"Resumed from {orbax_dir} at epoch {start_epoch}")
+                print(f"  Restored training state (sha256 "
+                      f"{state_digest(to_host(train_state(start_epoch)))})")
+
+    for epoch in range(start_epoch, cfg.epochs):
         criterion.set_epoch(epoch, cfg.epochs)
         cl_manager.set_epoch(epoch, cfg.epochs)
         temperature = criterion.get_current_temperature()
@@ -636,12 +845,19 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
             f.write(json.dumps({"epoch": epoch + 1, **epoch_metrics}) + "\n")
         if (epoch + 1) % cfg.checkpoint_freq == 0 \
                 or (epoch + 1) == cfg.epochs:
+            host = to_host(train_state(epoch + 1))
+            state_path = save_train_state(orbax_dir, epoch + 1, host)
+            if verbose:
+                print(f"  Saved training state to {state_path} (sha256 "
+                      f"{state_digest(host)})")
             ckpt_path = os.path.join(cfg.output_dir,
                                      f"checkpoint_epoch_{epoch + 1}.npz")
             save_checkpoint({
                 "epoch": np.asarray(epoch + 1),
                 "model_state_dict": _variables(
                     model, collections=("params", "quant", "batch_stats")),
+                "optimizer_state_dict": optax_state_tree(cfg, optimizer,
+                                                         model),
                 "best_val_r1": np.asarray(best_val_r1),
             }, ckpt_path)
             if verbose:
@@ -688,9 +904,10 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
                         if baseline_time_ms and atq_time_ms > 0 else None),
         "model_size_mb": float(model_info["estimated_memory_usage_MB"]),
         "parameters": int(model_info["total_parameters"]),
-        "pairs_per_sec": float(np.mean(pairs_per_sec_hist[1:])
-                               if len(pairs_per_sec_hist) > 1
-                               else pairs_per_sec_hist[0]),
+        "pairs_per_sec": (float(np.mean(pairs_per_sec_hist[1:])
+                                if len(pairs_per_sec_hist) > 1
+                                else pairs_per_sec_hist[0])
+                          if pairs_per_sec_hist else None),
         "training_args": dataclasses.asdict(cfg),
     }
     with open(os.path.join(cfg.output_dir, "final_report.json"), "w") as f:
@@ -703,7 +920,8 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
             print(f"  Test R@{k}: {test_metrics[f'mean_R@{k}']:.2f}%")
         print(f"  ATQ inference time: {atq_time_ms:.2f} ms per sample")
     state = {"model": model, "optimizer": optimizer, "ema_params": ema,
-             "baseline": baseline, "embed_fn": embed_fn,
+             "baseline": baseline, "baseline_optimizer": baseline_opt,
+             "generators": generators, "embed_fn": embed_fn,
              "stats": {**stats, "pairs_per_sec": pairs_per_sec_hist}}
     return state, history, report
 
@@ -799,7 +1017,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--contrastive_reg", type=float, default=0.02,
         help="Regularization for contrastive loss")
     add("--use_amp", action="store_true",
-        help="Mixed precision (not ported yet)")
+        help="Mixed precision: bf16 matmuls and convolutions")
     add("--use_ema", action="store_true",
         help="Use exponential moving average model")
     add("--train_baseline", action="store_true",
@@ -825,7 +1043,8 @@ def build_parser() -> argparse.ArgumentParser:
     add("--scan_layers", action="store_true",
         help="Scanned text stack (not ported yet)")
     add("--grad_accum_steps", type=int, default=1,
-        help="GradCache accumulation (not ported yet beyond 1)")
+        help="GradCache microbatches per step (the full batch stays the "
+             "negative pool)")
     add("--fsdp", action="store_true",
         help="Fully-sharded data parallelism (not ported yet)")
     add("--tp", type=int, default=1,
@@ -833,7 +1052,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--synthetic_images", type=int, default=400,
         help="Synthetic corpus size when real data missing")
     add("--resume", action="store_true",
-        help="Resume from a training state (not ported yet)")
+        help="Resume from the newest training state in output_dir/orbax")
     add("--profile_dir", type=str, default=None,
         help="Trace epoch 1 here (not ported yet)")
     add("--tensorboard_dir", type=str, default=None,

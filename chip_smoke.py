@@ -30,6 +30,12 @@
                                    # step-0 limits (alpha 1 and optimal
                                    # alphas; card, CPU at 8 and 1 threads,
                                    # float64, planted faults), JSON in OUT
+    python3 chip_smoke.py --retrieval-amp-step0 [OUT]
+                                   # the readings behind
+                                   # train_retrieval_amp's AMP limits (the
+                                   # train step and eval mode; card twice,
+                                   # CPU at 8 and 1 threads, planted
+                                   # faults), JSON in OUT
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -162,6 +168,45 @@ Phases, one JSON line each; any failure exits non-zero:
                 files; then best_model.npz loaded into a fresh model must
                 embed a validation batch within 1e-5 of the trainer's
                 embedding function.
+  train_retrieval_amp
+                the trainer's --use_amp, GradCache and --resume at the
+                recipe's widths. AMP step 0 (train_retrieval's set-up:
+                dropout 0, optimal alphas, 16 float images) on the card
+                against the CPU, in the train step and in eval mode
+                (BatchNorm on its running statistics; the backward of
+                <embeddings, fixed cotangents>), each held by the ratio
+                sum|card - cpu_bf16| / sum|cpu_bf16 - cpu_f32| by leaf
+                group and for the embeddings, and the loss: AMP_STEP_LIMIT
+                and AMP_EVAL_LIMIT (the comment above them gives the
+                readings, --retrieval-amp-step0 takes them). Planted
+                faults (every BatchNorm in bf16; the convolutions left in
+                float32) must fail the eval limits; no limit of the train
+                step can tell them from a correct card (the CPU at 1
+                thread against 8 reads as far as they do). The train
+                step's thresholds and ternary patterns under AMP equal
+                float32's bit for bit (56 each), every threshold on a
+                float32 weight; 27 order-statistic launches. Then GradCache
+                at --batch_size 64 --grad_accum_steps 4 in float32 (dropout
+                0.1, uint8 images): step 0 against the concatenated-pool
+                oracle, and with ATQ_FUSED=1 against dense, every leaf
+                within 1e-4 x (1 + its largest |gradient|), the loss within
+                1e-5, running statistics and generator state equal to the
+                oracle's; launches a step: order statistic 27 x 2 x 4
+                (fused forward 28 x 8, dx and dW/dalpha 28 x 4); its peak
+                memory above the resting allocation below the plain
+                batch-64 step's (beside the plain batch-16 step's). Then the
+                module's main() with --use_amp --batch_size 64
+                --grad_accum_steps 4 for one epoch of 25 steps (counts reset
+                before it and read after): pairs/s, step p50, launches,
+                R@1/5/10 (finite); then 3 traced steps of that step on the
+                trained model (after 2 untraced): host and device ms a step
+                and the busy share. Last the preemption drill: python -m
+                atq_tpu_torch.train.retrieval on the recipe for 2 epochs
+                with --checkpoint_freq 1, SIGKILLed as soon as it reports
+                orbax/step_1 written, then rerun with --resume: exit 0,
+                "Resumed from .../orbax at epoch 1", epoch 2 only, and the
+                restored state's sha256 equal to the one the killed run
+                saved.
 
 The order statistic is held bit-exact (max equal, sum within 1e-6
 relative) against the sort at OS_SIZES and RETRIEVAL_OS_SIZES (randn), at
@@ -223,6 +268,7 @@ the repo beside it, the script exits non-zero and prints no result.
 """
 
 import contextlib
+import dataclasses
 import importlib
 import json
 import os
@@ -2309,11 +2355,14 @@ def _retrieval_path_layers(model):
     return len(layers), sum(m.weight.numel() >= 16384 for m in layers)
 
 
-def _retrieval_step0_setup(tmp, optimal_alphas=True):
-    """The README-width model on the CPU with dropout 0, after
-    --reinit_model and epoch 0 of the gradual schedule, at optimal alphas
-    (or at the recipe's alpha 1), and the first 16 synthetic training
-    pairs as float images (normalized, unflipped)."""
+def _retrieval_step0_setup(tmp, optimal_alphas=True, amp=False, dropout=0.0,
+                           n=RETRIEVAL_BATCH, raw_uint8=False):
+    """The README-width model on the CPU with ``dropout`` (0 by default),
+    after --reinit_model and epoch 0 of the gradual schedule, at optimal
+    alphas (or at the recipe's alpha 1), with ``compute_dtype=bfloat16``
+    when ``amp`` (the same weights), and the first ``n`` synthetic training
+    pairs as float images (normalized, unflipped), or as uint8 images when
+    ``raw_uint8``."""
     from atq_tpu_torch.core.quantize import adaptive_ternary_quantization
     from atq_tpu_torch.core.schedules import GradualQuantizationScheduler
     from atq_tpu_torch.data.flickr8k import Flickr8kDataset
@@ -2326,17 +2375,20 @@ def _retrieval_step0_setup(tmp, optimal_alphas=True):
     )
 
     ds = Flickr8kDataset(os.path.join(tmp, "no_flickr8k"), "train",
-                         image_size=IMAGE_SIZE, max_length=SEQ_LEN)
-    images, ids, lengths = zip(*(ds[i] for i in range(RETRIEVAL_BATCH)))
-    batch = (np.stack(images).astype(np.float32), np.stack(ids),
+                         image_size=IMAGE_SIZE, max_length=SEQ_LEN,
+                         raw_uint8=raw_uint8)
+    images, ids, lengths = zip(*(ds[i] for i in range(n)))
+    batch = (np.stack(images) if raw_uint8
+             else np.stack(images).astype(np.float32), np.stack(ids),
              np.asarray(lengths, np.int32))
     cfg = RetrievalConfig(use_residual=True, reinit_model=True,
                           gradual_quant=True, warmup_epochs=2,
                           contrastive_reg=0.05, epochs=2)
     model = ATQMultimodalRetrieval(
         vocab_size=ds.vocab_size, embed_dim=192, hidden_dim=384,
-        use_residual=True, max_seq_length=SEQ_LEN, dropout=0.0,
-        device="cpu", generator=torch.Generator().manual_seed(0))
+        use_residual=True, max_seq_length=SEQ_LEN, dropout=dropout,
+        compute_dtype=torch.bfloat16 if amp else None, device="cpu",
+        generator=torch.Generator().manual_seed(0))
     reinit_model_(model, torch.Generator().manual_seed(99))
     GradualQuantizationScheduler(2, warmup_epochs=2).step(
         model, 0, retrieval_sparsity_plan(cfg))
@@ -2675,6 +2727,570 @@ def retrieval_step0_readings(tmp):
     return out
 
 
+# The AMP and GradCache slice of the retrieval trainer (phase
+# train_retrieval_amp). Step 0 under --use_amp (compute_dtype bfloat16) has
+# the same set-up as train_retrieval's (dropout 0, optimal alphas, the
+# first 16 pairs). bf16 roundings do not compare element by element
+# between cuDNN and the CPU: a convolution that sums in another order
+# flips an output's last bf16 bit now and then. So the card's AMP runs are
+# held to their distance from the CPU's AMP runs *relative to* AMP's own
+# distance from the CPU's float32 runs, sum|card - cpu_bf16| /
+# sum|cpu_bf16 - cpu_f32|, by leaf group (``_leaf_group``) and for the
+# embeddings: a card that computes in bf16 where the CPU does reads well
+# below 1, one that computes elsewhere (a planted fault: BatchNorm in bf16,
+# convolutions left in float32) about 1. Two runs:
+# - the train step (train-mode BatchNorm), held coarsely: train-mode
+#   BatchNorm over 16 images cancels most of a convolution's gradient, so
+#   the flips move its AMP gradients by about AMP's own error (the CPU at 1
+#   thread against 8 reads 0.67-0.81) and no limit tells a fault from a
+#   correct step there: the card reads 0.45-0.75 (loss 2.9e-3), the faults
+#   0.76-1.10 (loss 3.5e-3, 4.1e-3); AMP_STEP_LIMIT;
+# - the same model in eval mode (BatchNorm on its running statistics), the
+#   embeddings' forward and the backward of <embeddings, fixed
+#   cotangents>: the CPU at 1 thread against 8 reads below 3e-5, each
+#   module on the CPU's inputs flips 0.001-0.1 % of its bf16 outputs on
+#   the card by one bf16 ulp, and those flips, carried through 17
+#   convolutions, read 0.73 on the ResNet leaves, 0.89 on the one-element
+#   leaves, 0.56 on the other leaves, 0.44 on the embeddings (loss
+#   3.0e-3). The planted faults read 0.995 and 1.006 on the ResNet leaves
+#   and must fail AMP_EVAL_LIMIT there (its other entries only bound the
+#   spread: the faults read 0.52-1.01 on them).
+# Readings: `--retrieval-amp-step0` on one H100 80GB HBM3 at 700 W
+# (PERF.md §6; the card's runs repeat bit for bit). The train step's ternary
+# patterns and thresholds under AMP equal the float32 step's bit for bit
+# on the card (the quantizer stays float32), every threshold taken on a
+# float32 weight.
+AMP_STEP_LIMIT = {"loss_rel_diff": 1e-2, "trunk": 1.5, "scalar": 1.5,
+                  "tensor": 1.5, "embeddings": 1.5}
+AMP_EVAL_LIMIT = {"loss_rel_diff": 1e-2, "trunk": 0.85, "scalar": 1.2,
+                  "tensor": 0.8, "embeddings": 0.8}
+AMP_FAULTS = ("bn_bf16", "conv_f32")
+# GradCache at --batch_size 64 --grad_accum_steps 4 (microbatches of 16,
+# the recipe's activation memory, with a pool 4x larger), dropout 0.1 and
+# uint8 images (flips drawn): the step-0 gradients against the
+# concatenated-pool oracle (the four microbatches through the model one
+# after another with the same generator, one autograd over the full-pool
+# loss), and with ATQ_FUSED=1 against the dense GradCache step, each leaf
+# within GRADCACHE_ATOL x (1 + its largest |gradient|)
+# (tests/test_grad_accum.py:136-141).
+GRADCACHE_BATCH, GRADCACHE_N, GRADCACHE_ATOL = 64, 4, 1e-4
+RETRIEVAL_AMP_ARGV = ["--batch_size", "64", "--embed_dim", "192",
+                      "--hidden_dim", "384", "--learning_rate", "5e-5",
+                      "--image_size", "160", "--use_residual",
+                      "--reinit_model", "--gradual_quant",
+                      "--warmup_epochs", "2", "--contrastive_reg", "0.05",
+                      "--epochs", "1", "--use_amp", "--grad_accum_steps",
+                      "4"]
+# The preemption drill: the recipe for 2 epochs writing its state every
+# epoch, killed once orbax/step_1 is committed, then resumed.
+DRILL_ARGV = RETRIEVAL_TRAIN_ARGV + ["--checkpoint_freq", "1"]
+DRILL_TIMEOUT_S = 300
+
+
+@contextlib.contextmanager
+def _recorded_quantizer():
+    """Records every threshold the quantizer computes (with its weight's
+    dtype) and every ternary pattern of a quantized layer."""
+    from atq_tpu_torch.core import quantize
+    from atq_tpu_torch.nn import layers
+
+    calls = {"thresholds": [], "patterns": []}
+    threshold, quantize_fn = quantize.ternary_threshold, layers._quantize
+
+    def rec_threshold(weights, *a, **k):
+        t = threshold(weights, *a, **k)
+        calls["thresholds"].append((weights.dtype, t.detach().cpu()))
+        return t
+
+    def rec_quantize(*a, **k):
+        w_t, alpha = quantize_fn(*a, **k)
+        calls["patterns"].append(w_t.detach().cpu())
+        return w_t, alpha
+
+    with mock.patch.object(quantize, "ternary_threshold", rec_threshold), \
+            mock.patch.object(layers, "_quantize", rec_quantize):
+        yield calls
+
+
+@contextlib.contextmanager
+def _amp_fault(name):
+    """A planted AMP fault: ``bn_bf16`` computes every BatchNorm in bf16,
+    ``conv_f32`` leaves the convolutions in float32."""
+    from atq_tpu_torch.models import resnet
+
+    if name is None:
+        yield
+    elif name == "bn_bf16":
+        with mock.patch.object(
+                resnet._BatchNorm32, "forward",
+                lambda self, x: resnet._BatchNorm.forward(
+                    self, x.to(torch.bfloat16)).float()):
+            yield
+    else:
+        with mock.patch.object(resnet.Conv, "forward",
+                               lambda self, x: torch.nn.Conv2d.forward(
+                                   self, x.float())):
+            yield
+
+
+def _amp_ratios(got, amp, f32):
+    """The loss's relative difference from ``amp`` and, by leaf group and
+    for the embeddings, sum|got - amp| / sum|amp - f32|."""
+    sums = {}
+
+    def add(group, g, a, f):
+        s = sums.setdefault(group, [0.0, 0.0])
+        s[0] += (g - a).abs().sum().item()
+        s[1] += (a - f).abs().sum().item()
+
+    for n, a in amp[3].items():
+        add(_leaf_group(n, a), got[3][n], a, f32[3][n])
+    for i in (1, 2):
+        add("embeddings", got[i], amp[i], f32[i])
+    return {"loss_rel_diff": abs(got[0] - amp[0]) / abs(amp[0]),
+            **{g: d / n for g, (d, n) in sums.items()}}
+
+
+def _amp_within(r, limits):
+    return all(r[k] <= lim for k, lim in limits.items())
+
+
+def _retrieval_eval_grads(model, batch, device):
+    """The eval-mode forward (BatchNorm on its running statistics) and the
+    backward of ``<embeddings, fixed cotangents>`` of a copy of ``model``
+    on ``device``: (that sum, image and text embeddings, every gradient),
+    as :func:`_retrieval_step0`'s first four."""
+    import copy
+
+    from atq_tpu_torch.train.retrieval import _batch_to
+
+    dev = torch.device(device)
+    m = copy.deepcopy(model).to(dev)
+    b = _batch_to(batch, dev)
+    g = torch.Generator().manual_seed(5)
+    cot = [torch.randn(b[0].shape[0], 192, generator=g).to(dev)
+           for _ in range(2)]
+    img, txt = m(*b, return_embeddings=True, train=False)
+    s = (img.float() * cot[0]).sum() + (txt.float() * cot[1]).sum()
+    s.backward()
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             .detach().double().cpu() for n, p in m.named_parameters()}
+    return (s.item(), img.detach().double().cpu(),
+            txt.detach().double().cpu(), grads)
+
+
+def _amp_step0_runs(tmp, cpu_threads=(None,), again=False, faults=()):
+    """Step 0 under AMP and in eval mode (:func:`_retrieval_eval_grads`)
+    on the CPU (at each of ``cpu_threads``, None: as set) and on the card
+    (``again``: twice; and with each planted fault), both also in float32
+    on the CPU and the card; with the quantizer's thresholds and patterns
+    of the card's AMP and float32 steps. Keys: ``{step,eval}_{cpu,card}_
+    {amp,f32}[_suffix]``."""
+    model, batch, cfg = _retrieval_step0_setup(tmp)
+    amp_model, _, _ = _retrieval_step0_setup(tmp, amp=True)
+
+    def both(key, m, device):
+        runs[f"step_{key}"] = _retrieval_step0(m, batch, cfg, device, False)
+        runs[f"eval_{key}"] = _retrieval_eval_grads(m, batch, device)
+
+    runs = {}
+    both("cpu_f32", model, "cpu")
+    threads = torch.get_num_threads()
+    for n in cpu_threads:
+        torch.set_num_threads(n or threads)
+        try:
+            both("cpu_amp" if n is None else f"cpu_amp_{n}_threads",
+                 amp_model, "cpu")
+        finally:
+            torch.set_num_threads(threads)
+    with _recorded_quantizer() as amp_calls:
+        runs["step_card_amp"] = _retrieval_step0(amp_model, batch, cfg,
+                                                 "cuda", False)
+    runs["eval_card_amp"] = _retrieval_eval_grads(amp_model, batch, "cuda")
+    with _recorded_quantizer() as f32_calls:
+        runs["step_card_f32"] = _retrieval_step0(model, batch, cfg, "cuda",
+                                                 False)
+    if again:
+        both("card_amp_again", amp_model, "cuda")
+    for fault in faults:
+        with _amp_fault(fault):
+            both(f"card_amp_{fault}", amp_model, "cuda")
+    return runs, amp_calls, f32_calls, model
+
+
+def _amp_readings(runs, got, ref="cpu_amp"):
+    """``got`` against ``ref`` in both runs, as :func:`_amp_ratios`."""
+    return {kind: _amp_ratios(runs[f"{kind}_{got}"], runs[f"{kind}_{ref}"],
+                              runs[f"{kind}_cpu_f32"])
+            for kind in ("step", "eval")}
+
+
+def _same_quantizer(amp_calls, f32_calls):
+    """The AMP step's thresholds and patterns equal the float32 step's bit
+    for bit, each threshold taken on a float32 weight; their counts."""
+    n = {k: (len(amp_calls[k]), len(f32_calls[k])) for k in amp_calls}
+    if any(a != b or a == 0 for a, b in n.values()):
+        raise AssertionError(f"AMP vs float32 quantizer calls: {n}")
+    for (dtype, t), (dtype32, t32) in zip(amp_calls["thresholds"],
+                                          f32_calls["thresholds"]):
+        if dtype != torch.float32 or dtype32 != torch.float32 \
+                or not torch.equal(t, t32):
+            raise AssertionError("AMP threshold differs from float32's")
+    for p, p32 in zip(amp_calls["patterns"], f32_calls["patterns"]):
+        if p.dtype != torch.float32 or not torch.equal(p, p32):
+            raise AssertionError("AMP ternary pattern differs from "
+                                 "float32's")
+    return {"thresholds": n["thresholds"][0], "patterns": n["patterns"][0]}
+
+
+def _gradcache_grads(model, batch, cfg, mode, fused=False):
+    """One step (no update) of a copy of ``model`` on the card: ``mode``
+    ``gradcache`` (cfg.grad_accum_steps microbatches), ``oracle`` (the
+    concatenated-pool oracle) or ``plain`` (the whole batch at once).
+    Returns the loss, every gradient (float64, on the host), the kernel
+    launches, the peak memory allocated in the step above the resting
+    allocation (bytes), the running statistics and the generator's state
+    after the step."""
+    import copy
+
+    from atq_tpu_torch.data.augment import random_hflip
+    from atq_tpu_torch.losses.contrastive import HardNegativeMiningInfoNCE
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.train.retrieval import (
+        _batch_to,
+        _batchnorm_stats,
+        build_retrieval_train_step,
+        normalize_images,
+        pool_loss,
+    )
+
+    dev = torch.device("cuda")
+    m = copy.deepcopy(model).to(dev)
+    b = _batch_to(batch, dev)
+    criterion = HardNegativeMiningInfoNCE(lambda_reg=cfg.contrastive_reg)
+    criterion.set_epoch(0, cfg.epochs)
+    temperature = torch.tensor(criterion.get_current_temperature(),
+                               device=dev)
+    kind = torch.tensor(0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(7)
+    step_cfg = dataclasses.replace(
+        cfg, grad_accum_steps=1 if mode == "plain" else GRADCACHE_N)
+    os.environ["ATQ_FUSED"] = "1" if fused else "0"
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        rest = torch.cuda.memory_allocated()
+        _reset_launches()
+        if mode == "oracle":
+            micro = b[0].shape[0] // GRADCACHE_N
+            m.zero_grad(set_to_none=True)
+            img, txt = [], []
+            for i in range(GRADCACHE_N):
+                part = slice(i * micro, (i + 1) * micro)
+                x = random_hflip(normalize_images(b[0][part]), gen)
+                ie, te = m(x, b[1][part], b[2][part], return_embeddings=True,
+                           train=True, generator=gen)
+                img.append(ie.float())
+                txt.append(te.float())
+            loss = pool_loss(torch.cat(img), torch.cat(txt), temperature,
+                             kind, None, None, step_cfg, criterion)
+            loss.backward()
+        else:
+            loss = build_retrieval_train_step(m, _NoUpdate(), criterion,
+                                              step_cfg, gen)(
+                b, temperature, kind)
+        torch.cuda.synchronize()
+        launches = kernel_launches()
+        peak = torch.cuda.max_memory_allocated() - rest
+    finally:
+        os.environ["ATQ_FUSED"] = "0"
+    grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+             .detach().double().cpu() for n, p in m.named_parameters()}
+    stats = [s.detach().cpu() for s in _batchnorm_stats(m)]
+    out = (float(loss), grads, launches, peak, stats, gen.get_state())
+    del m
+    torch.cuda.empty_cache()
+    return out
+
+
+def _gradcache_compare(what, got, want):
+    """Each leaf against ``want``'s within GRADCACHE_ATOL x (1 + its
+    largest |gradient|); raises past it. Readings: the worst leaf's largest
+    |difference| over that allowance, and its L2 difference over its
+    norm, and the loss's relative difference."""
+    worst_atol, worst_l2 = ("", 0.0), ("", 0.0)
+    for n, w in want[1].items():
+        d = (got[1][n] - w).abs().max().item()
+        r = d / (GRADCACHE_ATOL * (1.0 + w.abs().max().item()))
+        if r >= worst_atol[1]:
+            worst_atol = (n, r)
+        norm = w.norm().item()
+        if norm > 0:
+            l2 = (got[1][n] - w).norm().item() / norm
+            if l2 >= worst_l2[1]:
+                worst_l2 = (n, l2)
+    out = {"loss_rel_diff": abs(got[0] - want[0]) / abs(want[0]),
+           "worst_leaf_diff_over_allowance": worst_atol,
+           "worst_leaf_l2_rel_diff": worst_l2}
+    if worst_atol[1] > 1.0 or out["loss_rel_diff"] > 1e-5:
+        raise AssertionError(f"{what}: {json.dumps(out)}")
+    return out
+
+
+def _read_until(proc, marker, timeout_s, lines):
+    """Lines of ``proc``'s output into ``lines`` until one holds
+    ``marker`` (returned) or the process ends or the time is up."""
+    deadline = time.perf_counter() + timeout_s
+    while time.perf_counter() < deadline:
+        line = proc.stdout.readline()
+        if not line:
+            return None
+        lines.append(line.rstrip("\n"))
+        if marker in line:
+            return line
+    return None
+
+
+def _drill(tmp):
+    """The preemption drill: ``python -m atq_tpu_torch.train.retrieval``
+    on DRILL_ARGV, SIGKILLed once it reports orbax/step_1 committed, then
+    rerun with --resume: it must say it resumed at epoch 1, train epoch 2
+    only, exit 0, and restore a state whose digest is the one the first
+    run saved."""
+    import signal
+
+    out_dir = os.path.join(tmp, "drill")
+    argv = [sys.executable, "-u", "-m", "atq_tpu_torch.train.retrieval",
+            *DRILL_ARGV, "--output_dir", out_dir, "--data_dir",
+            os.path.join(tmp, "no_flickr8k")]
+    first = []
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        saved = _read_until(proc, "Saved training state to", DRILL_TIMEOUT_S,
+                            first)
+        proc.send_signal(signal.SIGKILL)
+        killed_after = time.perf_counter() - t0
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=60)
+    if saved is None or "step_1 (sha256" not in saved \
+            or proc.returncode != -signal.SIGKILL:
+        raise AssertionError(f"drill: no step_1 before the kill "
+                             f"(rc {proc.returncode}): {first[-20:]}")
+    saved_digest = saved.rsplit("sha256 ", 1)[1].strip().rstrip(")")
+    t1 = time.perf_counter()
+    rerun = subprocess.run(argv + ["--resume"], capture_output=True,
+                           text=True, timeout=DRILL_TIMEOUT_S,
+                           cwd=os.path.dirname(os.path.abspath(__file__)))
+    second = rerun.stdout.splitlines()
+    restored = [x for x in second if "Restored training state" in x]
+    restored_digest = (restored[0].rsplit("sha256 ", 1)[1].strip()
+                       .rstrip(")") if restored else None)
+    checks = {
+        "exit_0": rerun.returncode == 0,
+        "resumed_at_epoch_1": any(
+            x == f"Resumed from {os.path.join(out_dir, 'orbax')} at epoch 1"
+            for x in second),
+        "trained_epoch_2_only": (any(x.startswith("Epoch 2/2")
+                                     for x in second)
+                                 and not any(x.startswith("Epoch 1/2")
+                                             for x in second)),
+        "restored_equals_saved": restored_digest == saved_digest}
+    if not all(checks.values()):
+        raise AssertionError(f"drill: {checks}: {second[-30:]} "
+                             f"{rerun.stderr[-2000:]}")
+    return {**checks, "saved_sha256": saved_digest,
+            "killed_after_s": killed_after,
+            "rerun_s": time.perf_counter() - t1,
+            "steps_left": sorted(os.listdir(os.path.join(out_dir,
+                                                         "orbax")))}
+
+
+def phase_train_retrieval_amp(tmp):
+    """The retrieval trainer under --use_amp and GradCache on the card:
+    AMP step 0 against the CPU's and against float32 (the quantizer bit
+    for bit), GradCache's gradients against the concatenated-pool oracle
+    (dense and fused) with its launches and peak memory, one epoch of
+    main() on the recipe with --use_amp --batch_size 64
+    --grad_accum_steps 4 (counts reset before it, read after it) with 3
+    traced steps after it, and the preemption drill."""
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.train.retrieval import main as retrieval_main
+
+    t0 = time.perf_counter()
+    runs, amp_calls, f32_calls, model = _amp_step0_runs(
+        tmp, faults=AMP_FAULTS)
+    n_layers, n_large = _retrieval_path_layers(model)
+    amp = {"card_vs_cpu": _amp_readings(runs, "card_amp"),
+           "card_amp_vs_card_f32_loss_rel_diff": abs(
+               runs["step_card_amp"][0] - runs["step_card_f32"][0])
+           / abs(runs["step_card_f32"][0]),
+           "quantizer_calls": _same_quantizer(amp_calls, f32_calls),
+           "launches": runs["step_card_amp"][4]}
+    for kind, limits in (("step", AMP_STEP_LIMIT), ("eval", AMP_EVAL_LIMIT)):
+        if not _amp_within(amp["card_vs_cpu"][kind], limits):
+            raise AssertionError(f"AMP {kind} card vs CPU past its limits "
+                                 f"({limits}): {json.dumps(amp)}")
+    _check_launches("AMP step 0", runs["step_card_amp"][4],
+                    {"order_stat": n_large})
+    for fault in AMP_FAULTS:
+        amp[f"planted_{fault}"] = r = _amp_readings(runs, f"card_amp_{fault}")
+        if _amp_within(r["eval"], AMP_EVAL_LIMIT):
+            raise AssertionError(f"planted fault {fault} passes the AMP "
+                                 f"eval limits: {json.dumps(r)}")
+    del runs, model
+    amp_s = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    model, batch, cfg = _retrieval_step0_setup(
+        tmp, dropout=0.1, n=GRADCACHE_BATCH, raw_uint8=True)
+    _, batch16, _ = _retrieval_step0_setup(tmp, dropout=0.1,
+                                           n=RETRIEVAL_BATCH, raw_uint8=True)
+    gc = _gradcache_grads(model, batch, cfg, "gradcache")
+    oracle = _gradcache_grads(model, batch, cfg, "oracle")
+    gc_fused = _gradcache_grads(model, batch, cfg, "gradcache", fused=True)
+    plain64 = _gradcache_grads(model, batch, cfg, "plain")
+    plain16 = _gradcache_grads(model, batch16, cfg, "plain")
+    per_step = {"order_stat": n_large * 2 * GRADCACHE_N}
+    _check_launches("GradCache step", gc[2], per_step)
+    _check_launches("GradCache step fused", gc_fused[2], {
+        **per_step, "fused_forward": n_layers * 2 * GRADCACHE_N,
+        "fused_dx": n_layers * GRADCACHE_N,
+        "fused_dwda": n_layers * GRADCACHE_N})
+    if not all(torch.equal(a, b) for a, b in zip(gc[4], oracle[4])) \
+            or not torch.equal(gc[5], oracle[5]):
+        raise AssertionError("GradCache: running statistics or generator "
+                             "state differ from the oracle's")
+    if not gc[3] < plain64[3]:
+        raise AssertionError(f"GradCache peak {gc[3]} not below the plain "
+                             f"batch-64 step's {plain64[3]}")
+    gradcache = {
+        "batch": GRADCACHE_BATCH, "microbatches": GRADCACHE_N,
+        "vs_oracle": _gradcache_compare("GradCache vs oracle", gc, oracle),
+        "fused_vs_dense": _gradcache_compare("GradCache fused vs dense",
+                                             gc_fused, gc),
+        "launches": gc[2], "launches_fused": gc_fused[2],
+        "peak_bytes_above_rest": {"gradcache_64": gc[3],
+                                  "plain_64": plain64[3],
+                                  "plain_16": plain16[3]},
+        "loss": gc[0]}
+    del model, gc, oracle, gc_fused, plain64, plain16
+    gradcache_s = time.perf_counter() - t1
+
+    out_dir = os.path.join(tmp, "retrieval_amp")
+    argv = RETRIEVAL_AMP_ARGV + ["--output_dir", out_dir, "--data_dir",
+                                 os.path.join(tmp, "no_flickr8k")]
+    _reset_launches()
+    t2 = time.perf_counter()
+    state, history, report = retrieval_main(argv)
+    wall = time.perf_counter() - t2
+    launches = kernel_launches()
+    stats = state["stats"]
+    losses = stats["step_losses"][0]
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"train_retrieval_amp: step losses {losses}")
+    _check_launches("train_retrieval_amp", stats["launches_per_step"][0],
+                    per_step)
+    recalls = {f"mean_R@{k}": report["test_metrics"][f"mean_R@{k}"]
+               for k in (1, 5, 10)}
+    val = {f"mean_R@{k}": history["val_metrics"][0][f"mean_R@{k}"]
+           for k in (1, 5, 10)}
+    if not np.isfinite(list(recalls.values()) + list(val.values())).all():
+        raise AssertionError(f"train_retrieval_amp: recalls {recalls}")
+    busy = _traced_amp_steps(state["model"], state["optimizer"], tmp)
+
+    t3 = time.perf_counter()
+    drill = _drill(tmp)
+    drill_s = time.perf_counter() - t3
+    emit({"phase": "train_retrieval_amp", "amp_step0": amp,
+          "amp_step0_seconds": amp_s, "gradcache": gradcache,
+          "gradcache_seconds": gradcache_s, "argv": RETRIEVAL_AMP_ARGV,
+          "wall_s": wall, "steps": len(losses),
+          "pairs_per_s": stats["pairs_per_sec"],
+          "step_ms_p50": float(np.percentile(stats["step_ms"][0], 50)),
+          "step_ms": stats["step_ms"][0],
+          "epoch_seconds": stats["epoch_seconds"],
+          "launches_per_step": stats["launches_per_step"],
+          "launches": launches, "traced_steps": busy,
+          "loss_first_step": losses[0], "loss_last_step": losses[-1],
+          "recalls": {"val": val, "test": recalls},
+          "drill": drill, "drill_seconds": drill_s})
+
+
+def _traced_amp_steps(model, optimizer, tmp, warmup=2, steps=3):
+    """Host and device ms a step and the busy share of ``steps`` traced
+    steps (after ``warmup``) of the trainer's AMP GradCache step, on the
+    trained model and its optimizer and the first GRADCACHE_BATCH training
+    pairs (as uint8 images)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from atq_tpu_torch.losses.contrastive import HardNegativeMiningInfoNCE
+    from atq_tpu_torch.train.retrieval import (
+        _batch_to,
+        build_retrieval_train_step,
+    )
+
+    _, batch, cfg = _retrieval_step0_setup(tmp, n=GRADCACHE_BATCH,
+                                           raw_uint8=True)
+    b = _batch_to(batch, torch.device("cuda"))
+    cfg = dataclasses.replace(cfg, use_amp=True,
+                              grad_accum_steps=GRADCACHE_N)
+    criterion = HardNegativeMiningInfoNCE(lambda_reg=cfg.contrastive_reg)
+    step = build_retrieval_train_step(
+        model, optimizer, criterion, cfg,
+        torch.Generator(device="cuda").manual_seed(3))
+    args = (torch.tensor(0.07, device="cuda"),
+            torch.tensor(0, device="cuda"))
+    for _ in range(warmup):
+        step(b, *args)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step(b, *args)
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    events = prof.key_averages()
+    return {"share": _device_us(events) / 1e6 / seconds,
+            "traced_ms_per_step": seconds * 1e3 / steps,
+            **_breakdown(events, steps)}
+
+
+def retrieval_amp_step0_readings(tmp):
+    """``--retrieval-amp-step0``: the readings behind train_retrieval_amp's
+    AMP limits: in the train step and in eval mode, the card's AMP run
+    (twice) against the CPU's (at 8 and 1 threads), the CPU's at 1 thread
+    against 8, and the planted faults, each as :func:`_amp_ratios` with
+    the phase's verdict."""
+    runs, _, _, _ = _amp_step0_runs(tmp, cpu_threads=(None, 1), again=True,
+                                    faults=AMP_FAULTS)
+    out = {}
+    for got in ("card_amp", "card_amp_again", "cpu_amp_1_threads",
+                *(f"card_amp_{f}" for f in AMP_FAULTS)):
+        r = _amp_readings(runs, got)
+        out[f"{got}_vs_cpu_amp"] = {
+            **r, "within_step_limits": _amp_within(r["step"],
+                                                   AMP_STEP_LIMIT),
+            "within_eval_limits": _amp_within(r["eval"], AMP_EVAL_LIMIT)}
+    out["card_amp_vs_cpu_amp_1_thread"] = _amp_readings(
+        runs, "card_amp", "cpu_amp_1_threads")
+    out["card_f32_vs_cpu_f32_step_loss_rel_diff"] = abs(
+        runs["step_card_f32"][0] - runs["step_cpu_f32"][0]) \
+        / abs(runs["step_cpu_f32"][0])
+    out["card_amp_vs_card_f32_step_loss_rel_diff"] = abs(
+        runs["step_card_amp"][0] - runs["step_card_f32"][0]) \
+        / abs(runs["step_card_f32"][0])
+    emit({"phase": "retrieval_amp_step0_readings",
+          "cpu_threads": torch.get_num_threads(), **out})
+    return out
+
+
 # --compare: the packed kernels at serving's head shapes (M = 32 and 1),
 # the K-blocked shape and PACKED_SHAPES, and the fused kernels at the
 # recipe's two head layers, old against new.
@@ -2961,11 +3577,14 @@ def main(argv=None):
         return 0
     from atq_tpu_torch.utils.platform import resolve_device
 
-    if argv[:1] == ["--retrieval-step0"]:
+    readings_modes = {"--retrieval-step0": retrieval_step0_readings,
+                      "--retrieval-amp-step0": retrieval_amp_step0_readings}
+    if argv[:1] and argv[0] in readings_modes:
         resolve_device("cuda")
+        os.environ["ATQ_NO_DOWNLOAD"] = "1"
         phase_build(_smi())
         with tempfile.TemporaryDirectory() as tmp:
-            readings = retrieval_step0_readings(tmp)
+            readings = readings_modes[argv[0]](tmp)
         if len(argv) > 1:
             with open(argv[1], "w") as f:
                 json.dump(readings, f, indent=1)
@@ -3012,6 +3631,7 @@ def main(argv=None):
         phase_encoder_step0()
         encoder_launches = phase_train_encoder(tmp)
         phase_train_retrieval(tmp)
+        phase_train_retrieval_amp(tmp)
 
     sources = {
         "order_stat": ("atq_tpu_torch/csrc/order_stat.cu",

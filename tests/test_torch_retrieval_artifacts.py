@@ -2,8 +2,9 @@
 against a run of atq_tpu's trainer with the same config on the CPU: one
 epoch on the synthetic corpus (20 images) at the JAX package's small test
 widths. The same files, the same keys in every ``.npz`` and the same JSON
-structure; ``checkpoint_epoch_N.npz`` leaves out the JAX optimizer state,
-which waits for resume (ROADMAP.md queue 1)."""
+structure; ``checkpoint_epoch_N.npz`` holds the optimizer state under
+optax's tree paths, as JAX writes it; both write the training state under
+``orbax/step_1``."""
 
 import json
 import os
@@ -48,14 +49,16 @@ def test_artifacts_have_the_jax_keys(tmp_path):
     _, history, report = ptrain.train_retrieval(ptrain.RetrievalConfig(
         **kw, output_dir=str(pdir), data_dir=str(tmp_path / "d"),
         device="cpu"), verbose=False)
-    jfiles = sorted(f for f in os.listdir(jdir) if f != "orbax")
+    jfiles = sorted(os.listdir(jdir))
     assert sorted(os.listdir(pdir)) == jfiles
     assert "best_model.npz" in jfiles and "checkpoint_epoch_1.npz" in jfiles
+    # The training state: an Orbax directory in JAX, a torch.save file in
+    # the port (train/checkpoint.py), each under orbax/step_1.
+    assert "step_1" in os.listdir(jdir / "orbax")
+    assert os.listdir(pdir / "orbax") == ["step_1"]
     for f in jfiles:
         if f.endswith(".npz"):
-            want = [k for k in _npz_keys(jdir / f)
-                    if not k.startswith("optimizer_state_dict/")]
-            assert _npz_keys(pdir / f) == want, f
+            assert _npz_keys(pdir / f) == _npz_keys(jdir / f), f
     assert (pdir / "vocab.json").read_text() == \
         (jdir / "vocab.json").read_text()
 

@@ -424,8 +424,8 @@ def test_trainer_checkpoint_serves_on_jax(tmp_path):
 
 
 @pytest.mark.parametrize("field,value", [
-    ("grad_accum_steps", 2), ("resume", True), ("tensorboard_dir", "tb"),
-    ("profile_dir", "prof"), ("dp", 2), ("tp", 2), ("fsdp", True)])
+    ("tensorboard_dir", "tb"), ("profile_dir", "prof"), ("dp", 2),
+    ("tp", 2), ("fsdp", True)])
 def test_unported_options_raise(field, value):
     cfg = ptrain.ClassifierConfig(device="cpu", **{field: value})
     with pytest.raises(NotImplementedError, match="not ported"):
