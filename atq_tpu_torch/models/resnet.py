@@ -25,15 +25,24 @@ does when it finds ``('int8', 'trunk')``.
 
 ``ATQ_S2D_STEM`` and ``ATQ_FAST_POOL`` select XLA rewrites in the JAX package
 (ops/s2d_stem.py, ops/fast_pool.py); they are not ported yet (ROADMAP.md
-queue 1 item 8) and raise when set. The torchvision state-dict importer
-waits for ROADMAP.md queue 1 item 6 (slice G).
+queue 1 item 8) and raise when set.
+
+:func:`load_torch_state_dict` turns a torchvision ResNet state dict into the
+JAX layout's ``(params, batch_stats)`` trees (numpy leaves), the trees
+atq_tpu's importer gives; ``from_jax_variables({"params": params,
+"batch_stats": stats})`` (utils/jax_interop.py) makes them this module's
+state dict. :func:`load_imagenet_weights` reads a torchvision IMAGENET1K_V1
+``.pth`` from disk after checking its sha256 against
+:data:`IMAGENET_MANIFEST`'s prefix; nothing is downloaded.
 """
 
 from __future__ import annotations
 
+import hashlib
 import os
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -186,3 +195,88 @@ class ResNetFeatures(nn.Module):
                 x = getattr(self, f"layer{stage + 1}_{b}")(x)
         return x.mean(dim=(2, 3))  # global average pool
 
+
+
+def _torch_conv_to_flax(w: np.ndarray) -> np.ndarray:
+    # torch conv weight (O, I, kh, kw) -> flax (kh, kw, I, O)
+    return np.transpose(w, (2, 3, 1, 0))
+
+
+def load_torch_state_dict(state_dict: dict, arch: str = "resnet18"):
+    """A torchvision ResNet state dict (numpy arrays or torch tensors) ->
+    the JAX layout's ``(params, batch_stats)`` trees for
+    :class:`ResNetFeatures`, numpy leaves (atq_tpu/models/resnet.py's
+    ``load_torch_state_dict``, leaf for leaf)."""
+    def npy(v):
+        return v.numpy() if hasattr(v, "numpy") else np.asarray(v)
+
+    sd = {k: npy(v) for k, v in state_dict.items()}
+    params: dict = {}
+    stats: dict = {}
+
+    def put(tree, path, value):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.asarray(value)
+
+    def conv(flax_path, torch_name):
+        put(params, flax_path + ("kernel",),
+            _torch_conv_to_flax(sd[torch_name + ".weight"]))
+
+    def bn(flax_path, torch_name):
+        put(params, flax_path + ("scale",), sd[torch_name + ".weight"])
+        put(params, flax_path + ("bias",), sd[torch_name + ".bias"])
+        put(stats, flax_path + ("mean",), sd[torch_name + ".running_mean"])
+        put(stats, flax_path + ("var",), sd[torch_name + ".running_var"])
+
+    conv(("conv1",), "conv1")
+    bn(("bn1",), "bn1")
+    stage_sizes = (2, 2, 2, 2) if arch == "resnet18" else (3, 4, 6, 3)
+    n_convs = 2 if arch == "resnet18" else 3
+    for stage, num_blocks in enumerate(stage_sizes):
+        for b in range(num_blocks):
+            prefix = f"layer{stage + 1}.{b}"
+            fpfx = (f"layer{stage + 1}_{b}",)
+            for c in range(1, n_convs + 1):
+                conv(fpfx + (f"conv{c}",), f"{prefix}.conv{c}")
+                bn(fpfx + (f"bn{c}",), f"{prefix}.bn{c}")
+            if f"{prefix}.downsample.0.weight" in sd:
+                conv(fpfx + ("downsample_conv",), f"{prefix}.downsample.0")
+                bn(fpfx + ("downsample_bn",), f"{prefix}.downsample.1")
+    return params, stats
+
+
+# torchvision's IMAGENET1K_V1 release files. torchvision's own download
+# checks the sha256 prefix in the file name; the same prefix checks a file
+# copied onto a machine without network.
+IMAGENET_MANIFEST = {
+    "resnet18": {
+        "url": "https://download.pytorch.org/models/resnet18-f37072fd.pth",
+        "sha256_prefix": "f37072fd",
+    },
+    "resnet50": {
+        "url": "https://download.pytorch.org/models/resnet50-0676ba61.pth",
+        "sha256_prefix": "0676ba61",
+    },
+}
+
+
+def load_imagenet_weights(path: str, arch: str = "resnet18",
+                          verify_hash: bool = True):
+    """A torchvision IMAGENET1K_V1 ``.pth`` on disk -> the JAX layout's
+    ``(params, batch_stats)`` trees (:func:`load_torch_state_dict`).
+    ``verify_hash`` (the default) checks the file's sha256 against the
+    manifest prefix and raises ValueError, as the JAX loader does."""
+    if verify_hash:
+        with open(path, "rb") as f:
+            digest = hashlib.sha256(f.read()).hexdigest()
+        want = IMAGENET_MANIFEST[arch]["sha256_prefix"]
+        if not digest.startswith(want):
+            raise ValueError(
+                f"{path}: sha256 {digest[:16]}... does not start with the "
+                f"manifest prefix {want!r} for {arch} IMAGENET1K_V1 "
+                f"({IMAGENET_MANIFEST[arch]['url']})"
+            )
+    state_dict = torch.load(path, map_location="cpu", weights_only=True)
+    return load_torch_state_dict(state_dict, arch=arch)

@@ -14,7 +14,9 @@ equivalents of the per-layer ones.
 The same function, with ``batched=False``, builds one layer's effective
 weights; the stack uses it for the 'save_quantized' remat policy without
 hoisting (quantize outside the checkpointed layer, so the backward reuses
-the finished weights instead of re-running the quantizer).
+the finished weights instead of re-running the quantizer). Under the fused
+path the stack computes only each layer's thresholds outside
+(:func:`thresholds`), as the fused kernels take the latent weights.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ from atq_tpu_torch.core.quantize import (
     ternarize_ste_batched,
     ternarize_ttq,
     ternarize_ttq_batched,
+    ternary_threshold,
 )
 from atq_tpu_torch.nn.layers import DEFAULT_SPARSITY
 
@@ -72,13 +75,10 @@ def effective_weight(node: Dict[str, torch.Tensor], grad_mode: str, dtype,
     return w_eff
 
 
-def effective_weights(tensors: Dict[str, torch.Tensor], grad_mode: str,
-                      dtype, batched: bool) -> Dict[str, torch.Tensor]:
-    """``{"<layer>.weight": effective weight}`` for every ternary layer in a
-    flat name -> tensor dict (a layer is a prefix with both ``weight`` and
-    ``alpha``), ready to override the latent weights of a
-    ``pre_quantized`` layer."""
-    out = {}
+def _nodes(tensors: Dict[str, torch.Tensor]):
+    """``(prefix, node)`` for every ternary layer in a flat name -> tensor
+    dict: a layer is a prefix with both ``weight`` and ``alpha``, its node
+    the tensors under it by leaf name."""
     for name in tensors:
         if name != "alpha" and not name.endswith(".alpha"):
             continue
@@ -86,6 +86,24 @@ def effective_weights(tensors: Dict[str, torch.Tensor], grad_mode: str,
         node = {k[len(prefix):]: v for k, v in tensors.items()
                 if k.startswith(prefix) and "." not in k[len(prefix):]}
         if "weight" in node:
-            out[prefix + "weight"] = effective_weight(node, grad_mode, dtype,
-                                                      batched)
-    return out
+            yield prefix, node
+
+
+def effective_weights(tensors: Dict[str, torch.Tensor], grad_mode: str,
+                      dtype, batched: bool) -> Dict[str, torch.Tensor]:
+    """``{"<layer>.weight": effective weight}`` for every ternary layer in a
+    flat name -> tensor dict, ready to override the latent weights of a
+    ``pre_quantized`` layer."""
+    return {prefix + "weight": effective_weight(node, grad_mode, dtype,
+                                                batched)
+            for prefix, node in _nodes(tensors)}
+
+
+def thresholds(tensors: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """``{"<layer>.threshold": quantizer threshold}`` for every ternary
+    layer of one (unstacked) layer's tensors, for the fused path's
+    ``threshold`` buffer (nn/layers.py)."""
+    return {prefix + "threshold": ternary_threshold(
+                node["weight"], sparsity_target=node.get("sparsity_target",
+                                                         DEFAULT_SPARSITY))
+            for prefix, node in _nodes(tensors)}

@@ -25,7 +25,12 @@ atq_tpu/nn/layers.py).
   does not route such a layer to the float32 fused kernels.
 - ``pre_quantized`` (hoisted quantization, nn/hoist.py): the ``weight`` the
   layer is given is already the effective weight, and the forward is a
-  plain matmul. The scanned stack runs its layers this way.
+  plain matmul. The scanned stack runs its dense layers this way.
+- ``threshold``, a buffer that is None unless a caller supplies it through
+  ``functional_call``: the fused path then takes it instead of computing
+  the quantizer threshold. The scanned stack computes it outside a
+  rematerialized layer, so the recompute does not run the order statistic
+  again (JAX's remat policy saves the threshold likewise).
 
 Parameters are drawn on the CPU from an explicit ``torch.Generator`` and
 then moved to the layer's device.
@@ -188,6 +193,7 @@ class _QuantizedLinear(nn.Module):
             self.bias = None
         # Serving entry (serve/packed_model.py:attach_packed_collection).
         self.packed_entry = None
+        self.register_buffer("threshold", None, persistent=False)
 
     def _init_ttq(self, sparsity_target) -> None:
         with torch.no_grad():
@@ -199,7 +205,10 @@ class _QuantizedLinear(nn.Module):
     def _fused_forward(self, x, sparsity_target, mask=None):
         from atq_tpu_torch.ops.fused_linear import fused_quantized_linear
 
-        thr = ternary_threshold(self.weight, sparsity_target=sparsity_target)
+        thr = self.threshold
+        if thr is None:
+            thr = ternary_threshold(self.weight,
+                                    sparsity_target=sparsity_target)
         y = fused_quantized_linear(x, self.weight, self.alpha, thr, mask=mask,
                                    grad_mode=self.grad_mode)
         return self._add_bias(y)

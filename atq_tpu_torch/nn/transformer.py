@@ -16,7 +16,10 @@ atq_tpu/nn/transformer.py).
 
   - 'save_quantized' (default): the effective weights are computed outside
     the checkpointed layer (hoisted for all layers, or per layer), so the
-    backward reuses them and recomputes only the activations;
+    backward reuses them and recomputes only the activations. On the fused
+    path (``ATQ_FUSED=1``, not hoisted) each projection runs the fused op
+    inside the checkpoint, as in JAX, and only its threshold is computed
+    outside;
   - 'save_dots': the same, and the projection products' outputs are saved
     too (a selective-checkpoint policy on ``aten.mm``/``aten.addmm``);
   - 'full': the whole layer, quantizer included, is recomputed.
@@ -46,8 +49,8 @@ from atq_tpu_torch.nn.attention import (
     TernaryMultiheadAttention,
     _proj,
 )
-from atq_tpu_torch.nn.hoist import effective_weights
-from atq_tpu_torch.nn.layers import _QuantizedLinear, dropout
+from atq_tpu_torch.nn.hoist import effective_weights, thresholds
+from atq_tpu_torch.nn.layers import _QuantizedLinear, _use_fused, dropout
 from atq_tpu_torch.utils.platform import resolve_device
 
 REMAT_POLICIES = ("save_quantized", "save_dots", "full")
@@ -131,24 +134,55 @@ def _dots_policy(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _fused(template) -> bool:
+    """Whether the layer's projections take the fused path
+    (nn/layers.py), which is read per call, as the layers read it."""
+    return any(isinstance(m, _QuantizedLinear) and m.grad_mode != "ttq"
+               and _use_fused(m.fused, m.dtype) for m in template.modules())
+
+
 def run_layer(plain, preq, tensors, h, kwargs, grad_mode: str, dtype,
               remat: bool, remat_policy: str, quantized: bool):
     """One layer on ``tensors`` (its parameters and buffers by name).
     ``quantized``: the effective weights are already in ``tensors`` (the
     hoisted pass). Otherwise 'save_quantized' and 'save_dots' under remat
-    quantize here, outside the checkpoint, and run the layer pre-quantized;
-    'full' and no remat run the plain layer, quantizer included."""
+    quantize here, outside the checkpoint, and run the layer pre-quantized,
+    or on the fused path compute only the thresholds here and run the
+    plain layer, whose fused ops take them; 'full' and no remat run the
+    plain layer, quantizer included."""
     if not quantized and remat and remat_policy != "full":
-        tensors = {**tensors, **effective_weights(tensors, grad_mode, dtype,
-                                                  batched=False)}
-        quantized = True
+        if _fused(plain):
+            tensors = {**tensors, **thresholds(tensors)}
+        else:
+            tensors = {**tensors, **effective_weights(
+                tensors, grad_mode, dtype, batched=False)}
+            quantized = True
     template = preq if quantized else plain
+    if not remat:
+        return functional_call(template, tensors, (h,), kwargs)
+    # torch.utils.checkpoint replays the global RNGs, not a caller's
+    # generator: the recompute sets the dropout generator back to the
+    # layer's start, so it draws the forward's masks, and then returns it
+    # to where the stream was (also when the recompute stops early), so
+    # the recompute draws nothing from it.
+    generator = None if kwargs.get("deterministic", True) \
+        else kwargs.get("generator")
+    start = generator.get_state() if generator is not None else None
+    calls = []
 
     def body(t, x):
-        return functional_call(template, t, (x,), kwargs)
+        if start is None:
+            return functional_call(template, t, (x,), kwargs)
+        recompute = bool(calls)
+        calls.append(1)
+        resume = generator.get_state()
+        generator.set_state(start)
+        try:
+            return functional_call(template, t, (x,), kwargs)
+        finally:
+            if recompute:
+                generator.set_state(resume)
 
-    if not remat:
-        return body(tensors, h)
     if remat_policy == "save_dots":
         from torch.utils.checkpoint import create_selective_checkpoint_contexts
 

@@ -8,7 +8,9 @@ version, which repeats the JAX kernel op for op: float32 scores scaled after
 the first product, the additive bias, the row max guarded at -1e30, p/l cast
 to the input dtype before the second product, and in the backward dP kept in
 float32 and dS cast to the input dtype before its two products. A CUDA
-tensor the kernel cannot take raises; there is no other route.
+tensor the kernel cannot take raises; there is no other route. Each wrapper
+counts its launches and their FLOPs (:func:`forward_flops`,
+:func:`backward_flops`: its plain version's products).
 
 :func:`fused_attention` is the op the attention module calls: one
 ``torch.autograd.Function`` whose forward and backward are the kernels. The
@@ -105,6 +107,18 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def forward_flops(b: int, h: int, s: int, d: int) -> int:
+    """The forward's two products, q·kᵀ and p·v: 4·B·H·S²·D, as
+    ``FlopCounterMode`` counts :func:`forward_plain`."""
+    return 4 * b * h * s * s * d
+
+
+def backward_flops(b: int, h: int, s: int, d: int) -> int:
+    """The backward's five products (the scores again, dv, dP, dq, dk):
+    10·B·H·S²·D, as ``FlopCounterMode`` counts :func:`backward_plain`."""
+    return 10 * b * h * s * s * d
+
+
 def fused_attention_forward(q, k, v, scale: float, bias=None):
     """``softmax(q·kᵀ·scale + bias)·v`` -> (B, H, S, D) in q's dtype."""
     _check(q, k, v, bias)
@@ -119,6 +133,7 @@ def fused_attention_forward(q, k, v, scale: float, bias=None):
         _ptr(bias), o.data_ptr(), b, h, s, d, float(scale), stream),
         "fused attention forward kernel")
     fused_attention_forward.launches += 1
+    fused_attention_forward.flops += forward_flops(b, h, s, d)
     return o
 
 
@@ -142,11 +157,14 @@ def fused_attention_backward(q, k, v, scale: float, bias, do):
         dv.data_ptr(), stats.data_ptr(), b, h, s, d, float(scale), stream),
         "fused attention backward kernels")
     fused_attention_backward.launches += 1
+    fused_attention_backward.flops += backward_flops(b, h, s, d)
     return dq, dk, dv
 
 
 fused_attention_forward.launches = 0
 fused_attention_backward.launches = 0
+fused_attention_forward.flops = 0
+fused_attention_backward.flops = 0
 
 
 class _FusedAttention(torch.autograd.Function):

@@ -8,7 +8,8 @@ so ``w_t`` and ``w_mixed`` are never written to device memory.
 
 Three kernels in ``csrc/fused_linear.cu``, each with a wrapper here that
 launches it on a CUDA tensor (or raises) and takes its plain PyTorch version
-on a CPU tensor, and counts its launches:
+on a CPU tensor, and counts its launches and their FLOPs (2·M·N·K each, its
+plain version's product):
 
 - :func:`fused_linear_forward`  ``y = x · w_effᵀ``     (``_fwd_kernel``)
 - :func:`fused_linear_dx`       ``dx = g · w_eff``     (``_dx_kernel``)
@@ -43,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from atq_tpu_torch.ops import matmul_flops
 from atq_tpu_torch.ops._build import check, load_library
 
 GRAD_MODES = ("parity", "ste")
@@ -201,6 +203,7 @@ def fused_linear_forward(x, w, mask, scal):
         None if tickets is None else tickets.data_ptr(), m, n, k, splits,
         chunk, stream), "fused_linear forward kernel")
     fused_linear_forward.launches += 1
+    fused_linear_forward.flops += matmul_flops(m, n, k)
     return y
 
 
@@ -221,6 +224,7 @@ def fused_linear_dx(g, w, mask, scal):
         device, g.data_ptr(), w.data_ptr(), _mask_ptr(mask), scal.data_ptr(),
         dx.data_ptr(), m, n, k, stream), "fused_linear dx kernel")
     fused_linear_dx.launches += 1
+    fused_linear_dx.flops += matmul_flops(m, n, k)
     return dx
 
 
@@ -250,12 +254,16 @@ def fused_linear_dwda(g, x, w, mask, scal, ste: bool):
         _ticket(dev, stream).data_ptr(), m, n, k, int(ste), stream),
         "fused_linear dW/dalpha kernel")
     fused_linear_dwda.launches += 1
+    fused_linear_dwda.flops += matmul_flops(m, n, k)
     return dw, out[0]
 
 
 fused_linear_forward.launches = 0
 fused_linear_dx.launches = 0
 fused_linear_dwda.launches = 0
+fused_linear_forward.flops = 0
+fused_linear_dx.flops = 0
+fused_linear_dwda.flops = 0
 
 
 # ---------------------------------------------------------------------------

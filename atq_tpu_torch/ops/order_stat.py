@@ -11,7 +11,8 @@ near the rank's bin), one launch a call and no scratch (the only
 allocation is the (L, 3) output). On a CPU tensor it takes the plain PyTorch version (sort,
 max, sum). There is no other route: a CUDA tensor the kernel cannot take,
 or a cluster launch the card refuses, raises. Each wrapper counts its own
-launches.
+launches, and its FLOPs as ``FlopCounterMode`` counts its plain version's
+(sort, max, sum: no product, so 0; ops/__init__.py ``kernel_flops``).
 
 The JAX side's 12 MiB VMEM budget gate does not apply here: the CUDA
 kernel takes any n below 2^31 and any L below 2^16.
@@ -142,3 +143,7 @@ def order_statistic_reductions_batched(abs2d: torch.Tensor,
 
 order_statistic_reductions.launches = 0
 order_statistic_reductions_batched.launches = 0
+# The plain versions hold no product: FlopCounterMode counts them 0, and
+# the kernels add nothing.
+order_statistic_reductions.flops = 0
+order_statistic_reductions_batched.flops = 0

@@ -14,7 +14,7 @@ three entry points, one wrapper each:
 
 On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
 it takes its plain PyTorch version (unpack, then matmul). Each counts its
-launches in ``.launches``.
+launches in ``.launches`` and their products' FLOPs in ``.flops``.
 
 ``packed_ternary_matmul`` and ``packed_ternary_matmul_rpb`` keep the JAX
 entry points' rule: shapes with K >= 128 and N >= 8 go to a kernel wrapper,
@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from atq_tpu_torch.core.packing import unpack_planar, unpack_planar32
+from atq_tpu_torch.ops import matmul_flops
 from atq_tpu_torch.ops._build import check, load_library
 
 _K_ALIGN = 512  # pack_planar's K padding
@@ -138,10 +139,12 @@ def ternary_matmul_planar(x: torch.Tensor, planes: torch.Tensor, k: int,
         torch.cuda.current_stream(x.device).cuda_stream),
         "ternary_matmul kernel")
     ternary_matmul_planar.launches += 1
+    ternary_matmul_planar.flops += matmul_flops(m, n, k)
     return out
 
 
 ternary_matmul_planar.launches = 0
+ternary_matmul_planar.flops = 0
 
 
 def ternary_matmul_planar32(x: torch.Tensor, planes: torch.Tensor, k: int,
@@ -173,10 +176,12 @@ def ternary_matmul_planar32(x: torch.Tensor, planes: torch.Tensor, k: int,
         torch.cuda.current_stream(x.device).cuda_stream),
         "ternary_matmul32 kernel")
     ternary_matmul_planar32.launches += 1
+    ternary_matmul_planar32.flops += matmul_flops(m, n, k)
     return out
 
 
 ternary_matmul_planar32.launches = 0
+ternary_matmul_planar32.flops = 0
 
 
 def ternary_matmul_rpb(x: torch.Tensor, planes: torch.Tensor,
@@ -206,10 +211,12 @@ def ternary_matmul_rpb(x: torch.Tensor, planes: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream),
         "ternary_matmul_rpb kernel")
     ternary_matmul_rpb.launches += 1
+    ternary_matmul_rpb.flops += matmul_flops(m, n, k, products=2)
     return out
 
 
 ternary_matmul_rpb.launches = 0
+ternary_matmul_rpb.flops = 0
 
 
 def _alpha_vec(alpha, alpha_neg, device) -> torch.Tensor:

@@ -8,8 +8,10 @@ the port's own. Without a GPU the run raises unless ``--device cpu`` is
 given. ``--grad-accum-steps N`` averages N microbatches' gradients into one
 update; every ``--orbax-freq`` epochs the whole training state goes to
 ``--checkpoint-dir``/orbax_<dataset>/step_N, and ``--resume`` continues from
-the newest one. Flags of features not ported yet (``--profile-dir``,
-``--tensorboard-dir``, ``--dp``/``--tp``/``--fsdp``) raise
+the newest one. ``--profile-dir D`` traces the run's first epoch into D
+(``python -m atq_tpu_torch.utils.profile_step D`` summarizes it);
+``--tensorboard-dir T`` writes the epoch scalars to T. Flags of features
+not ported yet (``--dp``/``--tp``/``--fsdp``) raise
 ``NotImplementedError``. Plots are written when matplotlib is installed and
 skipped otherwise.
 """
@@ -70,7 +72,8 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--resume", action="store_true",
                         help="Resume from the newest full training state")
     parser.add_argument("--profile-dir", type=str, default=None,
-                        help="Trace epoch 1 here (not ported yet)")
+                        help="Trace the run's first epoch here "
+                             "(torch.profiler, Chrome trace)")
     parser.add_argument("--checkpoint-dir", type=str, default="checkpoints",
                         help="Directory for model checkpoints")
     parser.add_argument("--plots-dir", type=str, default="plots",
@@ -78,7 +81,7 @@ def build_parser() -> argparse.ArgumentParser:
     parser.add_argument("--orbax-freq", type=int, default=5,
                         help="Epochs between full training-state saves")
     parser.add_argument("--tensorboard-dir", type=str, default=None,
-                        help="TensorBoard scalars (not ported yet)")
+                        help="Write TensorBoard scalars here")
     parser.add_argument("--grad-accum-steps", type=int, default=1,
                         help="Microbatches per update (gradients averaged)")
     parser.add_argument("--device", type=str, default="cuda",
@@ -104,7 +107,7 @@ def config_from_args(args) -> ClassifierConfig:
     )
 
 
-def main(argv=None, epoch_context=None):
+def main(argv=None):
     """Parse ``argv``, train, report; returns ``(state, results)``."""
     args = build_parser().parse_args(argv)
     cfg = config_from_args(args)
@@ -120,8 +123,7 @@ def main(argv=None, epoch_context=None):
                     else get_fashion_mnist_data)
         loaders = get_data(cfg.batch_size, cfg.data_dir,
                            subset_fraction=args.subset_fraction)
-    state, results = train_classifier(cfg, loaders=loaders,
-                                      epoch_context=epoch_context)
+    state, results = train_classifier(cfg, loaders=loaders)
 
     if cfg.bit_packing and cfg.use_rpb:
         from atq_tpu_torch.core.packing import TernaryBitPacking

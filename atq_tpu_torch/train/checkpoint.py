@@ -15,7 +15,12 @@ The JAX package writes its training state with Orbax; the port writes one
 - saves are synchronous: a restore never waits for a writer;
 - :func:`restore_train_state` loads with ``weights_only=True`` (tensors
   and plain containers only, no arbitrary pickles) onto the host; the
-  trainers copy it into their live objects.
+  trainers copy it into their live objects;
+- a ``step_N`` that is a directory is a JAX Orbax state (the JAX trainers
+  write theirs to the same paths): both functions raise ``ValueError``
+  before they read or write anything. Neither format resumes on the other
+  package; weights cross over through ``checkpoint_epoch_N.npz`` and
+  utils/jax_interop.py.
 
 :func:`state_digest` is a SHA-256 over every leaf's key, dtype, shape and
 bytes: the trainers print it when they save and when they resume, so two
@@ -54,10 +59,29 @@ def _steps(directory: str):
                                                os.listdir(directory)) if m)
 
 
+def _refuse_orbax(directory: str, steps) -> None:
+    """Raise ValueError if any ``directory/step_N`` of ``steps`` is a
+    directory: a JAX Orbax state, which the port neither reads nor
+    prunes."""
+    for step in steps:
+        path = os.path.join(directory, f"step_{step}")
+        if os.path.isdir(path):
+            raise ValueError(
+                f"{path} is a directory, a JAX Orbax training state; the "
+                f"port's training state is one torch.save file a step "
+                f"(step_N). Neither resumes on the other package: carry "
+                f"the weights over through checkpoint_epoch_N.npz and "
+                f"atq_tpu_torch/utils/jax_interop.py, and give the port "
+                f"its own output directory.")
+
+
 def save_train_state(directory: str, step: int, state: Dict,
                      keep: int = 3) -> str:
     """Write ``state`` as ``directory/step_{step}`` (atomically, replacing
-    a step of the same number) and keep the ``keep`` newest steps."""
+    a step of the same number) and keep the ``keep`` newest steps. Raises
+    ValueError, before writing, when the directory holds a JAX Orbax
+    step."""
+    _refuse_orbax(directory, _steps(directory) + [step])
     os.makedirs(directory, exist_ok=True)
     for name in os.listdir(directory):  # torn writes of a killed process
         if name.startswith(_TMP_PREFIX):
@@ -88,11 +112,13 @@ def latest_step(directory: str) -> Optional[int]:
 def restore_train_state(directory: str, step: Optional[int] = None
                         ) -> Tuple[Dict, int]:
     """``(state, step)`` of ``step`` (the newest by default), on the host.
-    Raises FileNotFoundError when there is none."""
+    Raises FileNotFoundError when there is none, and ValueError when it
+    is a JAX Orbax step (a directory)."""
     if step is None:
         step = latest_step(directory)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {directory}")
+    _refuse_orbax(directory, [step])
     path = os.path.join(directory, f"step_{step}")
     if not os.path.exists(path):
         raise FileNotFoundError(path)

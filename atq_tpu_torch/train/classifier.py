@@ -31,14 +31,19 @@ whole training state goes to ``checkpoint_dir/orbax_<dataset>/step_N``
 (:func:`classifier_train_state`, train/checkpoint.py); ``resume`` continues
 from the newest one along the same trajectory.
 
-Not ported yet (each raises ``NotImplementedError``): TensorBoard,
-``profile_dir`` traces, and data, tensor or fully-sharded parallelism
-(ROADMAP.md queue 1).
+``profile_dir`` traces the window JAX traces: from before the epoch loop
+until the first epoch of the run (``start_epoch``) has written its
+metrics, with ``torch.profiler`` (the card too), as a Chrome trace under
+the directory (utils/profile_step.py reads it back; each epoch's training
+steps lie in a ``train_steps`` span). ``tensorboard_dir``
+writes each epoch's scalars under ``classifier/`` (utils/tb.py).
+
+Not ported yet (each raises ``NotImplementedError``): data, tensor or
+fully-sharded parallelism (ROADMAP.md queue 1).
 """
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import time
@@ -47,6 +52,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.profiler import record_function
 
 from atq_tpu_torch.core.quantize import adaptive_ternary_quantization
 from atq_tpu_torch.data.augment import classifier_augment
@@ -72,6 +78,12 @@ from atq_tpu_torch.train.schedules_lr import (
 )
 from atq_tpu_torch.utils.jax_interop import save_checkpoint, to_jax_variables
 from atq_tpu_torch.utils.platform import resolve_device
+from atq_tpu_torch.utils.profile_step import (
+    TRAIN_SPAN,
+    start_trace,
+    stop_trace,
+)
+from atq_tpu_torch.utils.tb import MetricsWriter
 
 
 @dataclasses.dataclass
@@ -109,17 +121,10 @@ class ClassifierConfig:
 
 
 def _check_supported(cfg: ClassifierConfig) -> None:
-    later = [
-        (cfg.tensorboard_dir is not None, "tensorboard_dir"),
-        (cfg.profile_dir is not None, "profile_dir"),
-        (cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp,
-         "dp/tp/fsdp parallelism (slice H)"),
-    ]
-    for unsupported, what in later:
-        if unsupported:
-            raise NotImplementedError(
-                f"{what} is not ported to atq_tpu_torch yet "
-                f"(ROADMAP.md queue 1)")
+    if cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp:
+        raise NotImplementedError(
+            "dp/tp/fsdp parallelism (slice H) is not ported to "
+            "atq_tpu_torch yet (ROADMAP.md queue 1)")
 
 
 def _l1_penalty(model: torch.nn.Module) -> torch.Tensor:
@@ -513,12 +518,11 @@ def load_classifier_train_state(state: dict, atq_model, base_model, atq_opt,
     set_numpy_rng_state(state["numpy_rng"])
 
 
-def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
-                     epoch_context=None):
+def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
     """Full training run; returns ``(state, results)``. ``state`` holds the
-    two models and their optimizers. ``epoch_context(epoch)``, if given,
-    returns a context manager wrapped around that epoch's training steps
-    (the chip smoke run traces one epoch with it)."""
+    two models and their optimizers; with ``profile_dir``,
+    ``results["profile_launches"]`` holds the kernel launches in the traced
+    window."""
     from atq_tpu_torch.data.mnist import (
         get_fashion_mnist_data,
         get_mnist_data,
@@ -601,6 +605,9 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
                       f"{state_digest(to_host(train_state(start_epoch)))})",
                       flush=True)
 
+    prof = start_trace(cfg.profile_dir, device) if cfg.profile_dir else None
+    traced_from = kernel_launches()
+    tb = MetricsWriter(cfg.tensorboard_dir)
     for epoch in range(start_epoch, cfg.epochs):
         current_sparsity = initial_sparsity + (
             final_sparsity - initial_sparsity
@@ -612,13 +619,11 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
 
         atq_model.train()
         base_model.train()
-        ctx = (epoch_context(epoch) if epoch_context is not None
-               else contextlib.nullcontext())
         sums, count, losses = None, 0, []
         launches0 = kernel_launches()
         clock = _StepClock(device)
-        t0 = time.perf_counter()
-        with ctx:
+        with record_function(TRAIN_SPAN):
+            t0 = time.perf_counter()
             for images, labels in PrefetchLoader(train_loader):
                 images = _to_device(images, device)
                 labels = _to_device(labels, device).long()
@@ -650,6 +655,12 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
         results["train_accuracies"].append(train_acc)
         val_acc, _ = _run_eval(atq_model, val_loader, device)
         results["val_accuracies"].append(val_acc)
+        tb.scalars(epoch + 1, {
+            "train_acc": train_acc, "base_acc": base_acc,
+            "val_acc": val_acc, "loss": mean_loss,
+            "sparsity": current_sparsity, "imgs_per_sec": imgs_per_sec,
+        }, prefix="classifier/")
+        tb.flush()
         if verbose:
             print(f"Epoch {epoch + 1}/{cfg.epochs} | ATQ {train_acc:.1f}% | "
                   f"Base {base_acc:.1f}% | Loss {mean_loss:.3f} | "
@@ -658,6 +669,12 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
                   flush=True)
         if cfg.use_rpb and (epoch + 1) % 5 == 0 and verbose:
             print(_weight_distribution(atq_model))
+        if prof is not None and epoch == start_epoch:
+            stop_trace(prof, device)
+            prof = None
+            now = kernel_launches()
+            results["profile_launches"] = {k: now[k] - traced_from[k]
+                                           for k in now}
         if val_acc > best_val_acc:
             best_val_acc = val_acc
             save_checkpoint(to_jax_variables(atq_model.state_dict()),
@@ -673,6 +690,8 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
                 print(f"Saved training state to {state_path} (sha256 "
                       f"{state_digest(host)})", flush=True)
 
+    if prof is not None:  # no epoch ran
+        stop_trace(prof, device)
     test_acc, _ = _run_eval(atq_model, test_loader, device)
     base_test_acc, _ = _run_eval(base_model, test_loader, device)
     ips = results["imgs_per_sec"]
@@ -710,6 +729,7 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True,
               f" | Memory {base_mem / max(1e-9, atq_mem):.2f}x | "
               f"Speed {base_time / max(1e-9, atq_time):.2f}x | "
               f"Acc Delta {test_acc - base_test_acc:.1f}%")
+    tb.close()
     state = {"atq_model": atq_model, "base_model": base_model,
              "atq_opt": atq_opt, "base_opt": base_opt,
              "generator": step_gen}

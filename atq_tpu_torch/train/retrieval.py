@@ -42,9 +42,22 @@ whole training state goes to ``output_dir/orbax/step_N``
 (:func:`retrieval_train_state`, train/checkpoint.py), and ``--resume``
 continues from the newest one along the same trajectory.
 
+``--scan_layers`` builds the text stack as the ``ScannedTernaryStack``
+(nn/transformer.py: stacked ``layers.scan.layer.*`` parameters, each layer
+rematerialized in the backward as JAX's ``remat_layers``, quantized per
+layer through the order-statistic kernel; ``hoist_quant`` off, as in JAX);
+its artifacts keep JAX's scanned names. ``--imagenet_weights F`` grafts a
+torchvision ResNet-18 ``.pth`` (sha256-checked, models/resnet.py) into the
+backbone and its BatchNorm statistics before ``--reinit_model``, which then
+overwrites the backbone's kernels too, as in the reference and JAX.
+``--profile_dir`` traces from before the epoch loop until the run's first
+epoch has written its metrics (utils/profile_step.py; each epoch's
+training steps lie in a ``train_steps`` span), ``--tensorboard_dir``
+writes each epoch's metrics under ``retrieval/`` (utils/tb.py), and the
+report's single-sample latency is utils/timing.py's ``sec_per_call``.
+
 Not ported yet (each raises ``NotImplementedError``, ROADMAP.md queue 1):
-``--moe_experts``, ``--scan_layers``, ``--dp``/``--tp``/``--fsdp``,
-``--tensorboard_dir``, ``--profile_dir`` and ``--imagenet_weights``.
+``--moe_experts`` and ``--dp``/``--tp``/``--fsdp``.
 """
 
 from __future__ import annotations
@@ -59,6 +72,7 @@ from typing import Dict, Optional
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 from torch.utils.checkpoint import checkpoint
 
 from atq_tpu_torch.core.schedules import (
@@ -108,6 +122,13 @@ from atq_tpu_torch.utils.jax_interop import (
     to_jax_variables,
 )
 from atq_tpu_torch.utils.platform import resolve_device
+from atq_tpu_torch.utils.profile_step import (
+    TRAIN_SPAN,
+    start_trace,
+    stop_trace,
+)
+from atq_tpu_torch.utils.tb import MetricsWriter
+from atq_tpu_torch.utils.timing import sec_per_call
 
 EMA_DECAY = 0.999
 
@@ -171,13 +192,8 @@ class RetrievalConfig:
 def _check_supported(cfg: RetrievalConfig) -> None:
     later = [
         (cfg.moe_experts > 0, "moe_experts (the MoE FFN, slice H)"),
-        (cfg.scan_layers, "scan_layers"),
         (cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp,
          "dp/tp/fsdp parallelism (slice H)"),
-        (cfg.tensorboard_dir is not None, "tensorboard_dir"),
-        (cfg.profile_dir is not None, "profile_dir"),
-        (cfg.imagenet_weights is not None,
-         "imagenet_weights (the torchvision importer, slice G)"),
     ]
     for unsupported, what in later:
         if unsupported:
@@ -271,6 +287,20 @@ def reinit_model_(model: torch.nn.Module, generator: torch.Generator):
     """:func:`reinit_params` applied to a model through its JAX layout."""
     variables = to_jax_variables(model.state_dict())
     variables["params"] = reinit_params(variables["params"], generator)
+    model.load_state_dict(from_jax_variables(variables))
+
+
+def graft_imagenet_backbone_(model: torch.nn.Module, path: str,
+                             arch: str = "resnet18") -> None:
+    """The torchvision ``.pth`` at ``path`` (sha256-checked) as the image
+    encoder's backbone: its parameters and BatchNorm statistics, through
+    the JAX layout as atq_tpu/train/retrieval.py grafts them."""
+    from atq_tpu_torch.models.resnet import load_imagenet_weights
+
+    bb_params, bb_stats = load_imagenet_weights(path, arch=arch)
+    variables = to_jax_variables(model.state_dict())
+    variables["params"]["image_encoder"]["base_model"] = bb_params
+    variables["batch_stats"]["image_encoder"]["base_model"] = bb_stats
     model.load_state_dict(from_jax_variables(variables))
 
 
@@ -556,21 +586,6 @@ def _variables(model, params=None, collections=None) -> Dict:
     return out
 
 
-def _ms_per_call(fn, device, iters: int = 20, warmup: int = 3) -> float:
-    """Wall ms per call of ``fn()``; on CUDA the window ends in a device
-    synchronize, so it covers the device work."""
-    for _ in range(warmup):
-        fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        fn()
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
-    return (time.perf_counter() - t0) / iters * 1000.0
-
-
 def retrieval_train_state(model, optimizer, ema, baseline, baseline_opt,
                           generators, train_loader, epoch: int,
                           best_val_r1: float) -> Dict:
@@ -646,14 +661,13 @@ def optax_state_tree(cfg: RetrievalConfig, optimizer, model) -> Dict:
     return {"1" if cfg.clip_grad else "0": inner}
 
 
-def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
-                    epoch_context=None):
+def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
     """Full training run; returns ``(state, history, report)`` as the JAX
     trainer does. ``state`` holds the model, its optimizer, the EMA
     parameters, the baseline and ``stats`` (per epoch: seconds, pairs/s,
-    step losses, step-to-step ms and kernel launches per step).
-    ``epoch_context(epoch)``, if given, returns a context manager wrapped
-    around that epoch's training steps."""
+    step losses, step-to-step ms and kernel launches per step; with
+    ``profile_dir``, ``profile_launches``: the launches in the traced
+    window)."""
     from atq_tpu_torch.data.flickr8k import (
         prepare_flickr8k_dataloaders,
         save_vocab_file,
@@ -679,9 +693,18 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
         hidden_dim=cfg.hidden_dim, vision_threshold=cfg.vision_sparsity,
         text_threshold=cfg.text_sparsity, use_residual=cfg.use_residual,
         grad_mode=cfg.grad_mode, max_seq_length=cfg.max_seq_length,
-        text_attn_impl=cfg.attn_impl,
+        text_scan_layers=cfg.scan_layers, text_attn_impl=cfg.attn_impl,
         compute_dtype=torch.bfloat16 if cfg.use_amp else None,
         device=device, generator=torch.Generator().manual_seed(cfg.seed))
+    if cfg.imagenet_weights:
+        # Before the re-init, as the reference and JAX do it: the re-init
+        # then overwrites the pretrained backbone's kernels too.
+        graft_imagenet_backbone_(model, cfg.imagenet_weights)
+        if verbose:
+            print(f"Loaded IMAGENET1K backbone from {cfg.imagenet_weights}")
+        if cfg.reinit_model and verbose:
+            print("WARNING: --reinit_model re-initializes the pretrained "
+                  "backbone too (reference parity quirk)")
     if cfg.reinit_model:
         if verbose:
             print("Reinitializing model weights...")
@@ -770,6 +793,9 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
                 print(f"  Restored training state (sha256 "
                       f"{state_digest(to_host(train_state(start_epoch)))})")
 
+    tb = MetricsWriter(cfg.tensorboard_dir)
+    prof = start_trace(cfg.profile_dir, device) if cfg.profile_dir else None
+    traced_from = kernel_launches()
     for epoch in range(start_epoch, cfg.epochs):
         criterion.set_epoch(epoch, cfg.epochs)
         cl_manager.set_epoch(epoch, cfg.epochs)
@@ -784,13 +810,11 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
                                        device=device)
         curriculum_dev = torch.tensor(cl_manager.curriculum_kind(),
                                       device=device)
-        ctx = (epoch_context(epoch) if epoch_context is not None
-               else contextlib.nullcontext())
         losses, n_pairs = [], 0
         launches0 = kernel_launches()
         clock = _StepClock(device)
-        t0 = time.perf_counter()
-        with ctx:
+        with record_function(TRAIN_SPAN):
+            t0 = time.perf_counter()
             for batch in PrefetchLoader(train_loader):
                 batch = _batch_to(batch, device)
                 baseline_embeds = None
@@ -843,6 +867,14 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
                          **{k: float(v) for k, v in val_metrics.items()}}
         with open(metrics_path, "a") as f:
             f.write(json.dumps({"epoch": epoch + 1, **epoch_metrics}) + "\n")
+        tb.scalars(epoch + 1, epoch_metrics, prefix="retrieval/")
+        tb.flush()
+        if prof is not None and epoch == start_epoch:
+            stop_trace(prof, device)
+            prof = None
+            now = kernel_launches()
+            stats["profile_launches"] = {k: now[k] - traced_from[k]
+                                         for k in now}
         if (epoch + 1) % cfg.checkpoint_freq == 0 \
                 or (epoch + 1) == cfg.epochs:
             host = to_host(train_state(epoch + 1))
@@ -863,6 +895,8 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
             if verbose:
                 print(f"  Saved checkpoint to {ckpt_path}")
 
+    if prof is not None:  # no epoch ran
+        stop_trace(prof, device)
     save_checkpoint(_variables(model, collections=core),
                     os.path.join(cfg.output_dir, "final_model.npz"))
     history = {"train_losses": [float(x) for x in train_losses],
@@ -885,14 +919,15 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
            torch.zeros((1, cfg.max_seq_length), dtype=torch.long,
                        device=device),
            torch.tensor([5], device=device))
-    atq_time_ms = _ms_per_call(lambda: embed_fn(one), device)
+    # Single-sample latency by slope timing, as the JAX trainer takes it.
+    atq_time_ms = sec_per_call(lambda: embed_fn(one)) * 1000.0
     baseline_time_ms = None
     if baseline is not None:
         def baseline_embed():
             with torch.no_grad():
                 return baseline(*one, return_embeddings=True, train=False)
 
-        baseline_time_ms = _ms_per_call(baseline_embed, device)
+        baseline_time_ms = sec_per_call(baseline_embed) * 1000.0
 
     report = {
         "best_val_r1": float(best_val_r1),
@@ -919,6 +954,7 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True,
         for k in (1, 5, 10):
             print(f"  Test R@{k}: {test_metrics[f'mean_R@{k}']:.2f}%")
         print(f"  ATQ inference time: {atq_time_ms:.2f} ms per sample")
+    tb.close()
     state = {"model": model, "optimizer": optimizer, "ema_params": ema,
              "baseline": baseline, "baseline_optimizer": baseline_opt,
              "generators": generators, "embed_fn": embed_fn,
@@ -1041,7 +1077,7 @@ def build_parser() -> argparse.ArgumentParser:
              "without dropout, so with the model's dropout of 0.1 training "
              "takes the einsum branch (a one-time warning)")
     add("--scan_layers", action="store_true",
-        help="Scanned text stack (not ported yet)")
+        help="Scanned text stack (stacked layers, rematerialized)")
     add("--grad_accum_steps", type=int, default=1,
         help="GradCache microbatches per step (the full batch stays the "
              "negative pool)")
@@ -1054,24 +1090,24 @@ def build_parser() -> argparse.ArgumentParser:
     add("--resume", action="store_true",
         help="Resume from the newest training state in output_dir/orbax")
     add("--profile_dir", type=str, default=None,
-        help="Trace epoch 1 here (not ported yet)")
+        help="Trace the run's first epoch here (torch.profiler)")
     add("--tensorboard_dir", type=str, default=None,
-        help="TensorBoard scalars (not ported yet)")
+        help="Write TensorBoard scalars here")
     add("--vocab_file", type=str, default=None,
         help="Use a recorded vocabulary JSON")
     add("--use_multi_positive", action="store_true",
         help="Train with MultiPositiveInfoNCE over the 5 captions per image")
     add("--imagenet_weights", type=str, default=None,
-        help="torchvision resnet18 .pth (not ported yet)")
+        help="torchvision resnet18 IMAGENET1K_V1 .pth for the backbone")
     return p
 
 
-def main(argv=None, epoch_context=None):
+def main(argv=None):
     args = build_parser().parse_args(argv)
     cfg = RetrievalConfig(**{f.name: getattr(args, f.name)
                              for f in dataclasses.fields(RetrievalConfig)
                              if hasattr(args, f.name)})
-    return train_retrieval(cfg, epoch_context=epoch_context)
+    return train_retrieval(cfg)
 
 
 if __name__ == "__main__":

@@ -44,7 +44,7 @@ from atq_tpu_torch.nn.transformer import (
     structure_copies,
 )
 from atq_tpu_torch.train.classifier import AdamChain
-from atq_tpu_torch.utils.flops import mfu
+from atq_tpu_torch.utils.flops import counted_flops, mfu
 from atq_tpu_torch.utils.platform import resolve_device
 from atq_tpu_torch.utils.timing import steady_state_sec_per_step
 
@@ -159,7 +159,12 @@ def build_step(embed, ffn, heads, layers, seq, batch, remat, scan,
 def measure(name, spec, use_amp=True, iters=8, remat_policy="save_quantized",
             attn_impl="einsum", hoist_quant=False, device=None, warmup=2):
     """One JSON row: the JAX harness's keys, plus the device, every step's
-    loss, kernel launches per timed step and the peak device memory."""
+    loss, kernel launches per timed step and the peak device memory. In
+    place of XLA's cost analysis (``flops_per_step_xla``) the row has
+    ``flops_per_step_counted``: the first warm-up step counted by
+    utils/flops.py ``counted_flops`` (products and convolutions, the
+    kernels' included; None when ``warmup`` is 0), beside the analytic
+    ``flops_per_step`` that the MFU uses."""
     from atq_tpu_torch.ops import kernel_launches
 
     device = resolve_device(device)
@@ -173,11 +178,16 @@ def measure(name, spec, use_amp=True, iters=8, remat_policy="save_quantized",
         hoist_quant=hoist_quant, device=device)
     losses = []
     counts = {}
+    counted = {}
 
     def recorded(state):
         if len(losses) == warmup:  # first timed step
             counts.update(kernel_launches())
-        state, loss = step_fn(state)
+        if not losses and warmup > 0:  # the first warm-up step, counted
+            flops, (state, loss) = counted_flops(lambda: step_fn(state))
+            counted.update(flops)
+        else:
+            state, loss = step_fn(state)
         losses.append(loss)
         return state, loss
 
@@ -200,7 +210,8 @@ def measure(name, spec, use_amp=True, iters=8, remat_policy="save_quantized",
         "ms_per_step": dt * 1000,
         "tokens_per_sec": batch * seq / dt,
         "flops_per_step": flops,
-        "flops_per_step_xla": None,  # no XLA cost analysis here
+        "flops_per_step_counted": counted.get("total"),
+        "flops_per_step_counted_kernels": counted.get("kernels"),
         "mfu_pct": None if util is None else util * 100.0,
         "device": device_name,
         "losses": [float(x) for x in losses],

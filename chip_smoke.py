@@ -36,6 +36,11 @@
                                    # train step and eval mode; card twice,
                                    # CPU at 8 and 1 threads, planted
                                    # faults), JSON in OUT
+    python3 chip_smoke.py --retrieval-scan-step0 [OUT]
+                                   # the readings behind
+                                   # train_retrieval_scan's step-0 limits
+                                   # (unrolled twice, scanned, planted
+                                   # fault; dense and fused), JSON in OUT
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -93,9 +98,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 recipe (--use-rpb --distill --use-l1 --clip-grad, batch
                 256, --subset-fraction 0.25: 46 steps an epoch, 2 epochs,
                 seed 0): imgs/s and step-time p50 per epoch, kernel
-                launches per step (order statistic: 1), the device busy
-                share over the traced second epoch (and its top host ops
-                and device kernels per step), first/last step loss,
+                launches per step (order statistic: 1); --profile-dir
+                traces the first epoch and its validation, and the trace
+                file read back gives, over the epoch's train_steps span,
+                the device busy share and per step the host and device
+                time and the top host ops by self time and device kernels,
+                first/last step loss,
                 val/test accuracy. Before it, step 0 of the co-trained step
                 (dropout 0, no augmentation) on the card against the same
                 step on the CPU: losses within 1e-5 relative, every
@@ -131,12 +139,16 @@ Phases, one JSON line each; any failure exits non-zero:
                 this seed, not at every seed). Under AMP no limit tells one
                 TF32 pass from a correct forward: bf16 roundings of
                 activations flip with the attention's last bits (PERF.md,
-                PR 14).
+                PR 14). The float32 step's counted FLOPs (utils/flops.py
+                counted_flops: FlopCounterMode and the kernels' own counts)
+                on the card equal the CPU's.
   train_encoder that module's main() with --configs bert-base --attn fused
                 --hoist (12 layers, batch 64, sequence 256, AMP, remat
                 save_quantized, AdamW 1e-4): 2 warm-up and 8 timed steps on
                 one batch; ms per step, tokens/s, MFU against the card's
-                bf16 peak, peak memory, the losses (finite, the last below
+                bf16 peak, the counted FLOPs of the first warm-up step
+                (flops_per_step_counted, beside the analytic figure the MFU
+                uses), peak memory, the losses (finite, the last below
                 the first), launches per step (batched order statistic 6,
                 attention forward 24 with remat's recompute, backward 12),
                 then the device busy share, top kernels and the attention
@@ -161,13 +173,38 @@ Phases, one JSON line each; any failure exits non-zero:
                 weights), and fused
                 forward, dx and dW/dalpha 28 each with ATQ_FUSED=1. Then
                 the module's main() on the recipe (batch 16, 2 epochs of
-                100 steps on the synthetic corpus, epoch 2 traced):
+                100 steps on the synthetic corpus, --profile_dir tracing
+                epoch 1 and its validation, the trace file read back over
+                the epoch's train_steps span):
                 pairs/s and step p50 per epoch, launches per step, host
                 and device ms a traced step and the busy share, mean
                 R@1/5/10 on validation and test (finite), the artifact
                 files; then best_model.npz loaded into a fresh model must
                 embed a validation batch within 1e-5 of the trainer's
                 embedding function.
+  train_retrieval_scan
+                --scan_layers at the recipe's widths. (a) Step 0
+                (train_retrieval's set-up: dropout 0, optimal alphas) of
+                the scanned model against the unrolled one on the same
+                weights,
+                dense and with ATQ_FUSED=1, each within train_retrieval's
+                fused-vs-dense limits and also bit for bit but for
+                ResNet-18's leaves (loss, embeddings, every other gradient;
+                cuDNN's filter gradients do not repeat bit for bit: the
+                comment above SCAN_LAYERS); under ATQ_FUSED=1
+                every projection, stacked or not, runs the fused kernels.
+                A planted fault (layers 1 and 2 of the stacked linear1
+                weight swapped) must fail both; launches: order statistic
+                27; fused forward 52 (the stacked layers' 24 again in
+                their recompute), dx and dW/dalpha 28 each. (b) The recipe
+                with --scan_layers
+                --checkpoint_freq 1 for 2 epochs (losses finite, 27 order
+                statistics a step), its orbax/step_2 removed, then epoch 2
+                again with --resume --profile_dir: the trace file's top 10
+                device ops (summarize_trace) and busy share, its
+                order_stat_cluster_kernel events equal to the launches the
+                trainer counted in the traced window, and those in its
+                train_steps span to the epoch's steps' launches.
   train_retrieval_amp
                 the trainer's --use_amp, GradCache and --resume at the
                 recipe's widths. AMP step 0 (train_retrieval's set-up:
@@ -260,8 +297,8 @@ shapes.
 
 Then one line {"kernels": [...]} (launch counts from the main-path phase
 that runs each kernel: serve_dense, serve_packed, serve_retrieval_pack32,
-serve_dense_correction, train_fused, train_encoder; train_retrieval prints
-its own on its line),
+serve_dense_correction, train_fused, train_encoder; train_retrieval and
+train_retrieval_scan print their own on their lines),
 the card's name and power limit as nvidia-smi prints them, and the result
 line {"ok": true, "device": {...}}. Without a GPU, or without the rest of
 the repo beside it, the script exits non-zero and prints no result.
@@ -1351,7 +1388,7 @@ def phase_serve(name, path, packed, images, reference):
         for s in servers:
             s.stop()
     launches = {k: fn.launches for k, fn in counters.items()}
-    busy_s = _device_us(prof.key_averages()) / 1e6
+    busy = _profiled_breakdown(prof, 1, traced_wall)[0]["share"]
 
     logits = np.asarray([a["logits"] for a, _ in answers], np.float32)
     lat = np.asarray([t for _, t in answers])
@@ -1372,7 +1409,7 @@ def phase_serve(name, path, packed, images, reference):
           "p99_ms": float(np.percentile(lat, 99)),
           "batches": stats["batches"], "launches": launches,
           "traced_wall_s": traced_wall,
-          "device_busy_share": (busy_s / traced_wall if busy_s else None),
+          "device_busy_share": busy or None,
           "max_abs_err_vs_cpu": float(np.abs(logits - reference).max())})
     return logits, launches
 
@@ -1608,7 +1645,7 @@ def phase_serve_retrieval(name, path, req, ref, pack32=False, same_as=None):
         for s in servers:
             s.stop()
     launches = kernel_launches()
-    busy_s = _device_us(prof.key_averages()) / 1e6
+    busy = _profiled_breakdown(prof, 1, traced_wall)[0]["share"]
     with torch.inference_mode():
         img_batch = model.encode_image(
             torch.from_numpy(req["normalized"]).cuda()).cpu().numpy()
@@ -1657,7 +1694,7 @@ def phase_serve_retrieval(name, path, req, ref, pack32=False, same_as=None):
           "requests_served": {"image": stats[0]["requests"],
                               "text": stats[1]["requests"]},
           "launches": launches, "traced_wall_s": traced_wall,
-          "device_busy_share": (busy_s / traced_wall if busy_s else None),
+          "device_busy_share": busy or None,
           "max_abs_err_vs_cpu": {
               "image": float(np.abs(img - ref["image"]).max()),
               "image_batch": float(np.abs(img_batch
@@ -1846,58 +1883,67 @@ def _step0_batch():
     return x.astype(np.float32), labels.astype(np.int32)
 
 
-def _train_run(argv, trace_epoch=None):
+def _train_run(argv, profile_dir=None):
     """``python -m atq_tpu_torch.train``'s main() with kernel counts reset
-    before it and read after it, the epoch ``trace_epoch`` traced."""
-    from torch.profiler import ProfilerActivity, profile
-
+    before it and read after it; with ``profile_dir``, ``--profile-dir``
+    traces the run's first epoch (and its validation), read back from the
+    trace file over the epoch's training steps."""
     from atq_tpu_torch.ops import kernel_launches
     from atq_tpu_torch.train.__main__ import main as train_main
 
-    traced = {}
-
-    def epoch_context(epoch):
-        if epoch != trace_epoch:
-            return contextlib.nullcontext()
-        traced["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA])
-        return traced["prof"]
-
+    if profile_dir is not None:
+        argv = argv + ["--profile-dir", profile_dir]
     _reset_launches()
     t0 = time.perf_counter()
-    _, results = train_main(argv, epoch_context=epoch_context)
+    _, results = train_main(argv)
     wall = time.perf_counter() - t0
     launches = kernel_launches()
     busy = None
-    if "prof" in traced:
-        events = traced["prof"].key_averages()
-        busy_s = _device_us(events) / 1e6
-        steps = len(results["step_losses"][trace_epoch])
-        busy = {"share": busy_s / results["epoch_seconds"][trace_epoch],
-                **_breakdown(events, steps)}
+    if profile_dir is not None:
+        busy = _trace_breakdown(profile_dir, len(results["step_losses"][0]))
     return results, launches, wall, busy
 
 
-def _breakdown(events, steps, top=8):
-    """Per training step of the traced epoch: host time, device time, the
-    host ops with the most self CPU time and the device kernels with the
-    most device time (ms)."""
-    from torch.autograd import DeviceType
+def _trace_events(trace_dir):
+    """``(file name, events)`` of the newest trace file under
+    ``trace_dir`` (a trainer's ``--profile_dir``)."""
+    from atq_tpu_torch.utils.profile_step import (
+        latest_trace_file,
+        load_events,
+    )
 
-    def per_step(attr, device_type):
-        rows = sorted(((getattr(e, attr, 0.0), e.key) for e in events
-                       if e.device_type == device_type), reverse=True)[:top]
-        return [[name, t / 1e3 / steps] for t, name in rows if t > 0]
+    path = latest_trace_file(trace_dir)
+    return os.path.basename(path), load_events(path)
 
-    return {"steps": steps,
-            "host_ms_per_step": sum(e.self_cpu_time_total for e in events
-                                    if e.device_type == DeviceType.CPU)
-            / 1e3 / steps,
-            "device_ms_per_step": _device_us(events) / 1e3 / steps,
-            "top_host_ops_ms_per_step": per_step("self_cpu_time_total",
-                                                 DeviceType.CPU),
-            "top_device_kernels_ms_per_step": per_step(
-                "self_device_time_total", DeviceType.CUDA)}
+
+def _trace_breakdown(trace_dir, steps, traced=None):
+    """The newest trace file under ``trace_dir`` (or ``traced``, its
+    :func:`_trace_events`), per training step of its epoch: profile_step's
+    step_breakdown of the trainer's ``train_steps`` span, so the
+    validation the window also holds is left out (host and device time a
+    step, top ops, and the busy share over the span)."""
+    from atq_tpu_torch.utils.profile_step import TRAIN_SPAN, step_breakdown
+
+    name, events = traced or _trace_events(trace_dir)
+    return {"trace_file": name, "trace_events": len(events),
+            **step_breakdown(events, steps, span=TRAIN_SPAN)}
+
+
+def _profiled_breakdown(prof, steps, seconds, top=8):
+    """A finished in-process torch.profiler capture of ``steps`` steps
+    that took ``seconds``, read back from its exported Chrome trace by
+    profile_step's step_breakdown, with the busy share over ``seconds``.
+    Also returns the trace's events."""
+    from atq_tpu_torch.utils.profile_step import load_events, step_breakdown
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        events = load_events(path)
+    out = step_breakdown(events, steps, top=top)
+    del out["wall_ms"]
+    out["share"] = out["device_ms_per_step"] * steps / 1e3 / seconds
+    return out, events
 
 
 def _check_run(name, results, per_step):
@@ -1942,7 +1988,8 @@ def phase_train(name, fused, tmp, batch, step0_ref):
                      "--data-dir", os.path.join(tmp, "data")]
     os.environ["ATQ_FUSED"] = "1" if fused else "0"
     try:
-        results, launches, wall, busy = _train_run(argv, trace_epoch=1)
+        results, launches, wall, busy = _train_run(
+            argv, profile_dir=os.path.join(tmp, name, "trace"))
         per_step = {"order_stat": 1, "fused_forward": 2 * fused,
                     "fused_dx": 2 * fused, "fused_dwda": 2 * fused}
         _check_run(name, results, per_step)
@@ -2171,17 +2218,26 @@ def phase_encoder_step0():
     comparison (one TF32 pass a product in float32, the attention in
     bfloat16 under AMP)."""
     from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.utils.flops import counted_flops
 
     t0 = time.perf_counter()
     f32_limits = (STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL)
     amp_limits = (AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_ATOL, AMP_ALPHA_ATOL)
-    cpu = _encoder_step0("cpu", False, "fused", True)
+    cpu_flops, cpu = counted_flops(
+        lambda: _encoder_step0("cpu", False, "fused", True))
     _reset_launches()
-    card = _encoder_step0("cuda", False, "fused", True)
+    card_flops, card = counted_flops(
+        lambda: _encoder_step0("cuda", False, "fused", True))
     launches = kernel_launches()
     for k in ENCODER_PER_STEP:
         if not launches[k]:
             raise AssertionError(f"encoder step 0: {k} never launched")
+    # The kernels' own FLOP counts make the card's count the CPU's, where
+    # FlopCounterMode sees every plain version's products itself.
+    if card_flops["total"] != cpu_flops["total"] or \
+            not card_flops["kernels"]["fused_attention_fwd"]:
+        raise AssertionError(f"encoder step 0 counted FLOPs: card "
+                             f"{card_flops}, cpu {cpu_flops}")
     f32 = _compare_encoder("encoder step 0 card vs cpu", card, cpu,
                            *f32_limits)
     f32_fault = _must_fail(
@@ -2200,6 +2256,7 @@ def phase_encoder_step0():
           "card_vs_cpu_f32": f32, "fault_one_tf32_pass_f32": f32_fault,
           "fused_hoist_vs_einsum_amp": amp, "fault_bf16_amp": amp_fault,
           "launches_card_f32": launches,
+          "counted_flops": {"card": card_flops, "cpu": cpu_flops},
           "seconds": time.perf_counter() - t0})
 
 
@@ -2226,16 +2283,17 @@ def _trace_encoder():
             state, _ = step(state)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t1
-    events = prof.key_averages()
-    busy_s = _device_us(events) / 1e6
-    attention = {name: sum(e.self_device_time_total for e in events
-                           if name in e.key) / 1e3 / steps
+    from atq_tpu_torch.utils.profile_step import DEVICE_CATEGORIES
+
+    breakdown, events = _profiled_breakdown(prof, steps, wall, top=12)
+    attention = {name: sum(e["dur"] for e in events
+                           if e.get("cat") in DEVICE_CATEGORIES
+                           and name in e.get("name", "")) / 1e3 / steps
                  for name in ("attn_fwd_kernel", "attn_bwd_rows_kernel",
                               "attn_bwd_keys_kernel")}
     return {"build_s": build_s, "traced_steps": steps, "wall_s": wall,
-            "busy_share": busy_s / wall,
-            "attention_device_ms_per_step": attention,
-            **_breakdown(events, steps, top=12)}
+            "busy_share": breakdown.pop("share"),
+            "attention_device_ms_per_step": attention, **breakdown}
 
 
 def encoder_run():
@@ -2286,7 +2344,8 @@ def phase_train_encoder(tmp):
     emit({"phase": "train_encoder", "argv": ENCODER_ARGV, "wall_s": wall,
           **{k: row[k] for k in ("ms_per_step", "tokens_per_sec", "mfu_pct",
                                  "peak_memory_gib", "params_millions",
-                                 "flops_per_step", "losses",
+                                 "flops_per_step", "flops_per_step_counted",
+                                 "flops_per_step_counted_kernels", "losses",
                                  "launches_per_step", "device")},
           "launches": launches, "trace": trace})
     return launches
@@ -2555,10 +2614,9 @@ def phase_train_retrieval(tmp):
     """The retrieval slice on the card: the fused kernels at the step's
     shapes; step 0 card against CPU and ATQ_FUSED=1 against dense; 2
     epochs of ``python -m atq_tpu_torch.train.retrieval``'s main() on the
-    README recipe (counts reset before it and read after it, epoch 2
-    traced); then best_model.npz served by a fresh model."""
-    from torch.profiler import ProfilerActivity, profile
-
+    README recipe (counts reset before it and read after it, epoch 1
+    traced by ``--profile_dir``); then best_model.npz served by a fresh
+    model."""
     from atq_tpu_torch.data.flickr8k import Flickr8kDataset, load_vocab_file
     from atq_tpu_torch.models.retrieval import ATQMultimodalRetrieval
     from atq_tpu_torch.ops import kernel_launches
@@ -2597,21 +2655,13 @@ def phase_train_retrieval(tmp):
     step0_s = time.perf_counter() - t0
 
     out_dir = os.path.join(tmp, "retrieval_train")
+    trace_dir = os.path.join(tmp, "retrieval_trace")
     argv = RETRIEVAL_TRAIN_ARGV + ["--output_dir", out_dir, "--data_dir",
-                                   os.path.join(tmp, "no_flickr8k")]
-    traced = {}
-
-    def epoch_context(epoch):
-        if epoch != 1:
-            return contextlib.nullcontext()
-        traced["prof"] = profile(activities=[ProfilerActivity.CPU,
-                                             ProfilerActivity.CUDA])
-        return traced["prof"]
-
+                                   os.path.join(tmp, "no_flickr8k"),
+                                   "--profile_dir", trace_dir]
     _reset_launches()
     t1 = time.perf_counter()
-    state, history, report = retrieval_main(argv,
-                                            epoch_context=epoch_context)
+    state, history, report = retrieval_main(argv)
     wall = time.perf_counter() - t1
     launches = kernel_launches()
     stats = state["stats"]
@@ -2633,10 +2683,7 @@ def phase_train_retrieval(tmp):
     missing = [f for f in RETRIEVAL_ARTIFACTS if f not in artifacts]
     if missing:
         raise AssertionError(f"train_retrieval: missing {missing}")
-    events = traced["prof"].key_averages()
-    steps = len(stats["step_losses"][1])
-    busy = {"share": _device_us(events) / 1e6 / stats["epoch_seconds"][1],
-            **_breakdown(events, steps)}
+    busy = _trace_breakdown(trace_dir, len(stats["step_losses"][0]))
 
     # best_model.npz served by a fresh model against the trainer's
     # embedding function (whose model holds best_model.npz after the run).
@@ -2673,6 +2720,240 @@ def phase_train_retrieval(tmp):
           "atq_inference_time_ms": report["atq_inference_time_ms"],
           "artifacts": artifacts, "served_max_abs_diff": serve_err})
     return launches
+
+
+# Scanned against unrolled step 0 (train_retrieval_scan): the same weights,
+# the text tower as ``layers_{i}`` or as the stacked ``layers.scan.layer``
+# (each layer rematerialized; dense, quantized outside its checkpoint;
+# under ATQ_FUSED=1, the fused kernels inside it on a threshold computed
+# outside). Readings (--retrieval-scan-step0 and the phase's line; one
+# H100 80GB HBM3 at 700 W), dense and fused alike: the two run the same
+# operations in the same order, so loss, embeddings and every gradient
+# leaf off ResNet-18's trunk equal bit for bit; the trunk's leaves differ
+# by up to 5.6e-6 of a leaf's L2 norm, as the unrolled step differs from
+# itself run again (5.6e-6: cuDNN's filter gradients sum in no fixed
+# order). So both modes are held bit for bit off the trunk and, everywhere,
+# within train_retrieval's fused-vs-dense limits (RET_GRAD_TOL_FUSED,
+# RET_LEAF_TOL_FUSED). The planted fault reads 0.32 of the largest
+# gradient in both modes.
+SCAN_LAYERS = 4
+
+
+def _scanned_copy(model):
+    """``model`` (README widths, on the CPU) with its text tower as the
+    ScannedTernaryStack on the same weights."""
+    from atq_tpu_torch.models.retrieval import ATQMultimodalRetrieval
+    from atq_tpu_torch.nn.transformer import stack_layer_params
+
+    te = model.text_encoder
+    scanned = ATQMultimodalRetrieval(
+        vocab_size=te.embedding.num_embeddings, embed_dim=192,
+        hidden_dim=384, use_residual=True, max_seq_length=SEQ_LEN,
+        dropout=0.0, text_scan_layers=True, device="cpu")
+    scanned.load_state_dict(stack_layer_params(
+        model.state_dict(), SCAN_LAYERS, prefix="text_encoder.layers_",
+        dest="text_encoder.layers"))
+    return scanned
+
+
+def _unstacked(result):
+    """A scanned step-0 result with its gradients under the unrolled
+    names."""
+    from atq_tpu_torch.nn.transformer import unstack_layer_params
+
+    return result[:3] + (unstack_layer_params(
+        result[3], SCAN_LAYERS, prefix="text_encoder.layers_",
+        dest="text_encoder.layers"),) + result[4:]
+
+
+def _bit_equal(got, want, trunk=True):
+    """Loss, embeddings and every gradient leaf (with ``trunk``, ResNet-18's
+    too) equal bit for bit."""
+    return (got[0] == want[0] and all(torch.equal(a, b) for a, b in
+                                      zip(got[1:3], want[1:3]))
+            and sorted(got[3]) == sorted(want[3])
+            and all(torch.equal(got[3][n], g) for n, g in want[3].items()
+                    if trunk or _leaf_group(n, g) != "trunk"))
+
+
+def _swapped_layers(scanned):
+    """A planted fault: layers 1 and 2 of the stacked FFN weight
+    (``linear1``) swapped."""
+    import copy
+
+    bad = copy.deepcopy(scanned)
+    w = bad.text_encoder.layers.scan.layer.linear1.weight
+    with torch.no_grad():
+        w[[1, 2]] = w[[2, 1]].clone()
+    return bad
+
+
+def scan_step0_readings(tmp):
+    """Step 0 of the README model at optimal alphas on the card, dense and
+    under ATQ_FUSED=1: the unrolled model twice and the scanned one, and
+    the scanned one with a planted fault (:func:`_swapped_layers`), each
+    pair's readings (train_retrieval's) and whether it is equal bit for
+    bit; the launches of each step and the path's layers (all, and those
+    of 16,384+ weights). Returns ``(readings, results)``, the second the
+    step-0 results by mode (unrolled, scanned, fault; unrolled names)."""
+    model, batch, cfg = _retrieval_step0_setup(tmp)
+    scanned = _scanned_copy(model)
+    bad = _swapped_layers(scanned)
+    readings = {"path_layers": _retrieval_path_layers(model)}
+    results = {}
+    for mode, fused in (("dense", False), ("fused", True)):
+        unrolled = _retrieval_step0(model, batch, cfg, "cuda", fused)
+        again = _retrieval_step0(model, batch, cfg, "cuda", fused)
+        scan = _unstacked(_retrieval_step0(scanned, batch, cfg, "cuda",
+                                           fused))
+        fault = _unstacked(_retrieval_step0(bad, batch, cfg, "cuda", fused))
+        results[mode] = (unrolled, scan, fault)
+        readings[mode] = {"launches_unrolled": unrolled[4],
+                          "launches_scanned": scan[4]}
+        for name, got in (("unrolled_again", again), ("scanned", scan),
+                          ("fault", fault)):
+            readings[mode][name] = {
+                "bit_equal": _bit_equal(got, unrolled),
+                "bit_equal_off_trunk": _bit_equal(got, unrolled,
+                                                  trunk=False),
+                **_compare_retrieval_step0(f"{mode} {name}", got, unrolled)}
+    return readings, results
+
+
+def _scan_step0_check(readings, results):
+    """The verdicts of train_retrieval_scan (a): the scanned step against
+    the unrolled one bit for bit off the trunk and within the fused
+    limits; the planted fault past both; raises past them."""
+    out = {}
+    for mode, (unrolled, scan, fault) in results.items():
+        r = readings[mode]
+        if not r["scanned"]["bit_equal_off_trunk"]:
+            raise AssertionError(f"scanned step 0 ({mode}) is not the "
+                                 f"unrolled one bit for bit off the trunk: "
+                                 f"{json.dumps(r['scanned'])}")
+        _compare_retrieval_step0(f"scanned step 0 ({mode})", scan, unrolled,
+                                 RET_GRAD_TOL_FUSED, RET_LEAF_TOL_FUSED)
+        if r["fault"]["bit_equal_off_trunk"]:
+            raise AssertionError(f"planted fault ({mode}) equals the "
+                                 f"unrolled step")
+        try:
+            _compare_retrieval_step0(f"planted fault ({mode})", fault,
+                                     unrolled, RET_GRAD_TOL_FUSED,
+                                     RET_LEAF_TOL_FUSED)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"planted fault ({mode}) meets the fused "
+                                 f"limits: the check cannot tell it")
+        out[mode] = {**r, "held": "bit for bit off the trunk, fused limits"}
+    return out
+
+
+def phase_train_retrieval_scan(tmp):
+    """``--scan_layers`` on the card at the README recipe's widths: (a)
+    step 0 scanned against unrolled, dense and fused, with a planted
+    fault; (b) the recipe trained 2 epochs with ``--scan_layers
+    --checkpoint_freq 1``, its ``step_2`` state removed, then epoch 2 again
+    with ``--resume --profile_dir``: the trace file read back with
+    summarize_trace, its order-statistic kernels counted against the
+    launches the trainer counted in the traced window."""
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.train.retrieval import main as retrieval_main
+    from atq_tpu_torch.utils.profile_step import (
+        DEVICE_CATEGORIES,
+        TRAIN_SPAN,
+        span_events,
+        summarize_trace,
+    )
+
+    t0 = time.perf_counter()
+    readings, results = scan_step0_readings(tmp)
+    n_layers, n_large = readings["path_layers"]
+    # Under ATQ_FUSED=1 every path layer runs the fused kernels, and each
+    # stacked layer's forward once more in its recompute; the thresholds
+    # are computed outside the recompute, once a layer.
+    stacked = 6 * SCAN_LAYERS
+    want = {"dense": {"order_stat": n_large},
+            "fused": {"order_stat": n_large,
+                      "fused_forward": n_layers + stacked,
+                      "fused_dx": n_layers, "fused_dwda": n_layers}}
+    for mode in results:
+        _check_launches(f"scanned step 0 ({mode})",
+                        readings[mode]["launches_scanned"], want[mode])
+    step0 = _scan_step0_check(readings, results)
+    del results
+    step0_s = time.perf_counter() - t0
+
+    out_dir = os.path.join(tmp, "retrieval_scan")
+    trace_dir = os.path.join(tmp, "retrieval_scan_trace")
+    argv = RETRIEVAL_TRAIN_ARGV + [
+        "--scan_layers", "--checkpoint_freq", "1", "--output_dir", out_dir,
+        "--data_dir", os.path.join(tmp, "no_flickr8k")]
+    _reset_launches()
+    t1 = time.perf_counter()
+    state, history, _ = retrieval_main(argv)
+    wall = time.perf_counter() - t1
+    stats = state["stats"]
+    steps = len(stats["step_losses"][0])
+    losses = [x for epoch in stats["step_losses"] for x in epoch]
+    if len(losses) != 2 * steps or not np.isfinite(losses).all():
+        raise AssertionError(f"train_retrieval_scan: {len(losses)} step "
+                             f"losses, finite: {np.isfinite(losses).all()}")
+    for epoch, per_step in enumerate(stats["launches_per_step"]):
+        _check_launches(f"train_retrieval_scan epoch {epoch}", per_step,
+                        want["dense"])
+    launches = kernel_launches()
+    os.remove(os.path.join(out_dir, "orbax", "step_2"))
+
+    _reset_launches()
+    t2 = time.perf_counter()
+    resumed, resumed_history, _ = retrieval_main(
+        argv + ["--resume", "--profile_dir", trace_dir])
+    resumed_wall = time.perf_counter() - t2
+    rstats = resumed["stats"]
+    if len(rstats["step_losses"]) != 1 or \
+            len(rstats["step_losses"][0]) != steps:
+        raise AssertionError(f"resumed run: epochs {rstats['step_losses']}")
+    traced = rstats["profile_launches"]
+    counted = traced["order_stat"] + traced["batched_order_stat"]
+    trace = _trace_events(trace_dir)
+    in_trace = sum("order_stat_cluster_kernel" in e.get("name", "")
+                   for e in trace[1] if e.get("cat") in DEVICE_CATEGORIES)
+    if in_trace != counted or not counted:
+        raise AssertionError(f"traced epoch: {in_trace} "
+                             f"order_stat_cluster_kernel events in the "
+                             f"trace, {counted} launches counted")
+    # The training steps' span holds the epoch's steps' launches and no
+    # validation's.
+    per_step = rstats["launches_per_step"][0]
+    in_steps = round((per_step["order_stat"]
+                      + per_step["batched_order_stat"]) * steps)
+    in_span = sum("order_stat_cluster_kernel" in e.get("name", "")
+                  for e in span_events(trace[1], TRAIN_SPAN)[1])
+    if in_span != in_steps:
+        raise AssertionError(f"traced epoch's train_steps span: {in_span} "
+                             f"order_stat_cluster_kernel events, "
+                             f"{in_steps} launches counted in its steps")
+    busy = _trace_breakdown(trace_dir, steps, traced=trace)
+    del trace
+    top = [[o.name, o.total_us / 1e3, o.count, o.pct]
+           for o in summarize_trace(trace_dir, top=10)]
+    emit({"phase": "train_retrieval_scan",
+          "argv": RETRIEVAL_TRAIN_ARGV + ["--scan_layers"],
+          "step0": step0, "step0_seconds": step0_s, "wall_s": wall,
+          "pairs_per_s": stats["pairs_per_sec"],
+          "step_ms_p50": [float(np.percentile(t, 50))
+                          for t in stats["step_ms"]],
+          "launches_per_step": stats["launches_per_step"],
+          "launches": launches, "train_losses": history["train_losses"],
+          "resumed": {"wall_s": resumed_wall,
+                      "train_losses": resumed_history["train_losses"],
+                      "pairs_per_s": rstats["pairs_per_sec"],
+                      "traced_window_launches": traced,
+                      "order_stat_kernels_in_trace": in_trace,
+                      "order_stat_kernels_in_train_steps": in_span,
+                      "top10_device_ops": top, "traced_epoch": busy}})
+    return traced
 
 
 def retrieval_step0_readings(tmp):
@@ -3256,10 +3537,8 @@ def _traced_amp_steps(model, optimizer, tmp, warmup=2, steps=3):
             step(b, *args)
         torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    events = prof.key_averages()
-    return {"share": _device_us(events) / 1e6 / seconds,
-            "traced_ms_per_step": seconds * 1e3 / steps,
-            **_breakdown(events, steps)}
+    breakdown, _ = _profiled_breakdown(prof, steps, seconds)
+    return {"traced_ms_per_step": seconds * 1e3 / steps, **breakdown}
 
 
 def retrieval_amp_step0_readings(tmp):
@@ -3578,7 +3857,9 @@ def main(argv=None):
     from atq_tpu_torch.utils.platform import resolve_device
 
     readings_modes = {"--retrieval-step0": retrieval_step0_readings,
-                      "--retrieval-amp-step0": retrieval_amp_step0_readings}
+                      "--retrieval-amp-step0": retrieval_amp_step0_readings,
+                      "--retrieval-scan-step0":
+                          lambda tmp: scan_step0_readings(tmp)[0]}
     if argv[:1] and argv[0] in readings_modes:
         resolve_device("cuda")
         os.environ["ATQ_NO_DOWNLOAD"] = "1"
@@ -3631,6 +3912,7 @@ def main(argv=None):
         phase_encoder_step0()
         encoder_launches = phase_train_encoder(tmp)
         phase_train_retrieval(tmp)
+        phase_train_retrieval_scan(tmp)
         phase_train_retrieval_amp(tmp)
 
     sources = {

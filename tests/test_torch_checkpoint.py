@@ -5,7 +5,8 @@ in both trainers) on the CPU.
   leaf bit for bit; ``keep`` prunes to the newest steps; ``latest_step``
   ignores a torn temporary file (a write killed before its rename), which
   the next save removes; a missing directory raises ``FileNotFoundError``
-  (the trainers then start fresh);
+  (the trainers then start fresh); a JAX Orbax ``step_N`` (a directory)
+  makes both calls raise ``ValueError`` and leaves it untouched;
 - an optimizer chain's ``state_dict`` taken mid-run and loaded into a
   fresh chain continues the same updates bit for bit;
 - each trainer, 2 epochs writing its state every epoch, against the same
@@ -117,6 +118,29 @@ def test_missing_directory_raises(tmp_path):
         ckpt.restore_train_state(str(tmp_path / "absent"))
     with pytest.raises(FileNotFoundError):
         ckpt.restore_train_state(str(tmp_path), step=7)
+
+
+@pytest.mark.parametrize("call", ["restore", "save"])
+def test_a_jax_orbax_step_is_refused(tmp_path, call):
+    """Both packages keep their state under ``step_N``; a JAX Orbax step is
+    a directory. Either call raises a ValueError naming both formats and
+    the way weights cross over, and leaves the directory as it was."""
+    from atq_tpu.train import checkpoint as jax_ckpt
+
+    jax_ckpt.save_train_state(str(tmp_path), 2, {
+        "params": {"w": np.ones(3, np.float32)}, "epoch": np.asarray(2)})
+    jax_ckpt.wait_for_checkpoints()
+    assert (tmp_path / "step_2").is_dir()
+    listing = sorted(str(p.relative_to(tmp_path))
+                     for p in tmp_path.rglob("*"))
+    with pytest.raises(ValueError, match=r"(?s)JAX Orbax.*torch\.save.*"
+                       r"checkpoint_epoch_N\.npz.*utils/jax_interop\.py"):
+        if call == "restore":
+            ckpt.restore_train_state(str(tmp_path))
+        else:
+            ckpt.save_train_state(str(tmp_path), 3, _state(3))
+    assert sorted(str(p.relative_to(tmp_path))
+                  for p in tmp_path.rglob("*")) == listing
 
 
 @pytest.mark.parametrize("name", ["adamw", "sgd"])

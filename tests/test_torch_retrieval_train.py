@@ -555,9 +555,8 @@ def test_fused_attention_with_dropout_takes_the_einsum_branch():
 # ---------------------------------------------------------------- the CLI
 
 
-UNPORTED = [["--moe_experts", "2"], ["--scan_layers"], ["--dp", "2"],
-            ["--tp", "2"], ["--fsdp"], ["--tensorboard_dir", "tb"],
-            ["--profile_dir", "prof"], ["--imagenet_weights", "r18.pth"]]
+UNPORTED = [["--moe_experts", "2"], ["--dp", "2"], ["--tp", "2"],
+            ["--fsdp"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=[f[0] for f in UNPORTED])

@@ -423,9 +423,8 @@ def test_trainer_checkpoint_serves_on_jax(tmp_path):
     np.testing.assert_array_equal(got, live)
 
 
-@pytest.mark.parametrize("field,value", [
-    ("tensorboard_dir", "tb"), ("profile_dir", "prof"), ("dp", 2),
-    ("tp", 2), ("fsdp", True)])
+@pytest.mark.parametrize("field,value", [("dp", 2), ("tp", 2),
+                                         ("fsdp", True)])
 def test_unported_options_raise(field, value):
     cfg = ptrain.ClassifierConfig(device="cpu", **{field: value})
     with pytest.raises(NotImplementedError, match="not ported"):
