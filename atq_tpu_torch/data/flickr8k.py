@@ -72,6 +72,16 @@ def active_tokenizer_variant() -> str:
 # Reserved metadata key inside a saved vocab JSON (not a token).
 VOCAB_TOKENIZER_KEY = "__tokenizer__"
 
+# Variants that give the same tokens: the JAX package's NLTK punkt
+# tokenizer and the vendored Penn Treebank one.
+_PTB_COMPATIBLE = {"nltk-punkt", "vendored-ptb"}
+
+
+def tokenizer_variants_compatible(a: str, b: str) -> bool:
+    """Whether a vocab stamped ``a`` gives the right ids under tokenizer
+    ``b`` (evaluate.py's tokenizer-stamp guard)."""
+    return a == b or (a in _PTB_COMPATIBLE and b in _PTB_COMPATIBLE)
+
 
 def read_vocab_tokenizer(path: str) -> Optional[str]:
     """The tokenizer variant stamped into a saved vocab file, or None for

@@ -1,4 +1,15 @@
-"""CUDA kernel wrappers (port of atq_tpu/ops) and their build."""
+"""CUDA kernel wrappers (port of atq_tpu/ops) and their build.
+
+Importing this package registers the ops that stand for the kernels an
+eval forward reaches, so that ``torch.export`` keeps each as one node and
+a saved program (serve/aot.py) finds them when it loads:
+``torch.ops.atq_tpu_torch.order_stat`` (ops/order_stat.py),
+``ternary_matmul``, ``ternary_matmul32``, ``ternary_matmul_rpb``
+(ops/ternary_matmul.py) and ``fused_forward`` (ops/fused_linear.py). Each
+op's CUDA implementation launches its kernel through ``ctypes`` and its
+CPU implementation is the kernel's plain PyTorch version. Each op that
+does products has a FLOP formula for ``FlopCounterMode``.
+"""
 
 
 def matmul_flops(m: int, n: int, k: int, products: int = 1) -> int:
@@ -10,10 +21,12 @@ def matmul_flops(m: int, n: int, k: int, products: int = 1) -> int:
 
 def kernel_wrappers() -> dict:
     """Each CUDA kernel's wrapper, by kernel name. A wrapper's ``launches``
-    count grows only where it launches its kernel on the card, and its
-    ``flops`` count there by the work of the launch: what
+    count grows only where it launches its kernel on the card. Its
+    ``flops`` count grows there by the work of the launch, what
     ``FlopCounterMode`` counts for its plain version at the same shapes
-    (utils/flops.py ``counted_flops``)."""
+    (utils/flops.py ``counted_flops``), except behind a registered op:
+    the op's FLOP formula lets the counter count it on either device, and
+    the wrapper's ``flops`` stays 0."""
     from atq_tpu_torch.ops import (
         fused_attention,
         fused_linear,
@@ -43,3 +56,11 @@ def kernel_launches() -> dict:
 def kernel_flops() -> dict:
     """Each CUDA kernel's counted FLOPs so far, by kernel name."""
     return {name: fn.flops for name, fn in kernel_wrappers().items()}
+
+
+# Registers the ops (the modules import matmul_flops from here, above).
+from atq_tpu_torch.ops import (  # noqa: E402,F401
+    fused_linear,
+    order_stat,
+    ternary_matmul,
+)

@@ -11,7 +11,11 @@ launches it on a CUDA tensor (or raises) and takes its plain PyTorch version
 on a CPU tensor, and counts its launches and their FLOPs (2·M·N·K each, its
 plain version's product):
 
-- :func:`fused_linear_forward`  ``y = x · w_effᵀ``     (``_fwd_kernel``)
+- :func:`fused_linear_forward`  ``y = x · w_effᵀ``     (``_fwd_kernel``;
+  through the registered op ``torch.ops.atq_tpu_torch.fused_forward``,
+  one node under ``torch.export``, which an eval forward reaches; its
+  FLOP formula lets ``FlopCounterMode`` count it on both devices, so the
+  wrapper's own ``.flops`` stays 0)
 - :func:`fused_linear_dx`       ``dx = g · w_eff``     (``_dx_kernel``)
 - :func:`fused_linear_dwda`     ``G = gᵀ · x`` -> dw, dalpha (``_dwda_kernel``)
 
@@ -43,6 +47,7 @@ recipe (5.3 to 7 MB, 1.6 to 2.1 us at 3.35 TB/s); see the note in
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from atq_tpu_torch.ops import matmul_flops
 from atq_tpu_torch.ops._build import check, load_library
@@ -183,8 +188,25 @@ def fused_linear_forward(x, w, mask, scal):
     _check_common(x, w, mask, scal)
     if m * n >= 2 ** 31:
         raise ValueError(f"output of {m} x {n} elements is too large")
-    if x.device.type == "cpu":
-        return forward_plain(x, w, mask, scal)
+    return torch.ops.atq_tpu_torch.fused_forward(x, w, mask, scal)
+
+
+@torch.library.custom_op(
+    "atq_tpu_torch::fused_forward", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor w, Tensor? mask, Tensor scal) -> Tensor")
+def _forward_op(x, w, mask, scal):
+    return forward_plain(x, w, mask, scal)
+
+
+@_forward_op.register_fake
+def _forward_fake(x, w, mask, scal):
+    return x.new_empty((x.shape[0], w.shape[0]))
+
+
+@_forward_op.register_kernel("cuda")
+def _forward_cuda(x, w, mask, scal):
+    m, k = x.shape
+    n = w.shape[0]
     lib = load_library()
     y = torch.empty((m, n), dtype=torch.float32, device=x.device)
     if y.numel() == 0:
@@ -203,8 +225,12 @@ def fused_linear_forward(x, w, mask, scal):
         None if tickets is None else tickets.data_ptr(), m, n, k, splits,
         chunk, stream), "fused_linear forward kernel")
     fused_linear_forward.launches += 1
-    fused_linear_forward.flops += matmul_flops(m, n, k)
     return y
+
+
+@register_flop_formula(torch.ops.atq_tpu_torch.fused_forward)
+def _forward_flops(x_shape, w_shape, *_, **__):
+    return matmul_flops(x_shape[0], w_shape[0], x_shape[1])
 
 
 def fused_linear_dx(g, w, mask, scal):
@@ -261,7 +287,7 @@ def fused_linear_dwda(g, x, w, mask, scal, ste: bool):
 fused_linear_forward.launches = 0
 fused_linear_dx.launches = 0
 fused_linear_dwda.launches = 0
-fused_linear_forward.flops = 0
+fused_linear_forward.flops = 0  # FlopCounterMode counts the op
 fused_linear_dx.flops = 0
 fused_linear_dwda.flops = 0
 

@@ -3,7 +3,10 @@
 PyTorch counterpart of atq_tpu/ops/order_stat.py: the Pallas kernels
 ``_kernel`` behind ``order_statistic_reductions`` and ``_batched_kernel``
 behind ``order_statistic_reductions_batched`` (one statistic per row of a
-stacked (L, n) tensor). On a CUDA tensor each wrapper launches the
+stacked (L, n) tensor). The single statistic goes through a registered op,
+``torch.ops.atq_tpu_torch.order_stat``, so that ``torch.export`` keeps it
+as one node (serve/aot.py); the batched one, which no eval forward
+reaches, is called directly. On a CUDA tensor each wrapper launches the
 radix-select kernel in ``csrc/order_stat.cu``: one thread block cluster a
 row, the row read from device memory once (held in the cluster's shared
 memory; a row longer than that holds a sample and keeps only the elements
@@ -59,13 +62,32 @@ def order_statistic_reductions(abs_flat: torch.Tensor, rank: torch.Tensor):
     The statistic is bit-identical to the sort; on CUDA the sum is reduced
     in a fixed order, so it is the same from run to run."""
     _check_inputs(abs_flat, rank)
-    if abs_flat.device.type == "cpu":
-        return order_statistic_plain(abs_flat, rank)
-    if abs_flat.device.type != "cuda":
+    if abs_flat.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {abs_flat.device}")
+    out = torch.ops.atq_tpu_torch.order_stat(abs_flat, rank)
+    return out[0], out[1], out[2]
+
+
+@torch.library.custom_op("atq_tpu_torch::order_stat", mutates_args=(),
+                         device_types="cpu",
+                         schema="(Tensor abs_flat, Tensor rank) -> Tensor")
+def _order_stat_op(abs_flat, rank):
+    """``[stat, max, sum]`` as one (3,) float32 tensor: the registered op
+    behind :func:`order_statistic_reductions` (one node under
+    ``torch.export``). Its CPU implementation is the plain version."""
+    return torch.stack(order_statistic_plain(abs_flat, rank))
+
+
+@_order_stat_op.register_kernel("cuda")
+def _order_stat_cuda(abs_flat, rank):
     out = _launch(abs_flat.reshape(1, -1), rank.reshape(1).contiguous())
     order_statistic_reductions.launches += 1
-    return out[0, 0], out[0, 1], out[0, 2]
+    return out.reshape(3)
+
+
+@_order_stat_op.register_fake
+def _order_stat_fake(abs_flat, rank):
+    return abs_flat.new_empty((3,))
 
 
 def _device_index(device: torch.device) -> int:

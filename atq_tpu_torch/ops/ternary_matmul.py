@@ -12,23 +12,38 @@ three entry points, one wrapper each:
 - ``ternary_matmul_rpb``: ``_kernel_rpb``, the uint8 planes plus a dense
   (N, K) bf16 RPB correction, as two f32 sums.
 
-On a CUDA tensor a wrapper launches its kernel (or raises); on a CPU tensor
-it takes its plain PyTorch version (unpack, then matmul). Each counts its
-launches in ``.launches`` and their products' FLOPs in ``.flops``.
+Each wrapper calls a registered op (``torch.ops.atq_tpu_torch.
+ternary_matmul``, ``ternary_matmul32``, ``ternary_matmul_rpb``), so that
+``torch.export`` keeps the kernel as one node (serve/aot.py). The op's CUDA
+implementation launches the kernel (or raises); its CPU implementation is
+the plain PyTorch version (unpack, then matmul). Each wrapper counts its
+launches in ``.launches``, in the op's CUDA implementation. Each op has a
+FLOP formula (its products, 2·M·N·K each), so ``FlopCounterMode`` counts
+it alike on the card and on the CPU, and its wrapper's ``.flops`` stays 0.
 
 ``packed_ternary_matmul`` and ``packed_ternary_matmul_rpb`` keep the JAX
 entry points' rule: shapes with K >= 128 and N >= 8 go to a kernel wrapper,
 smaller ones through the unpack and ``torch.matmul``, as JAX sends them to
 XLA. JAX has no K-blocked planar32 kernel and decodes through XLA where
 ``tile_m·K_pad·4`` passes 4 MiB; the port's kernel runs at any K, with the
-same result.
+same result. The ``rows`` layout (core/packing.py ``pack_rows``) is
+converted to planes on the device and goes to the planar kernel; ``flat``
+(the reference format) is ``rows`` when K % 4 = 0 and is decoded densely
+otherwise, as in the JAX package.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
-from atq_tpu_torch.core.packing import unpack_planar, unpack_planar32
+from atq_tpu_torch.core.packing import (
+    pack_planar_unchecked,
+    unpack_flat,
+    unpack_planar,
+    unpack_planar32,
+    unpack_rows,
+)
 from atq_tpu_torch.ops import matmul_flops
 from atq_tpu_torch.ops._build import check, load_library
 
@@ -112,6 +127,15 @@ def _workspace(lib, m, n, k, device):
     return torch.empty((floats,), dtype=torch.float32, device=device)
 
 
+def _supported(x) -> None:
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {x.device}")
+
+
+def _fake_out(x, planes, *_):
+    return x.new_empty((x.shape[0], planes.shape[0]))
+
+
 def ternary_matmul_planar(x: torch.Tensor, planes: torch.Tensor, k: int,
                           alpha_vec: torch.Tensor,
                           asym: bool = False) -> torch.Tensor:
@@ -122,10 +146,21 @@ def ternary_matmul_planar(x: torch.Tensor, planes: torch.Tensor, k: int,
     ``[alpha_p, alpha_n]`` with ``asym=True``. Returns (M, N) float32.
     """
     _check_inputs(x, planes, k, alpha_vec)
-    if x.device.type == "cpu":
-        return ternary_matmul_plain(x, planes, k, alpha_vec, asym)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _supported(x)
+    return torch.ops.atq_tpu_torch.ternary_matmul(x, planes, k, alpha_vec,
+                                                  asym)
+
+
+@torch.library.custom_op(
+    "atq_tpu_torch::ternary_matmul", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor planes, int k, Tensor alpha_vec, bool asym) "
+           "-> Tensor")
+def _planar_op(x, planes, k, alpha_vec, asym):
+    return ternary_matmul_plain(x, planes, k, alpha_vec, asym)
+
+
+@_planar_op.register_kernel("cuda")
+def _planar_cuda(x, planes, k, alpha_vec, asym):
     lib = load_library()
     m, n = x.shape[0], planes.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -139,12 +174,12 @@ def ternary_matmul_planar(x: torch.Tensor, planes: torch.Tensor, k: int,
         torch.cuda.current_stream(x.device).cuda_stream),
         "ternary_matmul kernel")
     ternary_matmul_planar.launches += 1
-    ternary_matmul_planar.flops += matmul_flops(m, n, k)
     return out
 
 
+_planar_op.register_fake(_fake_out)
 ternary_matmul_planar.launches = 0
-ternary_matmul_planar.flops = 0
+ternary_matmul_planar.flops = 0  # FlopCounterMode counts the op
 
 
 def ternary_matmul_planar32(x: torch.Tensor, planes: torch.Tensor, k: int,
@@ -159,10 +194,21 @@ def ternary_matmul_planar32(x: torch.Tensor, planes: torch.Tensor, k: int,
     """
     _check_inputs(x, planes, k, alpha_vec, dtype=torch.int32,
                   k_align=_K_ALIGN32, per_word=16)
-    if x.device.type == "cpu":
-        return ternary_matmul32_plain(x, planes, k, alpha_vec, asym)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _supported(x)
+    return torch.ops.atq_tpu_torch.ternary_matmul32(x, planes, k, alpha_vec,
+                                                    asym)
+
+
+@torch.library.custom_op(
+    "atq_tpu_torch::ternary_matmul32", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor planes, int k, Tensor alpha_vec, bool asym) "
+           "-> Tensor")
+def _planar32_op(x, planes, k, alpha_vec, asym):
+    return ternary_matmul32_plain(x, planes, k, alpha_vec, asym)
+
+
+@_planar32_op.register_kernel("cuda")
+def _planar32_cuda(x, planes, k, alpha_vec, asym):
     lib = load_library()
     m, n = x.shape[0], planes.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -176,12 +222,18 @@ def ternary_matmul_planar32(x: torch.Tensor, planes: torch.Tensor, k: int,
         torch.cuda.current_stream(x.device).cuda_stream),
         "ternary_matmul32 kernel")
     ternary_matmul_planar32.launches += 1
-    ternary_matmul_planar32.flops += matmul_flops(m, n, k)
     return out
 
 
+_planar32_op.register_fake(_fake_out)
 ternary_matmul_planar32.launches = 0
-ternary_matmul_planar32.flops = 0
+ternary_matmul_planar32.flops = 0  # FlopCounterMode counts the op
+
+
+@register_flop_formula([torch.ops.atq_tpu_torch.ternary_matmul,
+                        torch.ops.atq_tpu_torch.ternary_matmul32])
+def _planar_flops(x_shape, planes_shape, k, *_, **__):
+    return matmul_flops(x_shape[0], planes_shape[0], k)
 
 
 def ternary_matmul_rpb(x: torch.Tensor, planes: torch.Tensor,
@@ -194,10 +246,21 @@ def ternary_matmul_rpb(x: torch.Tensor, planes: torch.Tensor,
     correction; ``alpha_vec`` ``[alpha, alpha]``. Returns (M, N) float32.
     """
     _check_inputs(x, planes, k, alpha_vec, correction=correction)
-    if x.device.type == "cpu":
-        return ternary_matmul_rpb_plain(x, planes, correction, k, alpha_vec)
-    if x.device.type != "cuda":
-        raise ValueError(f"unsupported device {x.device}")
+    _supported(x)
+    return torch.ops.atq_tpu_torch.ternary_matmul_rpb(x, planes, correction,
+                                                      k, alpha_vec)
+
+
+@torch.library.custom_op(
+    "atq_tpu_torch::ternary_matmul_rpb", mutates_args=(), device_types="cpu",
+    schema="(Tensor x, Tensor planes, Tensor correction, int k, "
+           "Tensor alpha_vec) -> Tensor")
+def _rpb_op(x, planes, correction, k, alpha_vec):
+    return ternary_matmul_rpb_plain(x, planes, correction, k, alpha_vec)
+
+
+@_rpb_op.register_kernel("cuda")
+def _rpb_cuda(x, planes, correction, k, alpha_vec):
     lib = load_library()
     m, n = x.shape[0], planes.shape[0]
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
@@ -211,12 +274,17 @@ def ternary_matmul_rpb(x: torch.Tensor, planes: torch.Tensor,
         torch.cuda.current_stream(x.device).cuda_stream),
         "ternary_matmul_rpb kernel")
     ternary_matmul_rpb.launches += 1
-    ternary_matmul_rpb.flops += matmul_flops(m, n, k, products=2)
     return out
 
 
+_rpb_op.register_fake(_fake_out)
 ternary_matmul_rpb.launches = 0
-ternary_matmul_rpb.flops = 0
+ternary_matmul_rpb.flops = 0  # FlopCounterMode counts the op
+
+
+@register_flop_formula(torch.ops.atq_tpu_torch.ternary_matmul_rpb)
+def _rpb_flops(x_shape, planes_shape, correction_shape, k, *_, **__):
+    return matmul_flops(x_shape[0], planes_shape[0], k, products=2)
 
 
 def _alpha_vec(alpha, alpha_neg, device) -> torch.Tensor:
@@ -230,31 +298,40 @@ def _alpha_vec(alpha, alpha_neg, device) -> torch.Tensor:
 
 def packed_ternary_matmul(x: torch.Tensor, w_packed: torch.Tensor, w_shape,
                           alpha=1.0, layout: str = "planar", alpha_neg=None):
-    """``x @ unpack(W)ᵀ · alpha`` from packed 2-bit planes.
+    """``x @ unpack(W)ᵀ · alpha`` from packed 2-bit weights.
 
     Args:
         x: (M, K) activations.
-        w_packed: (N, K_pad/4) uint8 planes from ``pack_planar``, or
-            (N, K_pad/16) int32 words from ``pack_planar32``.
+        w_packed: (N, K_pad/4) uint8 planes from ``pack_planar``,
+            (N, K_pad/16) int32 words from ``pack_planar32``,
+            (N, ceil(K/4)) uint8 rows from ``pack_rows``, or the
+            reference's flat uint8 stream
+            (``TernaryBitPacking.pack_ternary_weights``).
         w_shape: (N, K) logical weight shape.
         alpha: scalar scale (the TTQ positive scale with ``alpha_neg``).
-        layout: ``'planar'`` or ``'planar32'``; the ``rows`` and ``flat``
-            layouts are not ported yet (ROADMAP.md, slice F).
+        layout: ``'planar'``, ``'planar32'``, ``'rows'`` or ``'flat'``.
         alpha_neg: optional TTQ negative scale: computes
             ``x @ (alpha·[w=+1] − alpha_neg·[w=−1])ᵀ`` from the same planes.
     """
-    if layout not in ("planar", "planar32"):
-        raise NotImplementedError(
-            f"layout={layout!r} is not ported yet (ROADMAP.md, slice F); "
-            f"use layout='planar' or 'planar32'")
+    if layout not in ("planar", "planar32", "rows", "flat"):
+        raise ValueError(f"unknown layout {layout!r}")
     n, k = w_shape
+    if layout == "flat":
+        if k % 4:  # rows do not start on a byte: decode the whole stream
+            w = unpack_flat(w_packed.reshape(-1), n * k,
+                            x.dtype).reshape(n, k)
+            return _scaled_matmul(x, w, alpha, alpha_neg)
+        w_packed, layout = w_packed.reshape(n, k // 4), "rows"
     if kernel_eligible((x.shape[0], k), (n, k)):
         avec = _alpha_vec(alpha, alpha_neg, x.device)
+        if layout == "rows":  # to planes on the device, then the kernel
+            w_packed = pack_planar_unchecked(unpack_rows(w_packed, k))
         kernel = (ternary_matmul_planar32 if layout == "planar32"
                   else ternary_matmul_planar)
         return kernel(x.float().contiguous(), w_packed, k, avec,
                       asym=alpha_neg is not None).to(x.dtype)
-    unpack = unpack_planar32 if layout == "planar32" else unpack_planar
+    unpack = {"planar": unpack_planar, "planar32": unpack_planar32,
+              "rows": unpack_rows}[layout]
     w = unpack(w_packed, k, dtype=x.dtype)
     return _scaled_matmul(x, w, alpha, alpha_neg)
 

@@ -21,9 +21,17 @@ fronts it with micro-batching ``BatchServer``s.
   comes from ``--vocab_file`` or the ``vocab.json`` beside the checkpoint.
 - both: ``GET /healthz``.
 
+``--aot DIR`` serves each program (``predict``; ``embed_image`` and
+``embed_text``) from ``DIR/<name>``, an artifact of serve/aot.py
+(``torch.export``'s ``.pt2``, the kernels as registered ops): loaded when
+it is there, in which case the model is not built, and otherwise exported
+there from the live model first (example batch 2, as in ``serve.py``).
+Each prints ``{"aot": "exported"|"loaded", "path", "batch_polymorphic"}``.
+An artifact that fails to load raises; nothing is exported again behind
+it.
+
 Unlike ``serve.py``, no route installs a dense ``fallback_fn``: a kernel
-failure fails its requests instead of being re-served dense. ``--aot`` is
-not ported yet and exits with a message.
+failure fails its requests instead of being re-served dense.
 """
 
 from __future__ import annotations
@@ -48,8 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["mnist", "fashion_mnist"],
                    help="normalization stats for /predict")
     p.add_argument("--image_size", type=int, default=160,
-                   help="(retrieval) accepted as serve.py takes it; the "
-                        "port builds the model without an example input")
+                   help="(retrieval) the image side of the --aot example "
+                        "batch")
     p.add_argument("--max_seq_length", type=int, default=50)
     p.add_argument("--embed_dim", type=int, default=192)
     p.add_argument("--hidden_dim", type=int, default=384)
@@ -63,7 +71,10 @@ def build_parser() -> argparse.ArgumentParser:
                    type=str, default="auto",
                    choices=["auto", "parity", "ste", "ttq"])
     p.add_argument("--aot", type=str, default=None, metavar="DIR",
-                   help="not ported yet")
+                   help="serve from ahead-of-time exported programs "
+                        "(serve/aot.py): loaded from DIR when there (the "
+                        "model is not built), otherwise exported there "
+                        "first, then served")
     p.add_argument("--packed", action="store_true",
                    help="serve the quantized layers from exported 2-bit "
                         "planes (no dense fallback)")
@@ -142,17 +153,42 @@ def build_classifier(args, ckpt, grad_mode, device):
     return model
 
 
+def aot_program(args, name: str, build, example_args):
+    """``--aot``: the program ``name`` from ``<args.aot>/<name>``, loaded
+    when its manifest is there; otherwise ``build()`` (the live function)
+    is exported there first. Returns the ``AOTServing``, which takes and
+    gives numpy arrays as a ``BatchServer`` apply function."""
+    from atq_tpu_torch.serve.aot import AOTServing, export_serving
+
+    path = os.path.join(args.aot, name)
+    if os.path.exists(os.path.join(path, "manifest.json")):
+        aot, status = AOTServing.load(path), "loaded"
+    else:
+        aot, status = export_serving(build(), example_args), "exported"
+        aot.save(path)
+    print(json.dumps({"aot": status, "path": path,
+                      "batch_polymorphic": aot.batch_polymorphic}),
+          flush=True)
+    return aot
+
+
 def build_classifier_routes(args, ckpt, grad_mode, device):
     """``(routes, servers)`` for ``--task classification``."""
     from atq_tpu_torch.serve.engine import BatchServer
     from atq_tpu_torch.serve.http import make_classifier_routes
 
-    model = build_classifier(args, ckpt, grad_mode, device)
+    if args.aot:
+        forward = aot_program(
+            args, "predict",
+            lambda: build_classifier(args, ckpt, grad_mode, device),
+            (torch.zeros((2, 28, 28, 1), device=device),))
+    else:
+        model = build_classifier(args, ckpt, grad_mode, device)
 
-    @torch.inference_mode()
-    def forward(x):
-        x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
-        return model(x.to(device)).cpu().numpy()
+        @torch.inference_mode()
+        def forward(x):
+            x = torch.from_numpy(np.ascontiguousarray(x, np.float32))
+            return model(x.to(device)).cpu().numpy()
 
     server = BatchServer(forward, max_batch=args.max_batch,
                          max_wait_ms=args.max_wait_ms).start()
@@ -209,18 +245,36 @@ def build_retrieval_routes(args, ckpt, grad_mode, device):
             raise SystemExit("retrieval serving needs a vocab.json "
                              "(--vocab_file, or next to the checkpoint)")
     word_to_idx = load_vocab_file(vocab_file)
-    model = build_retrieval(args, ckpt, grad_mode, device, len(word_to_idx))
+    built = []
 
-    @torch.inference_mode()
-    def embed_images(images):
-        x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
-        return model.encode_image(x.to(device)).cpu().numpy()
+    def model():  # built once, and not at all when --aot loads both
+        if not built:
+            built.append(build_retrieval(args, ckpt, grad_mode, device,
+                                         len(word_to_idx)))
+        return built[0]
 
-    @torch.inference_mode()
-    def embed_texts(tokens, lengths):
-        tok = torch.from_numpy(np.asarray(tokens, np.int64)).to(device)
-        ln = torch.from_numpy(np.asarray(lengths, np.int64)).to(device)
-        return model.encode_text(tok, ln).cpu().numpy()
+    if args.aot:
+        side, seq = args.image_size, args.max_seq_length
+        embed_images = aot_program(
+            args, "embed_image", lambda: model().encode_image,
+            (torch.zeros((2, side, side, 3), device=device),))
+        embed_texts = aot_program(
+            args, "embed_text", lambda: model().encode_text,
+            (torch.zeros((2, seq), dtype=torch.int64, device=device),
+             torch.full((2,), 5, dtype=torch.int64, device=device)))
+    else:
+        live = model()
+
+        @torch.inference_mode()
+        def embed_images(images):
+            x = torch.from_numpy(np.ascontiguousarray(images, np.float32))
+            return live.encode_image(x.to(device)).cpu().numpy()
+
+        @torch.inference_mode()
+        def embed_texts(tokens, lengths):
+            tok = torch.from_numpy(np.asarray(tokens, np.int64)).to(device)
+            ln = torch.from_numpy(np.asarray(lengths, np.int64)).to(device)
+            return live.encode_text(tok, ln).cpu().numpy()
 
     servers = [BatchServer(fn, max_batch=args.max_batch,
                            max_wait_ms=args.max_wait_ms).start()
@@ -248,9 +302,6 @@ def build_server(argv=None):
     from atq_tpu_torch.utils.jax_interop import load_checkpoint
 
     args = build_parser().parse_args(argv)
-    if args.aot:
-        raise SystemExit("atq_tpu_torch.serve: --aot is not ported yet "
-                         "(ROADMAP.md)")
     device = resolve_device(args.device)
     ckpt = load_checkpoint(args.checkpoint)
     grad_mode = resolve_grad_mode(args.grad_mode, ckpt.get("params", {}))

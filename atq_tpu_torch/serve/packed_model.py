@@ -9,7 +9,8 @@ once into 2-bit planes plus a full-precision correction:
 
 The correction ``mask · (w − w_t · alpha)`` is rounded to bf16. By default
 it is stored in ELL form (``corr_idx``/``corr_val``, width = the mean
-per-row nonzero count) with a COO spill for the denser rows;
+per-row nonzero count) with a COO spill for the denser rows, built by the
+native binding (native/__init__.py ``sparse_ell``), as in the JAX package;
 ``sparse_correction=False`` stores it dense as a (N, K) bf16
 ``correction`` instead. ``ATQ_PACK32=1``, read at export time, stores the
 planes as int32 ``planar32`` words (16 fields a word) instead of uint8
@@ -21,8 +22,10 @@ planes.
 - a dense correction with TTQ or planar32: the packed kernel plus
   ``torch.matmul`` with the correction (an XLA op on the JAX side);
 - otherwise the packed kernel (``planar`` or ``planar32``) plus the ELL
-  gather + einsum and the COO segment sum (``index_add_``), plain torch ops
-  as they are XLA ops on the JAX side.
+  gather + einsum and the COO segment sum, plain torch ops as they are XLA
+  ops on the JAX side. The segment sum takes the op that adds in a fixed
+  order on each device (``index_put_`` with ``accumulate`` on CUDA,
+  ``index_add_`` on the CPU), so a packed forward repeats bit for bit.
 
 Export runs on the host CPU, as on the JAX side, and the entries are then
 moved to the serving device. Indices are held as int64 (torch indexing
@@ -41,11 +44,11 @@ import torch
 
 from atq_tpu_torch.core.packing import pack_planar, pack_planar32
 from atq_tpu_torch.core.quantize import adaptive_ternary_quantization
+from atq_tpu_torch.native import sparse_ell
 from atq_tpu_torch.ops.ternary_matmul import (
     packed_ternary_matmul,
     packed_ternary_matmul_rpb,
 )
-from atq_tpu_torch.serve.sparse import sparse_ell
 from atq_tpu_torch.utils.platform import resolve_device
 
 
@@ -160,7 +163,14 @@ def _packed_and_correction(entry, x, n, k, alpha_neg, is_p32):
         contrib = x[:, entry["coo_col"]].float() * entry["coo_val"].float()
         spill = torch.zeros((n, x.shape[0]), dtype=torch.float32,
                             device=x.device)
-        spill.index_add_(0, entry["coo_row"], contrib.T)
+        # The segment sum, in a fixed order on each device: index_add_ adds
+        # with atomics on CUDA, index_put_'s accumulate sorts the indices
+        # first there (and adds with atomics on the CPU).
+        if x.device.type == "cuda":
+            spill.index_put_((entry["coo_row"],), contrib.T,
+                             accumulate=True)
+        else:
+            spill.index_add_(0, entry["coo_row"], contrib.T)
         y = y + spill.T.to(y.dtype)
     return y
 

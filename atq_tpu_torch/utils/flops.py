@@ -12,11 +12,13 @@ table has no counterpart here.
 ``torch.utils.flop_counter.FlopCounterMode``, which counts the matrix
 products and convolutions that dispatch through PyTorch (not elementwise
 work), plus what the hand-written kernels did. Those are launched through
-``ctypes`` (ops/_build.py), out of the counter's sight, so each kernel
-wrapper adds its own work from its shapes to its ``flops`` count where it
-launches (ops ``kernel_flops``): the count that ``FlopCounterMode`` gives
-its plain version at the same shapes. So a step counts the same on the
-card as on the CPU, where the wrappers run their plain versions.
+``ctypes`` (ops/_build.py), out of the counter's sight. A kernel behind a
+registered op (ops/__init__.py) is counted by the op's FLOP formula, on
+the card and on the CPU alike; every other kernel wrapper adds its own
+work from its shapes to its ``flops`` count where it launches (ops
+``kernel_flops``). Either way the count is what ``FlopCounterMode`` gives
+the kernel's plain version at the same shapes, so a step counts the same
+on the card as on the CPU, where the wrappers run their plain versions.
 """
 
 from __future__ import annotations

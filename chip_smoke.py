@@ -36,6 +36,11 @@
                                    # train step and eval mode; card twice,
                                    # CPU at 8 and 1 threads, planted
                                    # faults), JSON in OUT
+    python3 chip_smoke.py --traced-aot SPEC
+                                   # serve_aot's traced windows (a JSON
+                                   # SPEC of artifacts in, counts out),
+                                   # which serve_aot runs as a process of
+                                   # its own
     python3 chip_smoke.py --retrieval-scan-step0 [OUT]
                                    # the readings behind
                                    # train_retrieval_scan's step-0 limits
@@ -62,7 +67,11 @@ Phases, one JSON line each; any failure exits non-zero:
                 the tensor-core rate; the fused linear kernels and the
                 attention forward and backward: bytes, or three TF32
                 products a product at the TF32 rate; the others: bytes or
-                f32 operations).
+                f32 operations). First, what a registered op adds on the
+                host (op_dispatch_us): the order statistic, the fused
+                forward and the packed matmul called through
+                torch.ops.atq_tpu_torch against their CUDA implementations
+                called directly, 7 alternating windows of 200 calls each.
   serve_dense   starts the port's HTTP server in-process on a seeded,
                 full-width Fashion-MNIST RPB classifier (28x28x1 input,
                 3136 -> 128 -> 10 head) written as a JAX-layout .npz, posts
@@ -94,6 +103,24 @@ Phases, one JSON line each; any failure exits non-zero:
                 sparse_correction=False (every RPB layer through kernel 4),
                 in-process: within 1e-4 of the sparse export on the card
                 and 1e-3 of the CPU plain path.
+  serve_aot     python -m atq_tpu_torch.serve --aot: the classifier
+                --packed (serve_dense's checkpoint) and the retrieval
+                model --packed --int8_trunk (serve_retrieval's),
+                each run in processes of its own live, exporting and
+                loading (seconds from process start to the first answer,
+                equal answers, batch_polymorphic for all three programs);
+                from the loaded artifacts, in a process of its own
+                (--traced-aot, which also exports the dense predict
+                program), the bursts traced
+                (tiled_packed_kernel events = counted launches = packed
+                layers x batches; a burst whose events differ from its
+                launches is traced again, twice at most) and within the
+                serving phases' limits of the CPU, and every program at
+                batch 1 and 32 equal to
+                the live model on the card bit for bit; a dense predict
+                export's order_stat_cluster_kernel events = 2 calls
+                (train_retrieval_amp's preemption drill runs beside that
+                process; neither reads a time).
   train_dense   python -m atq_tpu_torch.train's own main() on the README
                 recipe (--use-rpb --distill --use-l1 --clip-grad, batch
                 256, --subset-fraction 0.25: 46 steps an epoch, 2 epochs,
@@ -173,7 +200,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 weights), and fused
                 forward, dx and dW/dalpha 28 each with ATQ_FUSED=1. Then
                 the module's main() on the recipe (batch 16, 2 epochs of
-                100 steps on the synthetic corpus, --profile_dir tracing
+                50 steps on a synthetic corpus of 200 images, --profile_dir
+                tracing
                 epoch 1 and its validation, the trace file read back over
                 the epoch's train_steps span):
                 pairs/s and step p50 per epoch, launches per step, host
@@ -182,6 +210,24 @@ Phases, one JSON line each; any failure exits non-zero:
                 files; then best_model.npz loaded into a fresh model must
                 embed a validation batch within 1e-5 of the trainer's
                 embedding function.
+  evaluate      python -m atq_tpu_torch.evaluate's main() on the card on
+                the trained checkpoints (train_dense's classifier,
+                train_retrieval's best_model.npz), each command against
+                itself with --device cpu: the classifier dense and
+                --packed over the synthetic Fashion-MNIST test split
+                (10,000 images; accuracy within the slack of images whose
+                top-2 logits lie within twice serve_dense's tolerance,
+                loss within rtol 1e-4), the README retrieval model
+                --packed --int8_trunk --save_index over the synthetic
+                corpus's test split (200 rows; each R@K within the slack
+                of queries with another score within 2e-3 of their
+                target's, the index's ids equal and its embeddings within
+                1e-3, and its text embeddings computed again on the card
+                and on the CPU at the evaluation's batch, within 1e-3:
+                each R@K is reported beside its slack, which is wide);
+                the card's index preloaded by serve --index_file,
+                each of its 40 images its own /search top-1; launches
+                equal to the batches' packed layers or order statistics.
   train_retrieval_scan
                 --scan_layers at the recipe's widths. (a) Step 0
                 (train_retrieval's set-up: dropout 0, optimal alphas) of
@@ -237,9 +283,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 before it and read after): pairs/s, step p50, launches,
                 R@1/5/10 (finite); then 3 traced steps of that step on the
                 trained model (after 2 untraced): host and device ms a step
-                and the busy share. Last the preemption drill: python -m
+                and the busy share. And the preemption drill (run in
+                processes of its own beside serve_aot's loaded-artifact
+                process, where no time is read; reported here): python -m
                 atq_tpu_torch.train.retrieval on the recipe for 2 epochs
-                with --checkpoint_freq 1, SIGKILLed as soon as it reports
+                of 25 steps (100 synthetic images) with --checkpoint_freq
+                1, SIGKILLed as soon as it reports
                 orbax/step_1 written, then rerun with --resume: exit 0,
                 "Resumed from .../orbax at epoch 1", epoch 2 only, and the
                 restored state's sha256 equal to the one the killed run
@@ -1228,8 +1277,63 @@ def time_attention(gen):
     }
 
 
+def _host_us(fn, calls, repeats):
+    """Host microseconds a call of ``fn`` over ``repeats`` windows of
+    ``calls`` calls, each window ended by a synchronize."""
+    out = []
+    for _ in range(repeats):
+        t = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t) / calls * 1e6)
+    return out
+
+
+def op_dispatch_us(gen, calls=200, repeats=7):
+    """What a registered op adds on the host: each op called through
+    ``torch.ops.atq_tpu_torch`` (the custom op's dispatch, then the ctypes
+    launch) against its CUDA implementation called directly (the launch
+    alone), at small shapes where the host sets the pace; the two
+    alternate window by window, and each reads the median of its
+    windows. The training steps call the order statistic (27 a step in
+    train_retrieval) and, under ATQ_FUSED=1, the fused forward through
+    these ops."""
+    from atq_tpu_torch.core.packing import pack_planar
+    from atq_tpu_torch.ops import fused_linear, order_stat, ternary_matmul
+
+    ops = torch.ops.atq_tpu_torch
+    rows = torch.randn(16384, generator=gen, device="cuda").abs()
+    rank = torch.tensor([4915], dtype=torch.int32, device="cuda")
+    x = torch.randn(16, 256, generator=gen, device="cuda")
+    w = torch.randn(64, 256, generator=gen, device="cuda")
+    scal = torch.tensor([0.7, 0.4], device="cuda")
+    planes = pack_planar(torch.sign(w).cpu()).cuda()
+    cases = {
+        "order_stat": ((rows, rank), ops.order_stat,
+                       order_stat._order_stat_cuda),
+        "fused_forward": ((x, w, None, scal), ops.fused_forward,
+                          fused_linear._forward_cuda),
+        "ternary_matmul": ((x, planes, 256, scal, False),
+                           ops.ternary_matmul, ternary_matmul._planar_cuda),
+    }
+    out = {}
+    for name, (args, op, direct) in cases.items():
+        if not torch.equal(op(*args), direct(*args)):
+            raise AssertionError(f"op dispatch: {name} op and direct "
+                                 f"launch differ")
+        both = {"op": [], "direct": []}
+        for _ in range(repeats):
+            both["op"] += _host_us(lambda: op(*args), calls, 1)
+            both["direct"] += _host_us(lambda: direct(*args), calls, 1)
+        med = {k: float(np.median(v)) for k, v in both.items()}
+        out[name] = {**med, "added": med["op"] - med["direct"]}
+    return out
+
+
 def phase_kernels():
     gen = torch.Generator(device="cuda").manual_seed(0)
+    dispatch = op_dispatch_us(gen)
     os_err, os_sum_rel_err, os_cases = check_order_stat(gen)
     mm_err, mm_cases = check_matmul(gen)
     fused_errs, fused_f64, da_rel, fused_cases = check_fused(gen)
@@ -1285,7 +1389,8 @@ def phase_kernels():
               "one_tf32_pass": min(c["fwd_one_tf32_pass"] for c in attn_cases
                                    if "fwd_one_tf32_pass" in c)},
           "packed_cases": packed_cases,
-          "packed_max_abs_err": packed_errs, "timings": timings})
+          "packed_max_abs_err": packed_errs, "timings": timings,
+          "op_dispatch_us": dispatch})
     return {"order_stat": os_err, "ternary_matmul": mm_err,
             "batched_order_stat": bos_err, **fused_errs,
             **attn_errs, **packed_errs}, timings
@@ -1784,6 +1889,589 @@ def phase_dense_correction(path, req, ref, clf_path, images, clf_sparse):
                       "classifier": batches},
           "max_abs_err": errs, "seconds": time.perf_counter() - t0})
     return launches
+
+
+EVAL_ARGV = {  # the slice's evaluate commands, less --device and outputs
+    "classification": ["--task", "classification", "--use-rpb"],
+    "classification_packed": ["--task", "classification", "--use-rpb",
+                              "--packed"],
+    "retrieval": RETRIEVAL_ARGV + ["--int8_trunk"],
+}
+EVAL_LOGIT_TOL = 1e-4  # serve_dense's logits tolerance (rtol and atol)
+CLF_EVAL_IMAGES, EVAL_BATCH = 10000, 256  # the synthetic test split
+RET_EVAL_ROWS = 200  # the synthetic corpus's test split: 40 images x 5
+
+
+def _card_outputs(name, ckpt, data_dir, device="cuda"):
+    """What the evaluate command ``name`` computes on the card, computed
+    again here for the slack of its metrics: the classifier's logits, or
+    the retrieval split's embeddings and its first image of each name.
+    With ``device="cpu"``, the retrieval split's text embeddings alone
+    (the image tower's are held through the saved index)."""
+    from atq_tpu_torch.evaluate import build_parser as eval_parser
+    from atq_tpu_torch.serve.__main__ import (
+        build_classifier,
+        build_retrieval,
+    )
+    from atq_tpu_torch.train.retrieval import _batch_to, build_embed_fn
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    dev = torch.device(device)
+    args = eval_parser().parse_args(EVAL_ARGV[name]
+                                    + ["--checkpoint", ckpt])
+    if name.startswith("classification"):
+        from atq_tpu_torch.data.mnist import get_fashion_mnist_data
+
+        _, _, loader = get_fashion_mnist_data(EVAL_BATCH, data_dir,
+                                              subset_fraction=1.0)
+        model = build_classifier(args, load_checkpoint(ckpt), "parity", dev)
+        with torch.inference_mode():
+            return np.concatenate([model(torch.from_numpy(x).to(dev))
+                                   .cpu().numpy() for x, _ in loader])
+    from atq_tpu_torch.data.flickr8k import prepare_flickr8k_dataloaders
+
+    vocab = os.path.join(os.path.dirname(ckpt), "vocab.json")
+    _, _, loader, vocab_size, _ = prepare_flickr8k_dataloaders(
+        batch_size=EVAL_BATCH, image_size=IMAGE_SIZE, max_length=SEQ_LEN,
+        root_dir=data_dir, vocab_file=vocab)
+    model = build_retrieval(args, load_checkpoint(ckpt), "parity", dev,
+                            vocab_size)
+    if device == "cpu":
+        with torch.inference_mode():
+            return np.concatenate([model.encode_text(*_batch_to(
+                batch, dev)[1:3]).numpy() for batch in loader])
+    embed = build_embed_fn(model)
+    names = [n for n, _ in loader.dataset.items]
+    img, txt, first = [], [], {}
+    for batch in loader:
+        row = sum(len(a) for a in img)
+        for n, image in zip(names[row:], batch[0]):
+            first.setdefault(n, image)
+        a, b = embed(_batch_to(batch, dev))
+        img.append(a.cpu().numpy())
+        txt.append(b.cpu().numpy())
+    return np.concatenate(img), np.concatenate(txt), first
+
+
+def _accuracy_slack(logits):
+    """The most the accuracy (percentage points) can move when every logit
+    moves within serve_dense's tolerance: 100 / n for each image whose two
+    largest logits lie within twice that of each other."""
+    top2 = np.sort(logits, axis=1)[:, -2:]
+    tol = EVAL_LOGIT_TOL * (1.0 + np.abs(top2[:, 1]))
+    return 100.0 * float(np.mean(top2[:, 1] - top2[:, 0] < 2 * tol))
+
+
+def _recall_slack(img, txt, atol):
+    """Per R@K key, the most the metric can move (percentage points) when
+    every embedding moves within ``atol`` (serve_retrieval's card vs CPU
+    tolerance; a score, by less than ``2 * atol``): 100 / n for each query
+    with another score that close to its target's. The dedup keys count
+    their unique-gallery queries the same way."""
+    n = min(len(img), len(txt))
+    rows = np.arange(n)
+
+    def share(s, target_col):
+        target = s[rows, target_col][:, None]
+        near = np.abs(s - target) < 2 * atol
+        near[rows, target_col] = False
+        return 100.0 * float(near.any(axis=1).mean())
+
+    sims = img @ txt.T
+    uniq, owner = np.unique(img, axis=0, return_inverse=True)
+    out = {"image_to_text": share(sims[:n], rows),
+           "text_to_image": share(sims[:, :n].T, rows),
+           "dedup": share(txt[:n] @ uniq.T, owner.reshape(-1)[:n])}
+    out["mean"] = (out["image_to_text"] + out["text_to_image"]) / 2
+    return out
+
+
+def _search_own_images(ret_path, index_file, first):
+    """``serve --index_file`` preloads the saved index, and ``/search``
+    with each corpus image (sent alone, normalized) answers that image
+    as its top-1."""
+    from atq_tpu_torch.serve.__main__ import build_server
+    from atq_tpu_torch.serve.http import start_in_thread
+
+    httpd, servers, info = build_server(
+        RETRIEVAL_ARGV + ["--checkpoint", ret_path, "--port", "0",
+                          "--index_file", index_file])
+    thread = start_in_thread(httpd)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(lambda im: _post_json(
+                info["port"], "/search", {"image": im.tolist(), "k": 2})[0],
+                first.values()))
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        for s in servers:
+            s.stop()
+    top1 = [a["results"][0]["id"] for a in answers]
+    wrong = [(n, t) for n, t in zip(first, top1) if n != t]
+    if wrong or answers[0]["count"] != len(first):
+        raise AssertionError(f"evaluate: /search over the saved index: "
+                             f"{len(wrong)} images not their own top-1 "
+                             f"({wrong[:3]}), count {answers[0]['count']}")
+    return {"searches": len(first), "own_top1": len(first) - len(wrong),
+            "min_top2_gap": float(min(a["results"][0]["score"]
+                                      - a["results"][1]["score"]
+                                      for a in answers))}
+
+
+def phase_evaluate(clf_path, ret_path, tmp):
+    """``python -m atq_tpu_torch.evaluate``'s main() on the card on the
+    trained checkpoints (train_dense's classifier, train_retrieval's
+    best_model.npz), each command held against itself with --device cpu:
+    the classifier dense and --packed on the synthetic Fashion-MNIST test
+    split (accuracy within the slack of near-tied logits, loss within rtol
+    1e-4), the README retrieval model --packed --int8_trunk --save_index
+    on the synthetic corpus's test split (the index's ids equal and its
+    embeddings within 1e-3 of the CPU's, the split's text embeddings at the
+    evaluation's batch within 1e-3 of the CPU's, and R@K within the slack
+    of near-tied scores); the card's index preloaded by ``serve
+    --index_file``, each
+    image its own /search top-1. Launches counted on the card runs."""
+    from atq_tpu_torch.evaluate import main as evaluate_main
+    from atq_tpu_torch.ops import kernel_launches
+
+    t0 = time.perf_counter()
+    data_dir = os.path.join(tmp, "no_data")  # the synthetic stand-ins
+    ckpt = {"classification": clf_path, "classification_packed": clf_path,
+            "retrieval": ret_path}
+    runs, launches = {}, {}
+    for name, argv in EVAL_ARGV.items():
+        for device in ("cuda", "cpu"):
+            out = os.path.join(tmp, f"eval_{name}_{device}.json")
+            extra = ["--checkpoint", ckpt[name], "--device", device,
+                     "--output", out, "--data_dir", data_dir]
+            if name == "retrieval":
+                extra += ["--save_index",
+                          os.path.join(tmp, f"index_{device}.npz")]
+            _reset_launches()
+            t = time.perf_counter()
+            metrics = evaluate_main(argv + extra)
+            if device == "cuda":
+                torch.cuda.synchronize()
+                launches[name] = {k: v for k, v in kernel_launches().items()
+                                  if v}
+            with open(out) as f:
+                written = json.load(f)
+            if written != {k: float(v) for k, v in metrics.items()}:
+                raise AssertionError(f"evaluate {name}: --output {written}")
+            runs[(name, device)] = (written, time.perf_counter() - t)
+    readings = {}
+    for name in ("classification", "classification_packed"):
+        got, want = runs[(name, "cuda")][0], runs[(name, "cpu")][0]
+        slack = _accuracy_slack(_card_outputs(name, clf_path, data_dir))
+        readings[name] = {
+            "cuda": got, "cpu": want,
+            "accuracy_diff": abs(got["accuracy"] - want["accuracy"]),
+            "accuracy_slack": slack,
+            "loss_rel_diff": abs(got["loss"] - want["loss"]) / abs(
+                want["loss"]), "loss_rtol": EVAL_LOGIT_TOL}
+        if readings[name]["accuracy_diff"] > slack or \
+                readings[name]["loss_rel_diff"] > EVAL_LOGIT_TOL:
+            raise AssertionError(f"evaluate {name}: {readings[name]}")
+    img, txt, first = _card_outputs("retrieval", ret_path, data_dir)
+    # The text tower at the evaluation's batch (EVAL_BATCH x SEQ_LEN rows
+    # a packed launch), card against CPU: the tight check of the text
+    # half, as the saved index is of the image half. R@K is reported
+    # beside the slack of near-tied scores.
+    text_err = float(np.abs(txt - _card_outputs(
+        "retrieval", ret_path, data_dir, device="cpu")).max())
+    slack = _recall_slack(img, txt, RETRIEVAL_ATOL)
+    got, want = runs[("retrieval", "cuda")][0], runs[("retrieval", "cpu")][0]
+    diffs = {k: abs(got[k] - want[k]) for k in want}
+    limits = {k: slack["dedup" if k.endswith("_dedup")
+                       else k.split("_R@")[0]] for k in want}
+    bad = {k: (diffs[k], limits[k]) for k in want if diffs[k] > limits[k]}
+    card_index, cpu_index = (np.load(os.path.join(tmp, f"index_{d}.npz"),
+                                     allow_pickle=True)
+                             for d in ("cuda", "cpu"))
+    ids = list(card_index["ids"])
+    index_err = float(np.abs(card_index["embeddings"]
+                             - cpu_index["embeddings"]).max())
+    if bad or ids != list(cpu_index["ids"]) or ids != list(first) \
+            or index_err > RETRIEVAL_ATOL or text_err > RETRIEVAL_ATOL:
+        raise AssertionError(f"evaluate retrieval: R@K beyond slack {bad}, "
+                             f"index ids equal "
+                             f"{ids == list(cpu_index['ids'])}, index "
+                             f"err {index_err}, text err {text_err} "
+                             f"(limit {RETRIEVAL_ATOL})")
+    search = _search_own_images(ret_path, os.path.join(tmp, "index_cuda.npz"),
+                                first)
+    batches = -(-CLF_EVAL_IMAGES // EVAL_BATCH)
+    ret_batches = -(-RET_EVAL_ROWS // EVAL_BATCH)
+    want_launches = {
+        "classification": {"order_stat": batches},
+        "classification_packed": {"ternary_matmul": 2 * batches},
+        # the evaluation pass and --save_index's pass embed both towers
+        "retrieval": {"ternary_matmul": 2 * ret_batches * (
+            IMAGE_LAUNCHES + TEXT_LAUNCHES)}}
+    for name, want_l in want_launches.items():
+        if launches[name] != want_l:
+            raise AssertionError(f"evaluate {name}: launches "
+                                 f"{launches[name]}, expected {want_l}")
+    emit({"phase": "evaluate", "classification": readings,
+          "retrieval": {"cuda": got, "cpu": want, "abs_diff": diffs,
+                        "slack": limits, "index_images": len(ids),
+                        "index_max_abs_err": index_err,
+                        "text_rows": len(txt),
+                        "text_max_abs_err": text_err,
+                        "embedding_limit": RETRIEVAL_ATOL},
+          "search": search, "launches": launches,
+          "seconds_by_run": {f"{n}_{d}": s for (n, d), (_, s) in
+                             runs.items()},
+          "seconds": time.perf_counter() - t0})
+    total = {}
+    for counts in launches.values():
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+AOT_START_TIMEOUT_S = 600  # a server process: start, export or load
+
+
+class _ServerProcess:
+    """``python -m atq_tpu_torch.serve ARGV --port 0`` in a process of its
+    own, up to its first answered request: ``seconds`` from the process's
+    start to that answer, its ``{"aot": ...}`` line, and the answer."""
+
+    def __init__(self, argv, first_request):
+        self.lines = []
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-u", "-m", "atq_tpu_torch.serve", *argv,
+             "--port", "0", "--max_batch", str(MAX_BATCH)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        try:
+            info = _read_until(self.proc, '"serving"', AOT_START_TIMEOUT_S,
+                               self.lines)
+            if info is None:
+                raise AssertionError(f"serve {argv[:2]}: no server line: "
+                                     f"{self.lines[-20:]}")
+            self.answer = first_request(json.loads(info)["port"])
+            self.seconds = time.perf_counter() - t0
+        finally:
+            self.proc.terminate()
+            try:
+                self.proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                self.proc.kill()
+                self.proc.wait(timeout=60)
+        aot = [json.loads(x) for x in self.lines if x.startswith('{"aot"')]
+        self.aot = {a["path"].rsplit(os.sep, 1)[1]: a for a in aot}
+
+
+# The traced windows whose kernel events must equal counted launches record
+# the host as well, as the trainers' traces do (utils/profile_step.py
+# start_trace).
+_TRACED = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+
+
+def _kernel_events(prof, name):
+    """Device events of ``prof`` (a finished in-process capture) whose
+    kernel name holds ``name``."""
+    from atq_tpu_torch.utils.profile_step import DEVICE_CATEGORIES
+
+    _, events = _profiled_breakdown(prof, 1, 1.0)
+    return sum(name in e.get("name", "") for e in events
+               if e.get("cat") in DEVICE_CATEGORIES)
+
+
+def _traced_loaded_server(argv, burst, kernel, want_per_batch):
+    """The server built in-process from the artifact (``--aot`` finds it:
+    loaded), a warm-up request and a traced burst: its answers, counted
+    launches, ``tiled_packed_kernel`` events and batches, and the launches
+    it should make (``want_per_batch(batches)``); and the programs its
+    servers ran. The profiler now and then
+    loses a kernel event (as ``device_ms`` finds), so a burst whose events
+    differ from its exact launch count is traced again, twice at most."""
+    from torch.profiler import profile
+
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.serve.__main__ import build_server
+    from atq_tpu_torch.serve.http import start_in_thread
+
+    httpd, servers, info = build_server(argv + ["--port", "0",
+                                                "--max_batch",
+                                                str(MAX_BATCH)])
+    thread = start_in_thread(httpd)
+    events = []
+    try:
+        burst(info["port"], warm=True)
+        for _ in range(3):
+            before = [s.stats["batches"] for s in servers]
+            _reset_launches()
+            with profile(activities=_TRACED) as prof:
+                answers = burst(info["port"], warm=False)
+                torch.cuda.synchronize()
+            launches = {k: v for k, v in kernel_launches().items() if v}
+            batches = [s.stats["batches"] - b
+                       for s, b in zip(servers, before)]
+            want = want_per_batch(batches)
+            events.append(_kernel_events(prof, "tiled_packed_kernel"))
+            if launches.get(kernel) != want or events[-1] == want:
+                break
+        failures = [s.stats["primary_failures"] for s in servers]
+        programs = [s._apply for s in servers]
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+        for s in servers:
+            s.stop()
+    return {"answers": answers, "launches": launches, "events": events,
+            "batches": batches, "want": want,
+            "failures": failures}, programs
+
+
+def traced_aot(spec_file):
+    """``--traced-aot SPEC``: serve_aot's checks of the loaded artifacts,
+    in a process of their own (traced late in the main process, a
+    window's kernel events fell short of or ran over its launches, 5, 9
+    and 7 events for 8; and once this phase had traced there, the kernels
+    phase's windows did too). SPEC (JSON) names the checkpoints, the
+    artifacts' CLI arguments and directories, where to export the dense
+    predict program and the output file. Traced: the classifier's burst
+    and the retrieval model's images alone and burst from the loaded
+    servers, and two calls of the dense program, each with its launches
+    and events. Then each program the servers ran, and the dense one, at
+    batch 1 and MAX_BATCH equal to the live model on the card bit for
+    bit."""
+    from torch.profiler import profile
+
+    from atq_tpu_torch.data.flickr8k import _synthetic_corpus
+    from atq_tpu_torch.data.mnist import FASHION_STATS, synthetic_test_set
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.serve.__main__ import (
+        build_classifier,
+        build_parser,
+        build_retrieval,
+    )
+    from atq_tpu_torch.serve.aot import (
+        AOTServing,
+        export_serving,
+        load_serving,
+    )
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    os.environ["ATQ_NO_DOWNLOAD"] = "1"
+    with open(spec_file) as f:
+        spec = json.load(f)
+    images = synthetic_test_set("fashion_mnist", N_REQUESTS)[0].astype(
+        np.float32) / 255.0
+    req = retrieval_requests(load_vocab(spec["ret_path"]),
+                             _synthetic_corpus(400))
+
+    def clf_burst(port, warm):
+        if warm:
+            return _post(port, images[0])
+        return [a["logits"] for a, _ in _burst(port, images)[0]]
+
+    def ret_burst(port, warm):
+        if warm:
+            return _post_json(port, "/embed_image",
+                              _image_payload(req["images"][0]))
+        alone = [a["embedding"] for a in _sequential_images(port, req)]
+        _, txt, _, _ = _retrieval_burst(port, req)
+        return alone, txt.tolist()
+
+    out, programs = {}, {}
+    for name, argv, path, burst, want in (
+            ("classifier", spec["clf_argv"], spec["clf_dir"], clf_burst,
+             lambda b: 2 * b[0]),
+            ("retrieval", spec["ret_argv"], spec["ret_dir"], ret_burst,
+             lambda b: IMAGE_LAUNCHES * b[0] + TEXT_LAUNCHES * b[1])):
+        out[name], programs[name] = _traced_loaded_server(
+            argv + ["--aot", path], burst, "ternary_matmul", want)
+    if not all(isinstance(p, AOTServing)
+               for progs in programs.values() for p in progs):
+        raise AssertionError(f"serve_aot: a server ran no loaded program: "
+                             f"{programs}")
+
+    dev = torch.device("cuda")
+    mean, std = FASHION_STATS
+    x = torch.from_numpy(((images - mean) / std)[..., None]).to(dev)
+    dense = build_classifier(build_parser().parse_args(
+        [a for a in spec["clf_argv"] if a != "--packed"]),
+        load_checkpoint(spec["clf_path"]), "parity", dev)
+    dense_aot = load_serving(export_serving(dense, (x[:2],)).save(
+        spec["dense_dir"]))
+    if not dense_aot.batch_polymorphic:
+        raise AssertionError("serve_aot dense predict: not polymorphic")
+    events = []
+    for _ in range(3):  # traced again where the trace lost an event
+        _reset_launches()
+        with profile(activities=_TRACED) as prof:
+            for n in (1, MAX_BATCH):
+                dense_aot(x[:n])
+            torch.cuda.synchronize()
+        launches = kernel_launches()["order_stat"]
+        events.append(_kernel_events(prof, "order_stat_cluster_kernel"))
+        if launches != 2 or events[-1] == 2:
+            break
+    out["dense_predict"] = {"launches": launches, "events": events,
+                            "want": 2}
+
+    # Each program at batch 1 and MAX_BATCH against the live model.
+    clf_model = build_classifier(build_parser().parse_args(
+        spec["clf_argv"]), load_checkpoint(spec["clf_path"]), "parity", dev)
+    ret_model = build_retrieval(_retrieval_args(spec["ret_path"],
+                                                "--packed"),
+                                load_checkpoint(spec["ret_path"]), "parity",
+                                dev, len(load_vocab(spec["ret_path"])))
+    (predict,), (embed_image, embed_text) = (programs["classifier"],
+                                             programs["retrieval"])
+    x_img = torch.from_numpy(req["normalized"]).to(dev)
+    tok = torch.from_numpy(req["tokens"]).to(dev)
+    ln = torch.from_numpy(req["lengths"]).to(dev)
+    with torch.inference_mode():
+        for n in (1, MAX_BATCH):
+            _equal_bits(f"predict batch {n}", predict(x[:n]),
+                        clf_model(x[:n]))
+            _equal_bits(f"dense predict batch {n}", dense_aot(x[:n]),
+                        dense(x[:n]))
+            _equal_bits(f"embed_image batch {n}", embed_image(x_img[:n]),
+                        ret_model.encode_image(x_img[:n]))
+            _equal_bits(f"embed_text batch {n}", embed_text(tok[:n], ln[:n]),
+                        ret_model.encode_text(tok[:n], ln[:n]))
+    out["bit_equal_to_live"] = ["predict", "embed_image", "embed_text",
+                                "dense predict"]
+    with open(spec["out"], "w") as f:
+        json.dump(out, f)
+
+
+def _equal_bits(what, got, want):
+    if not torch.equal(got, want):
+        raise AssertionError(f"serve_aot {what}: loaded program vs live "
+                             f"model, max abs diff "
+                             f"{float((got - want).abs().max())}")
+
+
+def phase_serve_aot(clf_path, ret_path, tmp, images, clf_ref, req, ret_ref,
+                    beside):
+    """``serve --aot``: each CLI run twice in processes of its own (the
+    first exports, the second loads) beside a live one, seconds from
+    process start to the first answer of each; the classifier --packed
+    and the retrieval model --packed --int8_trunk. From the loaded
+    artifacts, in a process of their own (traced_aot): the existing bursts
+    traced (tiled_packed_kernel events = counted launches = packed layers
+    x batches), answers against the CPU plain path as in serve_packed and
+    serve_retrieval, a dense predict export's order_stat_cluster_kernel
+    events = order statistics x calls, and each program at batch 1 and at
+    MAX_BATCH equal to the live model on the card bit for bit. ``beside()``
+    runs in a thread while that process runs, which reads no time either
+    (the preemption drill: its own processes, no timed window); returns
+    the launches and what ``beside()`` returned."""
+    t0 = time.perf_counter()
+    clf_argv = ["--task", "classification", "--checkpoint", clf_path,
+                "--use-rpb", "--packed"]
+    ret_argv = RETRIEVAL_ARGV + ["--checkpoint", ret_path]
+    clf_dir, ret_dir = os.path.join(tmp, "aot_clf"), os.path.join(tmp,
+                                                                  "aot_ret")
+    cold, aot_lines = {}, {}
+
+    def predict0(port):
+        return _post(port, images[0])[0]["logits"]
+
+    def embed0(port):
+        return _post_json(port, "/embed_image",
+                          _image_payload(req["images"][0]))[0]["embedding"]
+
+    for task, argv, first, path in (("classification", clf_argv, predict0,
+                                     clf_dir),
+                                    ("retrieval", ret_argv, embed0,
+                                     ret_dir)):
+        runs = {"live": _ServerProcess(argv, first),
+                "export": _ServerProcess(argv + ["--aot", path], first),
+                "load": _ServerProcess(argv + ["--aot", path], first)}
+        cold[task] = {k: r.seconds for k, r in runs.items()}
+        aot_lines[task] = {k: r.aot for k, r in runs.items() if r.aot}
+        for k, want_status in (("export", "exported"), ("load", "loaded")):
+            status = {a["aot"] for a in runs[k].aot.values()}
+            if status != {want_status} or not all(
+                    a["batch_polymorphic"] for a in runs[k].aot.values()):
+                raise AssertionError(f"serve_aot {task} {k}: "
+                                     f"{runs[k].aot}")
+        if not (runs["live"].answer == runs["export"].answer
+                == runs["load"].answer):
+            raise AssertionError(f"serve_aot {task}: first answers differ "
+                                 f"between the live, exporting and "
+                                 f"loading processes")
+    processes_s = time.perf_counter() - t0
+
+    # The loaded artifacts' checks, in a process of their own (traced_aot).
+    spec = {"clf_argv": clf_argv, "ret_argv": ret_argv,
+            "clf_dir": clf_dir, "ret_dir": ret_dir,
+            "clf_path": clf_path, "ret_path": ret_path,
+            "dense_dir": os.path.join(tmp, "aot_dense", "predict"),
+            "out": os.path.join(tmp, "traced_aot.json")}
+    with open(os.path.join(tmp, "traced_aot_spec.json"), "w") as f:
+        json.dump(spec, f)
+    here = os.path.abspath(__file__)
+    with ThreadPoolExecutor(1) as pool:
+        beside_result = pool.submit(beside)
+        run = subprocess.run([sys.executable, here, "--traced-aot",
+                              os.path.join(tmp, "traced_aot_spec.json")],
+                             capture_output=True, text=True,
+                             timeout=AOT_START_TIMEOUT_S,
+                             cwd=os.path.dirname(here))
+        beside_result = beside_result.result()
+    if run.returncode != 0:
+        raise AssertionError(f"serve_aot loaded artifacts: rc "
+                             f"{run.returncode}: {run.stderr[-3000:]}")
+    with open(spec["out"]) as f:
+        traced = json.load(f)
+    for name, kernel in (("classifier", "ternary_matmul"),
+                         ("retrieval", "ternary_matmul"),
+                         ("dense_predict", None)):
+        t = traced[name]
+        got = t["launches"] if kernel is None else t["launches"].get(kernel)
+        if got != t["want"] or t["events"][-1] != t["want"] \
+                or any(t.get("failures", [])):
+            raise AssertionError(f"serve_aot {name}: launches "
+                                 f"{t['launches']}, events {t['events']}, "
+                                 f"expected {t['want']}")
+    logits = np.asarray(traced["classifier"]["answers"], np.float32)
+    np.testing.assert_allclose(logits, clf_ref, rtol=1e-4, atol=1e-4,
+                               err_msg="serve_aot classifier vs CPU")
+    img, txt = (np.asarray(a, np.float32)
+                for a in traced["retrieval"]["answers"])
+    for what, got, want in (("image", img, ret_ref["image"]),
+                            ("text", txt, ret_ref["text"])):
+        np.testing.assert_allclose(got, want, rtol=0, atol=RETRIEVAL_ATOL,
+                                   err_msg=f"serve_aot {what} vs CPU")
+    emit({"phase": "serve_aot",
+          "seconds_to_first_answer": cold, "aot": aot_lines,
+          "card": _smi(),
+          "classifier": {k: traced["classifier"][k]
+                         for k in ("batches", "launches", "events")},
+          "retrieval": {k: traced["retrieval"][k]
+                        for k in ("batches", "launches", "events")},
+          "dense_predict": {k: traced["dense_predict"][k]
+                            for k in ("launches", "events")},
+          "max_abs_err_vs_cpu": {
+              "classifier": float(np.abs(logits - clf_ref).max()),
+              "image": float(np.abs(img - ret_ref["image"]).max()),
+              "text": float(np.abs(txt - ret_ref["text"]).max())},
+          "bit_equal_to_live": traced["bit_equal_to_live"],
+          "seconds_by_part": {"processes": processes_s,
+                              "loaded_checks": time.perf_counter() - t0
+                              - processes_s},
+          "seconds": time.perf_counter() - t0})
+    total = {}
+    for counts in (traced["classifier"]["launches"],
+                   traced["retrieval"]["launches"],
+                   {"order_stat": traced["dense_predict"]["launches"]}):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+    return total, beside_result
 
 
 def load_vocab(path):
@@ -2352,13 +3040,16 @@ def phase_train_encoder(tmp):
 
 
 # The README's retrieval recipe (README.md: train_multimodal.py's flags)
-# for 2 epochs: 1,600 synthetic training pairs, 100 steps an epoch.
+# for 2 epochs on a synthetic corpus of 200 images: 800 training pairs,
+# 50 steps an epoch (the depth cut from the default 400 images to keep the
+# script's run short; the vocabulary is the same 40 words).
+RETRIEVAL_STEPS = 50
 RETRIEVAL_TRAIN_ARGV = ["--batch_size", "16", "--embed_dim", "192",
                         "--hidden_dim", "384", "--learning_rate", "5e-5",
                         "--image_size", "160", "--use_residual",
                         "--reinit_model", "--gradual_quant",
                         "--warmup_epochs", "2", "--contrastive_reg", "0.05",
-                        "--epochs", "2"]
+                        "--epochs", "2", "--synthetic_images", "200"]
 RETRIEVAL_BATCH = 16
 # The fused kernels at the retrieval step's shapes, (M, N, K): the text
 # tower's FFN (800 = 16 x 50 tokens; 192 -> 384, 384 -> 192), q/k/v/out,
@@ -2666,7 +3357,7 @@ def phase_train_retrieval(tmp):
     launches = kernel_launches()
     stats = state["stats"]
     losses = [x for epoch in stats["step_losses"] for x in epoch]
-    if len(losses) != 200 or not np.isfinite(losses).all():
+    if len(losses) != 2 * RETRIEVAL_STEPS or not np.isfinite(losses).all():
         raise AssertionError(f"train_retrieval: {len(losses)} step losses, "
                              f"finite: {np.isfinite(losses).all()}")
     for epoch, per_step in enumerate(stats["launches_per_step"]):
@@ -3063,8 +3754,11 @@ RETRIEVAL_AMP_ARGV = ["--batch_size", "64", "--embed_dim", "192",
                       "--epochs", "1", "--use_amp", "--grad_accum_steps",
                       "4"]
 # The preemption drill: the recipe for 2 epochs writing its state every
-# epoch, killed once orbax/step_1 is committed, then resumed.
-DRILL_ARGV = RETRIEVAL_TRAIN_ARGV + ["--checkpoint_freq", "1"]
+# epoch, killed once orbax/step_1 is committed, then resumed; on 100
+# synthetic images (25 steps an epoch), since what it checks does not
+# depend on the depth.
+DRILL_ARGV = RETRIEVAL_TRAIN_ARGV + ["--checkpoint_freq", "1",
+                                     "--synthetic_images", "100"]
 DRILL_TIMEOUT_S = 300
 
 
@@ -3392,14 +4086,16 @@ def _drill(tmp):
                                                          "orbax")))}
 
 
-def phase_train_retrieval_amp(tmp):
+def phase_train_retrieval_amp(tmp, drill):
     """The retrieval trainer under --use_amp and GradCache on the card:
     AMP step 0 against the CPU's and against float32 (the quantizer bit
     for bit), GradCache's gradients against the concatenated-pool oracle
     (dense and fused) with its launches and peak memory, one epoch of
     main() on the recipe with --use_amp --batch_size 64
     --grad_accum_steps 4 (counts reset before it, read after it) with 3
-    traced steps after it, and the preemption drill."""
+    traced steps after it, and the preemption drill's result ``drill``
+    (its checks and seconds; it ran beside serve_aot's loaded-artifact
+    process)."""
     from atq_tpu_torch.ops import kernel_launches
     from atq_tpu_torch.train.retrieval import main as retrieval_main
 
@@ -3485,9 +4181,7 @@ def phase_train_retrieval_amp(tmp):
         raise AssertionError(f"train_retrieval_amp: recalls {recalls}")
     busy = _traced_amp_steps(state["model"], state["optimizer"], tmp)
 
-    t3 = time.perf_counter()
-    drill = _drill(tmp)
-    drill_s = time.perf_counter() - t3
+    drill, drill_s = drill
     emit({"phase": "train_retrieval_amp", "amp_step0": amp,
           "amp_step0_seconds": amp_s, "gradcache": gradcache,
           "gradcache_seconds": gradcache_s, "argv": RETRIEVAL_AMP_ARGV,
@@ -3854,6 +4548,12 @@ def main(argv=None):
     if argv[:1] == ["--encoder-step0"]:
         encoder_step0_readings(*argv[1:])  # before importing atq_tpu_torch
         return 0
+    if argv[:1] == ["--traced-aot"]:
+        from atq_tpu_torch.utils.platform import resolve_device
+
+        resolve_device("cuda")
+        traced_aot(*argv[1:])
+        return 0
     from atq_tpu_torch.utils.platform import resolve_device
 
     readings_modes = {"--retrieval-step0": retrieval_step0_readings,
@@ -3903,6 +4603,12 @@ def main(argv=None):
         rpb_launches = phase_dense_correction(
             ret_path, req, {**ret_ref, "sparse_image": img,
                             "sparse_text": txt}, path, images, packed)
+        def drill():
+            t = time.perf_counter()
+            return _drill(tmp), time.perf_counter() - t
+
+        aot_launches, drill_result = phase_serve_aot(
+            path, ret_path, tmp, images, refs[True], req, ret_ref, drill)
         batch = _step0_batch()
         cpu_step0 = _step0("cpu", False, batch)
         _, dense_step0 = phase_train("train_dense", False, tmp, batch,
@@ -3912,8 +4618,11 @@ def main(argv=None):
         phase_encoder_step0()
         encoder_launches = phase_train_encoder(tmp)
         phase_train_retrieval(tmp)
+        eval_launches = phase_evaluate(
+            os.path.join(tmp, "train_dense", "atq_model_fashion_mnist.npz"),
+            os.path.join(tmp, "retrieval_train", "best_model.npz"), tmp)
         phase_train_retrieval_scan(tmp)
-        phase_train_retrieval_amp(tmp)
+        phase_train_retrieval_amp(tmp, drill_result)
 
     sources = {
         "order_stat": ("atq_tpu_torch/csrc/order_stat.cu",
@@ -3964,7 +4673,9 @@ def main(argv=None):
                         "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                         "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"],
-                        "device_ms": t["kernel_device_ms"]})
+                        "device_ms": t["kernel_device_ms"],
+                        "evaluate_launches": eval_launches.get(name, 0),
+                        "serve_aot_launches": aot_launches.get(name, 0)})
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -719,3 +719,87 @@ def test_packed_layers_on_cuda_equal_cpu(cuda, monkeypatch):
             params, quant, device=cuda, sparse_correction=sparse),
             x.to(cuda)).cpu()
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+
+
+# The registered ops (ops/__init__.py) inside a saved and loaded
+# torch.export program (serve/aot.py), at the full-width classifier: route
+# -> (environment, sparse correction, packed, the wrapper's kernel name).
+AOT_ROUTES = {
+    "order_stat": ({}, True, False, "order_stat"),
+    "planar": ({}, True, True, "ternary_matmul"),
+    "planar32": ({"ATQ_PACK32": "1"}, True, True, "ternary_matmul32"),
+    "rpb": ({}, False, True, "ternary_matmul_rpb"),
+    "fused_forward": ({"ATQ_FUSED": "1"}, True, False, "fused_forward"),
+}
+
+
+@pytest.mark.parametrize("route", list(AOT_ROUTES))
+def test_registered_op_from_a_loaded_artifact(cuda, route, tmp_path,
+                                              monkeypatch):
+    """A loaded program launches the route's kernel (its wrapper's count
+    grows) and equals the live model on the card bit for bit, at batch 1
+    and at a batch never seen at export time."""
+    from atq_tpu_torch.models.image_classifier import ATQImageClassifier
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.serve.aot import export_serving, load_serving
+    from atq_tpu_torch.serve.packed_model import (
+        attach_packed_collection,
+        export_packed_collection,
+    )
+    from atq_tpu_torch.utils.jax_interop import to_jax_variables
+
+    env, sparse, packed, kernel = AOT_ROUTES[route]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    model = ATQImageClassifier(use_rpb=True, hidden_size=128, device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+    variables = to_jax_variables(model.state_dict())
+    model = model.to(cuda)
+    if packed:
+        attach_packed_collection(model, export_packed_collection(
+            variables["params"], variables["quant"], device=cuda,
+            sparse_correction=sparse))
+    rng = np.random.RandomState(1)
+    x2 = torch.from_numpy(rng.randn(2, 28, 28, 1).astype(np.float32))
+    path = export_serving(model, (x2.to(cuda),)).save(str(tmp_path / "p"))
+    loaded = load_serving(path)
+    assert loaded.batch_polymorphic
+    for n in (1, 5):
+        x = torch.from_numpy(rng.randn(n, 28, 28, 1).astype(
+            np.float32)).to(cuda)
+        with torch.inference_mode():
+            want = model(x)
+        before = kernel_launches()[kernel]
+        got = loaded(x)
+        torch.cuda.synchronize()
+        assert kernel_launches()[kernel] - before == (
+            2 if kernel.startswith(("ternary", "fused")) else 1)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("layout,k", [("rows", 3136), ("flat", 3136),
+                                      ("flat", 130)])
+def test_rows_and_flat_layouts_on_cuda(cuda, layout, k):
+    """``rows`` (and ``flat`` with K % 4 = 0) convert to planes on the
+    card and launch the planar kernel; ``flat`` with K % 4 != 0 decodes;
+    each within the kernels' tolerance of the plain version on the CPU."""
+    from atq_tpu_torch.core.packing import TernaryBitPacking, pack_rows
+    from atq_tpu_torch.ops.ternary_matmul import packed_ternary_matmul
+
+    rng = np.random.RandomState(k)
+    w = torch.from_numpy(rng.choice([-1.0, 0.0, 1.0], (64, k)).astype(
+        np.float32))
+    x = torch.from_numpy((rng.randn(32, k) * 0.1).astype(np.float32))
+    packed = (pack_rows(w) if layout == "rows" else
+              TernaryBitPacking.pack_ternary_weights(w)["packed_weights"])
+    for alpha_neg in (None, 0.4):
+        want = packed_ternary_matmul(x, packed, (64, k), alpha=0.9,
+                                     layout=layout, alpha_neg=alpha_neg)
+        before = ternary_matmul_planar.launches
+        got = packed_ternary_matmul(x.to(cuda), packed.to(cuda), (64, k),
+                                    alpha=0.9, layout=layout,
+                                    alpha_neg=alpha_neg)
+        torch.cuda.synchronize()
+        assert ternary_matmul_planar.launches - before == int(k % 4 == 0)
+        torch.testing.assert_close(got.cpu(), want, rtol=MM_RTOL,
+                                   atol=MM_ATOL)

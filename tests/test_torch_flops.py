@@ -2,14 +2,16 @@
 row's ``flops_per_step_counted``) on the CPU.
 
 The hand-written kernels run through ``ctypes``, out of
-``FlopCounterMode``'s sight, so each wrapper adds its launch's work to its
-``flops`` count from its shapes. That work must equal what
-``FlopCounterMode`` counts for the kernel's plain version at the same
+``FlopCounterMode``'s sight. A kernel behind a registered op (the order
+statistic, the packed matmuls, the fused forward) has a FLOP formula that
+the counter applies to the op on either device; every other wrapper adds
+its launch's work to its ``flops`` count from its shapes. Both must equal
+what ``FlopCounterMode`` counts for the kernel's plain version at the same
 shapes, which is what these tests hold, wrapper by wrapper, at ragged and
-main-path shapes (exactly: integers). On the CPU the wrappers run their
-plain versions, so a counted step sees every product itself and no wrapper
-adds anything; ``chip_smoke.py``'s encoder_step0 holds the card's count of
-the same step (the kernels' own adds) to the CPU's.
+main-path shapes (exactly: integers). On the CPU the other wrappers run
+their plain versions, so a counted step sees every product itself and no
+wrapper adds anything; ``chip_smoke.py``'s encoder_step0 holds the card's
+count of the same step (the kernels' own adds) to the CPU's.
 """
 
 import numpy as np
@@ -18,12 +20,19 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode
 
 from atq_tpu_torch.core.packing import pack_planar, pack_planar32
+from atq_tpu_torch.models.image_classifier import ATQImageClassifier
+from atq_tpu_torch.nn.layers import apply_selective_routing
 from atq_tpu_torch.ops import fused_attention as fa
 from atq_tpu_torch.ops import fused_linear as fl
 from atq_tpu_torch.ops import kernel_flops, kernel_wrappers, matmul_flops
 from atq_tpu_torch.ops import order_stat as osx
 from atq_tpu_torch.ops import ternary_matmul as tm
+from atq_tpu_torch.serve.packed_model import (
+    attach_packed_collection,
+    export_packed_collection,
+)
 from atq_tpu_torch.train import scale
+from atq_tpu_torch.utils.jax_interop import to_jax_variables
 from atq_tpu_torch.utils.flops import counted_flops
 
 
@@ -112,6 +121,63 @@ def test_packed_matmuls_add_what_their_plain_versions_count(mkn):
                   torch.tensor([0.7, 0.5]), True) == matmul_flops(m, n, k)
     assert _count(tm.ternary_matmul_rpb_plain, x, pack_planar(w), corr, k,
                   alpha) == matmul_flops(m, n, k, products=2)
+
+
+@pytest.mark.parametrize("grad", [False, True], ids=["eval", "train"])
+def test_the_fused_op_counts_on_the_cpu(grad):
+    """The fused forward runs as the registered op on the CPU too, out of
+    the counter's sight: its formula counts it, and the backward's plain
+    products are seen as before."""
+    m, n, k = 7, 24, 200
+    x = _randn(m, k, seed=1).requires_grad_(grad)
+    w = _randn(n, k, seed=2).requires_grad_(grad)
+    alpha = torch.tensor(0.7, requires_grad=grad)
+    thr = torch.tensor(0.4)
+    mask = _randn(n, k, seed=3) > 1.0
+
+    def run():
+        y = fl.fused_quantized_linear(x, w, alpha, thr, mask)
+        if grad:
+            y.sum().backward()
+        return y
+
+    before = kernel_flops()
+    flops, _ = counted_flops(run)
+    assert kernel_flops() == before
+    assert flops["total"] == flops["traced"] == matmul_flops(
+        m, n, k, products=3 if grad else 1)
+
+
+# route -> (environment, RPB head, products a packed layer's kernel does)
+PACKED_ROUTES = {"planar": ({}, False, 1),
+                 "planar32": ({"ATQ_PACK32": "1"}, False, 1),
+                 "rpb": ({}, True, 2)}
+
+
+@pytest.mark.parametrize("route", list(PACKED_ROUTES))
+def test_a_packed_forward_counts_its_kernel_ops(route, monkeypatch):
+    """The packed classifier head (3136 -> 128 -> 10, both layers on a
+    kernel op; the RPB correction dense) counts the convolutions and
+    routing as the dense forward does, plus each op's products."""
+    env, rpb, products = PACKED_ROUTES[route]
+    for key, value in env.items():
+        monkeypatch.setenv(key, value)
+    model = ATQImageClassifier(use_rpb=rpb, device="cpu",
+                               generator=torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.RandomState(0).rand(3, 28, 28, 1)
+                         .astype(np.float32))
+    with torch.no_grad():
+        features, _ = counted_flops(lambda: apply_selective_routing(
+            model.features(x), threshold=0.05, importance_factor=0.7))
+        v = to_jax_variables(model.state_dict())
+        attach_packed_collection(model, export_packed_collection(
+            v["params"], v.get("quant"), device="cpu",
+            sparse_correction=False))
+        before = kernel_flops()
+        flops, _ = counted_flops(lambda: model(x))
+    assert kernel_flops() == before
+    assert flops["total"] == features["total"] + matmul_flops(
+        3, 128, 3136, products) + matmul_flops(3, 10, 128, products)
 
 
 TINY = (64, 128, 4, 2, 32, 4, True, True)  # scanned, remat

@@ -103,15 +103,11 @@ def test_synthetic_test_set_matches_jax():
     np.testing.assert_array_equal(labels, j_labels)
 
 
-def test_unported_options_and_grad_mode_mismatch_exit(checkpoint):
+def test_missing_vocab_and_grad_mode_mismatch_exit(checkpoint):
     _, _, path = checkpoint
     base = ["--checkpoint", path, "--device", "cpu"]
-    with pytest.raises(SystemExit, match="not ported"):
-        build_server(["--task", "retrieval", "--aot", "x"] + base)
     with pytest.raises(SystemExit, match="vocab.json"):  # none beside it
         build_server(["--task", "retrieval"] + base)
-    with pytest.raises(SystemExit, match="not ported"):
-        build_server(["--task", "classification", "--aot", "x"] + base)
     assert resolve_grad_mode("auto", {"l": {"wp": 1, "wn": 1}}) == "ttq"
     assert resolve_grad_mode("auto", {"l": {"alpha": 1}}) == "parity"
     with pytest.raises(SystemExit):

@@ -54,17 +54,41 @@ def test_matches_jax_packed_matmul(mnk, ttq):
                                atol=ATOL)
 
 
-# 'rows' and 'flat' are not ported yet; 'planar32' is
-# (tests/test_torch_packed_kernels.py), and refuses uint8 planes.
-@pytest.mark.parametrize("layout,error", [("rows", NotImplementedError),
-                                          ("flat", NotImplementedError),
-                                          ("planar32", ValueError)],
-                         ids=["rows", "flat", "planar32"])
-def test_unported_layouts_raise(layout, error):
-    with pytest.raises(error, match="ROADMAP" if error is
-                       NotImplementedError else "int32"):
-        packed_ternary_matmul(torch.zeros(2, 128), torch.zeros(
-            8, 128, dtype=torch.uint8), (8, 128), layout=layout)
+def _layout_parity(layout, m, n, k, ttq):
+    """Port against JAX on the same packed bytes of one layout."""
+    from atq_tpu.core.packing import TernaryBitPacking as JaxPacking
+    from atq_tpu.core.packing import pack_rows as jax_pack_rows
+
+    rng = np.random.RandomState(m * n + k)
+    w = _ternary((n, k), seed=k + 1)
+    x = (rng.randn(m, k) * 0.1).astype(np.float32)
+    packed = np.array(jax_pack_rows(jnp.asarray(w)) if layout == "rows"
+                        else JaxPacking.pack_ternary_weights(
+                            jnp.asarray(w))["packed_weights"])
+    alpha_neg = 0.4 if ttq else None
+    got = packed_ternary_matmul(torch.from_numpy(x),
+                                torch.from_numpy(packed), (n, k), alpha=0.9,
+                                layout=layout, alpha_neg=alpha_neg)
+    want = jax_packed_ternary_matmul(jnp.asarray(x), jnp.asarray(packed),
+                                     (n, k), alpha=0.9, layout=layout,
+                                     alpha_neg=alpha_neg)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+# 'rows' and 'flat' (K % 4 = 0 and not, symmetric and TTQ) against JAX on
+# the same bytes, at a kernel-eligible shape and one below it; 'planar32'
+# (tests/test_torch_packed_kernels.py) refuses uint8 planes.
+@pytest.mark.parametrize("layout", ["rows", "flat", "planar32"])
+def test_rows_flat_parity_planar32_refusal(layout):
+    if layout == "planar32":
+        with pytest.raises(ValueError, match="int32"):
+            packed_ternary_matmul(torch.zeros(2, 128), torch.zeros(
+                8, 128, dtype=torch.uint8), (8, 128), layout=layout)
+        return
+    for m, n, k in ((3, 16, 256), (2, 10, 130), (4, 5, 37)):
+        for ttq in (False, True):
+            _layout_parity(layout, m, n, k, ttq)
 
 
 def test_wrapper_rejects_bad_inputs():
