@@ -367,6 +367,45 @@ class Flickr8kLoader:
             yield batch
 
 
+def visualize_flickr8k_samples(dataloader: Flickr8kLoader,
+                               num_samples: int = 5,
+                               idx_to_word: Optional[Dict[int, str]] = None,
+                               out_path: str = "flickr8k_samples.png"):
+    """Save a grid of a batch's first images (ImageNet-normalized floats,
+    denormalized here) with their decoded captions to ``out_path``
+    (matplotlib, imported here)."""
+    import matplotlib
+
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    images, captions = next(iter(dataloader))[:2]
+    num_samples = min(num_samples, len(images))
+    plt.figure(figsize=(15, 5 * num_samples))
+    for i in range(num_samples):
+        img = np.clip(images[i] * IMAGENET_STD + IMAGENET_MEAN, 0, 1)
+        if idx_to_word is not None:
+            words = []
+            for idx in captions[i].tolist():
+                if idx == PAD:
+                    continue
+                if idx == END:
+                    break
+                if idx >= len(SPECIALS) and idx in idx_to_word:
+                    words.append(idx_to_word[idx])
+            caption = " ".join(words)
+        else:
+            caption = "No caption available"
+        plt.subplot(num_samples, 1, i + 1)
+        plt.imshow(img)
+        plt.title(f"Caption: {caption}")
+        plt.axis("off")
+    plt.tight_layout()
+    plt.savefig(out_path)
+    plt.close()
+    print(f"Visualization saved to '{out_path}'")
+
+
 def prepare_flickr8k_dataloaders(batch_size: int = 32, image_size: int = 224,
                                  max_length: int = 50,
                                  tokenize_captions: bool = True,

@@ -20,7 +20,8 @@ split's unique images into an ``EmbeddingIndex`` ``.npz`` that
 ``python -m atq_tpu_torch.serve --index_file`` preloads. A TTQ checkpoint
 evaluated without ``--grad-mode ttq`` (or auto) exits, as does a
 ``vocab.json`` stamped by another tokenizer than the active one.
-``--moe_experts`` above 0 raises (ROADMAP.md queue 1 item 7).
+``--moe_experts N`` builds the text tower with the ternary-expert MoE FFN
+(its expert planes stay dense under ``--packed``, as in JAX).
 """
 
 from __future__ import annotations
@@ -64,7 +65,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "(retrieval); defaults to the vocab.json next to "
                         "the checkpoint when present")
     p.add_argument("--moe_experts", type=int, default=0,
-                   help="(retrieval) not ported yet above 0")
+                   help="(retrieval) the checkpoint's ternary-expert MoE "
+                        "FFN: experts per text layer (0: dense FFN)")
     p.add_argument("--grad-mode", "--grad_mode", dest="grad_mode",
                    type=str, default="auto",
                    choices=["auto", "parity", "ste", "ttq"],
@@ -196,9 +198,6 @@ def main(argv=None):
     from atq_tpu_torch.utils.jax_interop import load_checkpoint
 
     args = build_parser().parse_args(argv)
-    if args.moe_experts > 0:
-        raise NotImplementedError("--moe_experts > 0 is not ported yet "
-                                  "(ROADMAP.md queue 1 item 7)")
     device = resolve_device(args.device)
     ckpt = load_checkpoint(args.checkpoint)
     grad_mode = resolve_grad_mode(args.grad_mode, ckpt.get("params", {}))

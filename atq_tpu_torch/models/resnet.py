@@ -23,9 +23,12 @@ an int8 trunk is attached (serve/int8_trunk.py ``attach_int8_collection``),
 ResNetFeatures serves from it instead of the float path, as the JAX module
 does when it finds ``('int8', 'trunk')``.
 
-``ATQ_S2D_STEM`` and ``ATQ_FAST_POOL`` select XLA rewrites in the JAX package
-(ops/s2d_stem.py, ops/fast_pool.py); they are not ported yet (ROADMAP.md
-queue 1 item 8) and raise when set.
+``ATQ_S2D_STEM=1`` runs the stem as the exact space-to-depth rewrite
+(ops/s2d_stem.py: a 4x4/1 conv over 12 channels; the parameter stays
+(K, C, 7, 7)) and ``ATQ_FAST_POOL=1`` the stem pool with the tie-splitting
+backward (ops/fast_pool.py), as in the JAX package; both are read at each
+forward and off by default. The int8 trunk keeps its plain pool: it is
+forward only, where the two agree.
 
 :func:`load_torch_state_dict` turns a torchvision ResNet state dict into the
 JAX layout's ``(params, batch_stats)`` trees (numpy leaves), the trees
@@ -39,7 +42,6 @@ state dict. :func:`load_imagenet_weights` reads a torchvision IMAGENET1K_V1
 from __future__ import annotations
 
 import hashlib
-import os
 from typing import Optional, Sequence
 
 import numpy as np
@@ -49,16 +51,11 @@ from torch import nn
 
 from atq_tpu_torch.models.image_classifier import _BatchNorm
 from atq_tpu_torch.nn.initializers import lecun_normal_
+from atq_tpu_torch.ops.fast_pool import max_pool
+from atq_tpu_torch.ops.s2d_stem import s2d_stem_enabled, stem_conv
 from atq_tpu_torch.utils.platform import resolve_device
 
 FEATURE_DIMS = {"resnet18": 512, "resnet50": 2048}
-
-
-def _check_unported_flags() -> None:
-    for flag in ("ATQ_S2D_STEM", "ATQ_FAST_POOL"):
-        if os.environ.get(flag, "0") == "1":
-            raise NotImplementedError(
-                f"{flag}=1 is not ported yet (ROADMAP.md queue 1 item 8)")
 
 
 class Conv(nn.Conv2d):
@@ -82,10 +79,19 @@ class Conv(nn.Conv2d):
 
 
 class StemConv(Conv):
-    """The 7x7/stride-2/padding-3 stem conv (``conv1``), no bias."""
+    """The 7x7/stride-2/padding-3 stem conv (``conv1``), no bias; through
+    the space-to-depth rewrite under ``ATQ_S2D_STEM=1``."""
 
     def __init__(self, cin: int, features: int, generator=None, dtype=None):
         super().__init__(cin, features, 7, 2, 3, generator, dtype)
+
+    def forward(self, x):
+        if not s2d_stem_enabled():
+            return super().forward(x)
+        weight = self.weight
+        if self.compute_dtype is not None:
+            x, weight = x.to(self.compute_dtype), weight.to(self.compute_dtype)
+        return stem_conv(x, weight, use_s2d=True)
 
 
 class _BatchNorm32(_BatchNorm):
@@ -181,7 +187,6 @@ class ResNetFeatures(nn.Module):
         self.eval()
 
     def forward(self, x):
-        _check_unported_flags()
         if self.int8_trunk is not None:
             from atq_tpu_torch.serve.int8_trunk import int8_resnet_apply
 
@@ -189,7 +194,7 @@ class ResNetFeatures(nn.Module):
                                      bottleneck=self.block is Bottleneck)
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW
         x = F.relu(self.bn1(self.conv1(x)))
-        x = F.max_pool2d(x, 3, stride=2, padding=1)  # pads with -inf
+        x = max_pool(x)  # 3x3/2, padded with -inf
         for stage, num_blocks in enumerate(self.stage_sizes):
             for b in range(num_blocks):
                 x = getattr(self, f"layer{stage + 1}_{b}")(x)

@@ -4,7 +4,8 @@
   LayerNorm -> RPB projector -> exact GELU -> LayerNorm -> clamped scaling
   -> L2 normalize.
 - :class:`ATQMultimodalRetrieval`: the image encoder, the ternary text
-  encoder, the cross-attention fusion (models/fusion.py), the text and
+  encoder (with the ternary-expert MoE FFN when ``text_moe_experts > 0``),
+  the cross-attention fusion (models/fusion.py), the text and
   image projectors with their LayerNorms and the learnable temperature.
   ``encode_image``/``encode_text`` give the L2-normalized embeddings that
   retrieval scores by cosine; ``forward`` gives the similarity matrix (with
@@ -29,7 +30,7 @@ dict name for name (utils/jax_interop.py), every collection included.
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -135,23 +136,28 @@ class ATQMultimodalRetrieval(nn.Module):
 
     def encode_text(self, text, text_lengths=None,
                     deterministic: bool = True,
-                    generator: Optional[torch.Generator] = None):
+                    generator: Optional[torch.Generator] = None,
+                    moe_aux: Optional[List[torch.Tensor]] = None):
         text_features = self.text_encoder(text, text_lengths,
                                           deterministic=deterministic,
-                                          generator=generator)
+                                          generator=generator,
+                                          moe_aux=moe_aux)
         text_embeddings = self.text_norm(self.text_projector(text_features))
         return l2_normalize(text_embeddings, dim=1)
 
     def forward(self, image, text, text_lengths=None,
                 return_embeddings: bool = False, return_fused: bool = False,
                 train: bool = False,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                moe_aux: Optional[List[torch.Tensor]] = None):
+        """``moe_aux``: a list that the text tower's MoE layers
+        (``text_moe_experts > 0``) append their load-balance losses to."""
         if self.training != train:
             self.train(train)
         deterministic = not train
         image_embeddings = self.encode_image(image)
         text_embeddings = self.encode_text(text, text_lengths,
-                                           deterministic, generator)
+                                           deterministic, generator, moe_aux)
         if return_embeddings:
             return image_embeddings, text_embeddings
         if return_fused:

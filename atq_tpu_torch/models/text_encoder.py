@@ -15,17 +15,19 @@ Kept from the JAX module:
 - the unrolled stack is ``layers_{i}``; ``scan_layers`` builds the
   ``ScannedTernaryStack`` (``layers.scan.layer.*``).
 
-``moe_experts > 0`` raises NotImplementedError (slice H); the reference's
-from-scratch init (``apply_reference_text_init``) is not ported yet
-(ROADMAP.md queue 1). Dropout masks come from the ``generator`` passed to
-``forward``. ``dtype`` is the layers' matmul compute dtype (AMP); the
-embedding, the LayerNorms and the pooling's softmax stay float32.
+``moe_experts > 0`` gives every unrolled layer the ternary-expert MoE FFN
+(nn/transformer.py); ``forward``'s ``moe_aux`` list collects their
+load-balance losses. ``scan_layers`` with ``moe_experts > 0`` raises
+ValueError, as in JAX. :func:`apply_reference_text_init` is the
+reference's from-scratch init. Dropout masks come from the ``generator``
+passed to ``forward``. ``dtype`` is the layers' matmul compute dtype (AMP);
+the embedding, the LayerNorms and the pooling's softmax stay float32.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -71,10 +73,10 @@ class ATQTextEncoder(nn.Module):
                  attn_impl: str = "einsum", dtype=None, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "the MoE FFN (moe_experts > 0) is not ported yet "
-                "(ROADMAP.md, slice H)")
+        if scan_layers and moe_experts > 0:
+            raise ValueError(
+                "scan_layers does not support moe_experts > 0 — the "
+                "per-layer aux-loss sow needs the unrolled stack")
         initial_sparsity = min(0.1, sparsity_target)
         self.dropout = dropout
         self.num_layers = num_layers
@@ -98,7 +100,8 @@ class ATQTextEncoder(nn.Module):
                     dropout=dropout, use_rpb=use_rpb,
                     sparsity_target=initial_sparsity, layer_idx=i,
                     grad_mode=grad_mode, dtype=dtype, attn_impl=attn_impl,
-                    device="cpu", generator=generator))
+                    moe_experts=moe_experts, device="cpu",
+                    generator=generator))
         self.norm = LayerNorm32(embed_dim)
         self.attention_pool_0 = _proj(use_rpb, embed_dim, embed_dim // 2,
                                       0.2, initial_sparsity, grad_mode, dtype,
@@ -112,7 +115,10 @@ class ATQTextEncoder(nn.Module):
 
     def forward(self, x, src_key_padding_mask=None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                moe_aux: Optional[List[torch.Tensor]] = None):
+        """``moe_aux``: a list that each MoE layer appends its
+        load-balance loss to."""
         if src_key_padding_mask is not None:
             src_key_padding_mask = torch.as_tensor(src_key_padding_mask,
                                                    device=x.device)
@@ -130,7 +136,8 @@ class ATQTextEncoder(nn.Module):
             for i in range(self.num_layers):
                 h = getattr(self, f"layers_{i}")(
                     h, src_key_padding_mask=src_key_padding_mask,
-                    deterministic=deterministic, generator=generator)
+                    deterministic=deterministic, generator=generator,
+                    moe_aux=moe_aux)
         h = self.norm(h)
         a = torch.tanh(self.attention_pool_0(h))
         a = self.attention_pool_2(a)
@@ -141,3 +148,40 @@ class ATQTextEncoder(nn.Module):
                 src_key_padding_mask[:, :, None], float("-inf")), dim=1)
         text_features = torch.sum(h * attn_weights, dim=1)
         return text_features * torch.clamp(self.scaling, 1.0, 10.0)
+
+
+def apply_reference_text_init(variables: dict,
+                              generator: Optional[torch.Generator] = None
+                              ) -> dict:
+    """The reference's ``_init_parameters`` on JAX-layout variables (nested
+    dicts of numpy arrays, e.g. ``ATQTextEncoder``'s state through
+    ``utils.jax_interop.to_jax_variables``), for strict-parity from-scratch
+    runs: xavier_uniform(gain=0.8) on EVERY parameter with ndim > 1 (a
+    scanned stack's leaves by their per-layer rank), then N(0, 0.02) on the
+    embedding; the positional-encoding constant, which the reference
+    clobbers by accident, is drawn from the same xavier rule. Other leaves
+    are kept. Values are drawn from ``generator``; the input is not
+    mutated."""
+    gain = 0.8
+
+    def xavier(shape):
+        bound = gain * np.sqrt(6.0 / (shape[-1] + shape[-2]))
+        return torch.empty(shape).uniform_(-bound, bound,
+                                           generator=generator).numpy()
+
+    def walk(node, keys):
+        if isinstance(node, dict):
+            return {k: walk(v, keys + (k,)) for k, v in node.items()}
+        shape = np.shape(node)
+        eff_ndim = len(shape) - 1 if "scan" in keys else len(shape)
+        if keys[-1] == "embedding":
+            return (0.02 * torch.randn(shape, generator=generator)).numpy()
+        return xavier(shape) if eff_ndim > 1 else node
+
+    out = {**variables, "params": walk(variables["params"], ())}
+    constants = dict(variables.get("constants", {}))
+    if constants.get("positional_encoding") is not None:
+        constants["positional_encoding"] = xavier(
+            np.shape(constants["positional_encoding"]))
+    out["constants"] = constants
+    return out

@@ -127,6 +127,10 @@ def selective_gradient_routing(x, threshold: float = 0.05,
     return _RoutedIdentity.apply(x, importance_factor)
 
 
+# The JAX package's name for the same routing (a function, not a class).
+SelectiveGradientRouting = selective_gradient_routing
+
+
 def _quantize(weight, alpha, sparsity_target, grad_mode: str):
     if grad_mode == "ste":
         return ternarize_ste(weight, alpha=alpha,

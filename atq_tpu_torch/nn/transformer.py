@@ -3,8 +3,17 @@ atq_tpu/nn/transformer.py).
 
 - :class:`TernaryTransformerLayer`: pre-norm; every layer is "critical"
   (attention precision 0.2, FFN linear1/linear2 0.2/0.4); one learnable
-  sigmoid gate (init 0.8) scales both residual branches; exact GELU. The
-  MoE FFN (``moe_experts > 0``) is not ported yet and raises.
+  sigmoid gate (init 0.8) scales both residual branches; exact GELU. With
+  ``moe_experts > 0`` the FFN is the ternary-expert MoE
+  (parallel/moe.py): ``moe_gate`` (D, E), ``moe_w1`` (E, D, F) and
+  ``moe_w2`` (E, F, D) in place of ``linear1``/``linear2``, capacity
+  ``max(1, ceil(tokens / E · moe_capacity_factor))``, padding tokens left
+  out of the routing, the experts ternarized at the layer's
+  ``sparsity_target``. It computes in the dtype ``norm2`` gives it
+  (float32), as in JAX. Where JAX sows each layer's load-balance loss into
+  'intermediates', the caller passes a list as ``moe_aux`` and each MoE
+  layer appends its loss to it: nothing is kept on the module, so a
+  rematerialized forward appends to the list of its own call.
 - :class:`ScannedTernaryStack`: L layers whose parameters and 'quant'
   buffers are kept STACKED, with a leading L axis, under
   ``scan.layer.*`` as the JAX ``nn.scan`` layout keeps them; the hoisted
@@ -36,7 +45,8 @@ from __future__ import annotations
 
 import copy
 import functools
-from typing import Dict, Optional
+import math
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,9 +58,12 @@ from atq_tpu_torch.nn.attention import (
     LayerNorm32,
     TernaryMultiheadAttention,
     _proj,
+    lengths_to_padding_mask,
 )
 from atq_tpu_torch.nn.hoist import effective_weights, thresholds
+from atq_tpu_torch.nn.initializers import normal_std_
 from atq_tpu_torch.nn.layers import _QuantizedLinear, _use_fused, dropout
+from atq_tpu_torch.parallel.moe import moe_ffn
 from atq_tpu_torch.utils.platform import resolve_device
 
 REMAT_POLICIES = ("save_quantized", "save_dots", "full")
@@ -66,11 +79,11 @@ class TernaryTransformerLayer(nn.Module):
                  pre_quantized: bool = False, device=None,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if moe_experts > 0:
-            raise NotImplementedError(
-                "the MoE FFN (moe_experts > 0) is not ported yet")
         self.dropout = dropout
         self.layer_idx = layer_idx
+        self.moe_experts = moe_experts
+        self.moe_capacity_factor = moe_capacity_factor
+        self.moe_sparsity = sparsity_target
         initial_sparsity = min(0.1, sparsity_target)
         ratio = 0.2  # every layer is critical (layer_idx >= 0)
         self.gate = nn.Parameter(torch.full((1,), 0.8))
@@ -81,19 +94,30 @@ class TernaryTransformerLayer(nn.Module):
             grad_mode=grad_mode, dtype=dtype, attn_impl=attn_impl,
             pre_quantized=pre_quantized, device="cpu", generator=generator)
         self.norm2 = LayerNorm32(embed_dim)
-        self.linear1 = _proj(use_rpb, embed_dim, dim_feedforward, ratio,
-                             initial_sparsity, grad_mode, dtype,
-                             pre_quantized, generator)
-        self.linear2 = _proj(use_rpb, dim_feedforward, embed_dim, ratio * 2,
-                             initial_sparsity, grad_mode, dtype,
-                             pre_quantized, generator)
+        if moe_experts > 0:
+            e, d, f = moe_experts, embed_dim, dim_feedforward
+            self.moe_gate = nn.Parameter(normal_std_(
+                torch.empty(d, e), d ** -0.5, generator))
+            self.moe_w1 = nn.Parameter(normal_std_(
+                torch.empty(e, d, f), d ** -0.5, generator))
+            self.moe_w2 = nn.Parameter(normal_std_(
+                torch.empty(e, f, d), f ** -0.5, generator))
+        else:
+            self.linear1 = _proj(use_rpb, embed_dim, dim_feedforward, ratio,
+                                 initial_sparsity, grad_mode, dtype,
+                                 pre_quantized, generator)
+            self.linear2 = _proj(use_rpb, dim_feedforward, embed_dim,
+                                 ratio * 2, initial_sparsity, grad_mode,
+                                 dtype, pre_quantized, generator)
         self.to(resolve_device(device))
 
     def forward(self, src, src_mask=None, src_key_padding_mask=None,
                 deterministic: bool = True,
-                generator: Optional[torch.Generator] = None):
+                generator: Optional[torch.Generator] = None,
+                moe_aux: Optional[List[torch.Tensor]] = None):
         """``generator`` draws the dropout masks when not
-        ``deterministic``."""
+        ``deterministic``; an MoE layer appends its load-balance loss to
+        ``moe_aux`` when given."""
         def drop(x):
             return dropout(x, self.dropout, deterministic, generator)
 
@@ -105,9 +129,46 @@ class TernaryTransformerLayer(nn.Module):
                               generator=generator)
         src = src + drop(src2) * gate
         src2 = self.norm2(src)
-        h = drop(F.gelu(self.linear1(src2)))
-        src2 = self.linear2(h)
+        if self.moe_experts > 0:
+            src2 = self._moe_ffn(src2, src_key_padding_mask, moe_aux)
+        else:
+            h = drop(F.gelu(self.linear1(src2)))
+            src2 = self.linear2(h)
         return src + drop(src2) * gate
+
+    def _moe_ffn(self, x, key_padding_mask, moe_aux):
+        """The MoE FFN over the flattened (B·L, D) tokens; padding tokens
+        (``key_padding_mask`` True, or past a lengths vector) are not
+        routed."""
+        b, length, d = x.shape
+        tokens = b * length
+        capacity = moe_capacity(tokens, self.moe_experts,
+                                self.moe_capacity_factor)
+        token_mask = None
+        if key_padding_mask is not None:
+            pad = torch.as_tensor(key_padding_mask, device=x.device)
+            if pad.ndim == 1:  # lengths, as the attention takes them
+                pad = lengths_to_padding_mask(pad, length)
+            token_mask = torch.logical_not(pad.bool()).reshape(tokens)
+        y, aux = moe_ffn(x.reshape(tokens, d),
+                         {"gate": self.moe_gate, "w1": self.moe_w1,
+                          "w2": self.moe_w2},
+                         capacity=capacity, ternary=True,
+                         sparsity_target=self.moe_sparsity,
+                         token_mask=token_mask)
+        if moe_aux is not None:
+            moe_aux.append(aux["aux_loss"])
+        return y.reshape(b, length, d)
+
+
+def moe_capacity(tokens, experts: int, factor: float):
+    """``max(1, ceil(tokens / experts · factor))`` in double precision, as
+    JAX computes it. The ceiling is ``trunc`` plus one where a remainder
+    is left: ops that ``torch.export`` can save when ``tokens`` follows a
+    symbolic batch (``math.ceil`` and ``max`` are not among them)."""
+    v = tokens / experts * factor
+    t = math.trunc(v)
+    return torch.sym_max(1, torch.sym_ite(v > t, t + 1, t))
 
 
 def _tensors(module: nn.Module) -> Dict[str, torch.Tensor]:

@@ -4,9 +4,9 @@ PyTorch counterpart of atq_tpu/ops/order_stat.py: the Pallas kernels
 ``_kernel`` behind ``order_statistic_reductions`` and ``_batched_kernel``
 behind ``order_statistic_reductions_batched`` (one statistic per row of a
 stacked (L, n) tensor). The single statistic goes through a registered op,
-``torch.ops.atq_tpu_torch.order_stat``, so that ``torch.export`` keeps it
-as one node (serve/aot.py); the batched one, which no eval forward
-reaches, is called directly. On a CUDA tensor each wrapper launches the
+``torch.ops.atq_tpu_torch.order_stat``, and the batched one through
+``torch.ops.atq_tpu_torch.order_stat_batched``, so that ``torch.export``
+keeps each as one node (serve/aot.py). On a CUDA tensor each wrapper launches the
 radix-select kernel in ``csrc/order_stat.cu``: one thread block cluster a
 row, the row read from device memory once (held in the cluster's shared
 memory; a row longer than that holds a sample and keeps only the elements
@@ -154,13 +154,33 @@ def order_statistic_reductions_batched(abs2d: torch.Tensor,
     if ranks.device != abs2d.device:
         raise ValueError(f"ranks on {ranks.device}, values on "
                          f"{abs2d.device}")
-    if abs2d.device.type == "cpu":
-        return order_statistic_batched_plain(abs2d, ranks)
-    if abs2d.device.type != "cuda":
+    if abs2d.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {abs2d.device}")
+    out = torch.ops.atq_tpu_torch.order_stat_batched(abs2d, ranks)
+    return out[:, 0], out[:, 1], out[:, 2]
+
+
+@torch.library.custom_op("atq_tpu_torch::order_stat_batched",
+                         mutates_args=(), device_types="cpu",
+                         schema="(Tensor abs2d, Tensor ranks) -> Tensor")
+def _order_stat_batched_op(abs2d, ranks):
+    """(L, 3) float32 ``[stat, max, sum]`` rows: the registered op behind
+    :func:`order_statistic_reductions_batched` (one node under
+    ``torch.export``: the MoE FFN ternarizes its expert stacks in every
+    eval forward). Its CPU implementation is the plain version."""
+    return torch.stack(order_statistic_batched_plain(abs2d, ranks), dim=1)
+
+
+@_order_stat_batched_op.register_kernel("cuda")
+def _order_stat_batched_cuda(abs2d, ranks):
     out = _launch(abs2d, ranks.contiguous())
     order_statistic_reductions_batched.launches += 1
-    return out[:, 0], out[:, 1], out[:, 2]
+    return out
+
+
+@_order_stat_batched_op.register_fake
+def _order_stat_batched_fake(abs2d, ranks):
+    return abs2d.new_empty((abs2d.shape[0], 3))
 
 
 order_statistic_reductions.launches = 0

@@ -19,6 +19,10 @@ fronts it with micro-batching ``BatchServer``s.
   2-bit planes (``ATQ_PACK32=1`` at start-up: int32 planar32 words), and
   ``--int8_trunk`` (the default) the ResNet trunk from int8. The vocabulary
   comes from ``--vocab_file`` or the ``vocab.json`` beside the checkpoint.
+  ``--moe_experts N`` builds the text tower with the ternary-expert MoE
+  FFN; as in JAX, ``--packed`` packs only the 2-D quantized layers, so the
+  expert planes stay dense and the batched order statistic ternarizes
+  them on every text batch.
 - both: ``GET /healthz``.
 
 ``--aot DIR`` serves each program (``predict``; ``embed_image`` and
@@ -66,7 +70,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--wider-layers", dest="wider_layers",
                    action="store_true")
     p.add_argument("--moe_experts", type=int, default=0,
-                   help="(retrieval) not ported yet above 0")
+                   help="(retrieval) the checkpoint's ternary-expert MoE "
+                        "FFN: experts per text layer (0: dense FFN); the "
+                        "expert planes stay dense under --packed and are "
+                        "ternarized on every text batch")
     p.add_argument("--grad-mode", "--grad_mode", dest="grad_mode",
                    type=str, default="auto",
                    choices=["auto", "parity", "ste", "ttq"])

@@ -56,8 +56,14 @@ training steps lie in a ``train_steps`` span), ``--tensorboard_dir``
 writes each epoch's metrics under ``retrieval/`` (utils/tb.py), and the
 report's single-sample latency is utils/timing.py's ``sec_per_call``.
 
-Not ported yet (each raises ``NotImplementedError``, ROADMAP.md queue 1):
-``--moe_experts`` and ``--dp``/``--tp``/``--fsdp``.
+``--moe_experts N`` gives each text layer the ternary-expert MoE FFN
+(nn/transformer.py, parallel/moe.py) and adds ``moe_aux_weight`` (0.01)
+times the mean of the layers' load-balance losses to the loss, as JAX
+does; the GradCache step adds it in pass 2, where each microbatch's term
+reaches the parameters directly (``aux_scale · moe_aux_weight · aux / N``).
+
+Not ported yet (each raises ``NotImplementedError``, ROADMAP.md queue 1
+item 7): ``--dp``/``--tp``/``--fsdp``.
 """
 
 from __future__ import annotations
@@ -190,16 +196,10 @@ class RetrievalConfig:
 
 
 def _check_supported(cfg: RetrievalConfig) -> None:
-    later = [
-        (cfg.moe_experts > 0, "moe_experts (the MoE FFN, slice H)"),
-        (cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp,
-         "dp/tp/fsdp parallelism (slice H)"),
-    ]
-    for unsupported, what in later:
-        if unsupported:
-            raise NotImplementedError(
-                f"{what} is not ported to atq_tpu_torch yet "
-                f"(ROADMAP.md queue 1)")
+    if cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp:
+        raise NotImplementedError(
+            "dp/tp/fsdp parallelism (slice H2) is not ported to "
+            "atq_tpu_torch yet (ROADMAP.md queue 1)")
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -209,12 +209,25 @@ def normalize_images(images: torch.Tensor) -> torch.Tensor:
     return (images.float() / 255.0 - mean) / std
 
 
+def _aux_mean(aux) -> Optional[torch.Tensor]:
+    """The mean of the load-balance losses the MoE layers appended to
+    ``aux`` (None without MoE), as JAX's ``_aux_mean`` averages the sown
+    ones."""
+    if aux is None:
+        return None
+    if not aux:
+        return torch.zeros(())
+    return sum(aux) / len(aux)
+
+
 def pool_loss(img_emb, txt_emb, temperature, curriculum_kind,
-              baseline_embeds, image_ids, cfg: RetrievalConfig, criterion):
+              baseline_embeds, image_ids, cfg: RetrievalConfig, criterion,
+              moe_aux_mean=None):
     """The retrieval loss of float32 embeddings: the curriculum-weighted
     hard-negative InfoNCE (the weights keep the similarity's gradient), or
-    multi-positive InfoNCE over the image-id positives, then the
-    distillation blend when ``baseline_embeds`` is given."""
+    multi-positive InfoNCE over the image-id positives, plus
+    ``moe_aux_weight · moe_aux_mean`` with MoE, then the distillation blend
+    when ``baseline_embeds`` is given."""
     if cfg.use_multi_positive:
         positive = (image_ids[:, None] == image_ids[None, :]).float()
         loss = MultiPositiveInfoNCE(lambda_reg=cfg.contrastive_reg)(
@@ -224,6 +237,8 @@ def pool_loss(img_emb, txt_emb, temperature, curriculum_kind,
                                   l2_normalize(txt_emb).T)
         weights = curriculum_weights_traced(similarity, curriculum_kind)
         loss = criterion(img_emb, txt_emb, weights, temperature=temperature)
+    if cfg.moe_experts > 0:
+        loss = loss + cfg.moe_aux_weight * moe_aux_mean
     if baseline_embeds is not None:
         base_img, base_txt = baseline_embeds
         temp = 3.0
@@ -335,20 +350,30 @@ def _batchnorm_stats(model: torch.nn.Module):
             if name.endswith(("running_mean", "running_var"))]
 
 
-def _checkpointed_forward(model, generator, images, captions, lengths):
-    """The training forward under ``torch.utils.checkpoint``: the
-    recompute in the backward replays the dropout generator from the same
-    state, so it draws the same masks and the gradients are those of the
-    plain forward."""
+def _train_forward(model, generator, images, captions, lengths, moe: bool,
+                   remat: bool):
+    """The training forward: ``(img, txt, moe_aux_mean)``, the last None
+    without MoE. With ``remat`` it runs under ``torch.utils.checkpoint``:
+    the recompute in the backward replays the dropout generator from the
+    same state, so it draws the same masks and the gradients are those of
+    the plain forward, and its MoE losses go to a list of its own, so none
+    counts twice."""
+    def forward(images, captions, lengths):
+        aux = [] if moe else None
+        img, txt = model(images, captions, lengths, return_embeddings=True,
+                         train=True, generator=generator, moe_aux=aux)
+        return img, txt, _aux_mean(aux)
+
+    if not remat:
+        return forward(images, captions, lengths)
     start = generator.get_state() if generator is not None else None
 
-    def forward(images, captions, lengths):
+    def replayed(images, captions, lengths):
         if generator is not None:
             generator.set_state(start)
-        return model(images, captions, lengths, return_embeddings=True,
-                     train=True, generator=generator)
+        return forward(images, captions, lengths)
 
-    return checkpoint(forward, images, captions, lengths,
+    return checkpoint(replayed, images, captions, lengths,
                       use_reentrant=False)
 
 
@@ -382,19 +407,16 @@ def build_retrieval_train_step(model, optimizer, criterion,
         image_ids = batch[3] if cfg.use_multi_positive else None
         images = prepare(images)
         model.zero_grad(set_to_none=True)
+        img_emb, txt_emb, moe_aux = _train_forward(
+            model, generator, images, captions, lengths,
+            cfg.moe_experts > 0, cfg.grad_checkpointing)
         if cfg.grad_checkpointing:
-            img_emb, txt_emb = _checkpointed_forward(
-                model, generator, images, captions, lengths)
             # The recompute moves BatchNorm's running statistics again.
             stats = _batchnorm_stats(model)
             saved = [s.clone() for s in stats]
-        else:
-            img_emb, txt_emb = model(images, captions, lengths,
-                                     return_embeddings=True, train=True,
-                                     generator=generator)
         loss = pool_loss(img_emb.float(), txt_emb.float(), temperature,
                          curriculum_kind, baseline_embeds, image_ids, cfg,
-                         criterion)
+                         criterion, moe_aux)
         loss.backward()
         if cfg.grad_checkpointing:
             with torch.no_grad():
@@ -433,7 +455,11 @@ def _gradcache_step(model, criterion, cfg: RetrievalConfig, generator,
     - Pass 2 re-encodes each microbatch from its kept generator state (the
       same flips and dropout masks as pass 1) and backpropagates its slice
       of that gradient; ``.grad`` sums the N microbatches. There is no
-      1/N: the slices already carry it. Train-mode BatchNorm normalizes
+      1/N: the slices already carry it. With MoE, pass 1's loss holds the
+      mean of the microbatches' aux means, and pass 2 backpropagates each
+      microbatch's ``aux_scale · moe_aux_weight · aux / N`` besides (JAX's
+      surrogate; ``aux_scale`` is ``1 − distill_weight`` with a baseline,
+      the blend's factor, else 1). Train-mode BatchNorm normalizes
       with batch statistics, so pass 2's outputs do not depend on the
       running statistics it moves; they are set back to pass 1's final
       ones, and the generator to its state after pass 1.
@@ -453,39 +479,43 @@ def _gradcache_step(model, criterion, cfg: RetrievalConfig, generator,
         if generator is not None:
             generator.set_state(state)
 
-    starts, img_parts, txt_parts = [], [], []
+    moe = cfg.moe_experts > 0
+    starts, img_parts, txt_parts, aux_parts = [], [], [], []
     with torch.no_grad():
         for part in parts:
             starts.append(generator.get_state() if generator is not None
                           else None)
-            img, txt = model(prepare(images[part]), captions[part],
-                             lengths[part], return_embeddings=True,
-                             train=True, generator=generator)
+            img, txt, aux = _train_forward(
+                model, generator, prepare(images[part]), captions[part],
+                lengths[part], moe, remat=False)
             img_parts.append(img.float())
             txt_parts.append(txt.float())
+            aux_parts.append(aux)
     end = generator.get_state() if generator is not None else None
     stats = _batchnorm_stats(model)
     final_stats = [s.clone() for s in stats]
 
     img_emb = torch.cat(img_parts).requires_grad_()
     txt_emb = torch.cat(txt_parts).requires_grad_()
+    moe_aux = torch.stack(aux_parts).mean() if moe else None
     loss = pool_loss(img_emb, txt_emb, temperature, curriculum_kind,
-                     baseline_embeds, image_ids, cfg, criterion)
+                     baseline_embeds, image_ids, cfg, criterion, moe_aux)
     cot_img, cot_txt = torch.autograd.grad(loss, (img_emb, txt_emb))
+    aux_scale = (1.0 - cfg.distill_weight if baseline_embeds is not None
+                 else 1.0)
 
     model.zero_grad(set_to_none=True)
     for part, start in zip(parts, starts):
         replay(start)
-        x = prepare(images[part])
-        if cfg.grad_checkpointing:
-            img, txt = _checkpointed_forward(model, generator, x,
-                                             captions[part], lengths[part])
-        else:
-            img, txt = model(x, captions[part], lengths[part],
-                             return_embeddings=True, train=True,
-                             generator=generator)
-        torch.autograd.backward((img.float(), txt.float()),
-                                (cot_img[part], cot_txt[part]))
+        img, txt, aux = _train_forward(
+            model, generator, prepare(images[part]), captions[part],
+            lengths[part], moe, cfg.grad_checkpointing)
+        outs = [img.float(), txt.float()]
+        grads = [cot_img[part], cot_txt[part]]
+        if moe:  # reaches the parameters directly, not via the embeddings
+            outs.append(aux_scale * cfg.moe_aux_weight * aux / n_accum)
+            grads.append(torch.ones_like(outs[-1]))
+        torch.autograd.backward(outs, grads)
     with torch.no_grad():
         torch._foreach_copy_(stats, final_stats)
     replay(end)
@@ -693,7 +723,8 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
         hidden_dim=cfg.hidden_dim, vision_threshold=cfg.vision_sparsity,
         text_threshold=cfg.text_sparsity, use_residual=cfg.use_residual,
         grad_mode=cfg.grad_mode, max_seq_length=cfg.max_seq_length,
-        text_scan_layers=cfg.scan_layers, text_attn_impl=cfg.attn_impl,
+        text_moe_experts=cfg.moe_experts, text_scan_layers=cfg.scan_layers,
+        text_attn_impl=cfg.attn_impl,
         compute_dtype=torch.bfloat16 if cfg.use_amp else None,
         device=device, generator=torch.Generator().manual_seed(cfg.seed))
     if cfg.imagenet_weights:
@@ -1070,7 +1101,7 @@ def build_parser() -> argparse.ArgumentParser:
     add("--dp", type=int, default=None,
         help="Data-parallel device count (not ported yet)")
     add("--moe_experts", type=int, default=0,
-        help="Ternary-expert MoE FFN (not ported yet)")
+        help="Ternary-expert MoE FFN in every text layer (0: dense FFN)")
     add("--attn_impl", type=str, default="einsum",
         choices=["einsum", "fused"],
         help="Text-stack attention; 'fused' runs the CUDA kernels only "

@@ -293,6 +293,45 @@ Phases, one JSON line each; any failure exits non-zero:
                 "Resumed from .../orbax at epoch 1", epoch 2 only, and the
                 restored state's sha256 equal to the one the killed run
                 saved.
+  train_retrieval_moe
+                the ternary-expert MoE FFN (--moe_experts 8) at the
+                README's retrieval widths. Step 0 (train_retrieval's
+                set-up: dropout 0, optimal alphas, 16 float images) on the
+                card against the CPU: the loss (its 0.01 · aux term
+                included) and embeddings, every gradient leaf at
+                train_retrieval's card-vs-CPU limits (the expert planes,
+                whose gradient is each expert's dα/nnz times its pattern,
+                are among the leaves zero to rounding), each layer's aux loss
+                within RET_LOSS_RTOL, the expert of every valid token (a
+                token routed otherwise must have a gate-logit gap below
+                MOE_GATE_GAP_RTOL of its largest |logit|; their count is
+                printed), the experts' ternary patterns bit for bit, and
+                the launches: 19 single and 8 batched order statistics
+                (2 a layer: w1's and w2's stacks, (8, 73,728) each). Then
+                one epoch of the module's main() with --moe_experts 8
+                (counts reset before it and read after; the same launches
+                a step; no CUDA tensor reaches the batched statistic's
+                plain version): pairs/s, step p50, R@K finite. Then
+                its final_model.npz (the epoch's weights) served through
+                the serve CLI's retrieval
+                routes with --moe_experts 8, dense and --packed, on the
+                card against --device cpu (RETRIEVAL_ATOL), with the
+                serving launches; and evaluated by python -m
+                atq_tpu_torch.evaluate --moe_experts 8 on the card against
+                --device cpu (R@K within the slack of near-tied scores,
+                as phase evaluate holds it).
+  resnet_rewrites
+                ATQ_S2D_STEM=1 and ATQ_FAST_POOL=1 on ResNet-18 at 160x160
+                (16 images) on the card: the eval features with both flags
+                against the default path; the space-to-depth stem's output
+                and gradients against the direct stem's; the stem pool's
+                gradient on a tie-free input against PyTorch's max-pool
+                backward, and on the stem's own post-ReLU map (ties at 0)
+                against the port's plain version on the CPU, with its
+                gradient sum kept. Each reading beside its limit
+                (REWRITE_TOL); the whole network's gradients with the
+                space-to-depth stem are printed, not held (the comment
+                above REWRITE_TOL says why).
 
 The order statistic is held bit-exact (max equal, sum within 1e-6
 relative) against the sort at OS_SIZES and RETRIEVAL_OS_SIZES (randn), at
@@ -301,7 +340,8 @@ row with over 90 % in one digit-0 bin and zeros and subnormals among
 normals, and a sorted 2,359,296 (its held sample is not the row), at ranks
 0, 1, 0.3n and n-1, each launched twice and repeated bit for bit. The
 batched one likewise per row at (12, 589,824), (12, 2,359,296),
-(3, 16,385), (1, 98,304) and (13, 20,000), its first rows of those kinds,
+(3, 16,385), (1, 98,304), (13, 20,000) and the MoE expert stacks'
+(8, 73,728), its first rows of those kinds,
 with per-row ranks 0, n-1, 0.3n and 1. Both count the operations they put
 on the stream a call (profiler: kernels and memsets) at every main-path
 shape and fail unless it is 1. The attention kernels against their
@@ -347,7 +387,8 @@ shapes.
 Then one line {"kernels": [...]} (launch counts from the main-path phase
 that runs each kernel: serve_dense, serve_packed, serve_retrieval_pack32,
 serve_dense_correction, train_fused, train_encoder; train_retrieval and
-train_retrieval_scan print their own on their lines),
+train_retrieval_scan print their own on their lines; each kernel's
+moe_launches are train_retrieval_moe's epoch),
 the card's name and power limit as nvidia-smi prints them, and the result
 line {"ok": true, "device": {...}}. Without a GPU, or without the rest of
 the repo beside it, the script exits non-zero and prints no result.
@@ -415,7 +456,10 @@ STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-5
 # Batched order statistic: bert-base's two stacked weight shapes (q/k/v/out,
 # linear1/linear2) and a ragged one.
 BATCHED_OS_SHAPES = ((12, 589824), (12, 2359296), (3, 16385), (1, 98304),
-                     (13, 20000))
+                     (13, 20000), (8, 73728))
+# The MoE FFN's expert stacks at the README widths: 8 experts of
+# 192 x 384 (w1) or 384 x 192 (w2), at the text layers' sparsity 0.1.
+MOE_OS_SHAPE = (8, 73728)
 BERT_SPARSITY = 0.1  # the layers' initial sparsity, min(0.1, 0.3)
 # Attention: bert-base's shape first (the main path's, f32 under AMP).
 # Then the edge cases: S = 1, 50, 64, 257 and 512; D = 16, 20, 64 and 128;
@@ -1072,18 +1116,28 @@ def check_batched_order_stat(gen):
 
 def stream_ops_per_call(fn, iters=20):
     """Operations ``fn`` puts on the stream a call, by the profiler: its
-    kernels and memsets (every device-side event)."""
+    kernels and memsets (every device-side event). The profiler now and
+    then records a window's device events wrongly (none, one of twenty
+    missing, or more than the calls made, as :func:`device_ms` finds), so
+    a window whose count is not a nonzero multiple of ``iters`` is traced
+    again, four times at most; then the last window's count is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    return sum(e.count for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / iters
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        count = sum(e.count for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+        if count and count % iters == 0:
+            break
+        print(f"stream_ops_per_call: a window recorded {count} device "
+              f"events in {iters} calls; traced again", file=sys.stderr)
+    return count / iters
 
 
 def _attn_inputs(gen, shape, dtype, with_bias):
@@ -3106,13 +3160,15 @@ def _retrieval_path_layers(model):
 
 
 def _retrieval_step0_setup(tmp, optimal_alphas=True, amp=False, dropout=0.0,
-                           n=RETRIEVAL_BATCH, raw_uint8=False):
+                           n=RETRIEVAL_BATCH, raw_uint8=False,
+                           moe_experts=0):
     """The README-width model on the CPU with ``dropout`` (0 by default),
     after --reinit_model and epoch 0 of the gradual schedule, at optimal
     alphas (or at the recipe's alpha 1), with ``compute_dtype=bfloat16``
-    when ``amp`` (the same weights), and the first ``n`` synthetic training
-    pairs as float images (normalized, unflipped), or as uint8 images when
-    ``raw_uint8``."""
+    when ``amp`` (the same weights), with ``moe_experts`` experts a text
+    layer (and the config's aux term) when above 0, and the first ``n``
+    synthetic training pairs as float images (normalized, unflipped), or as
+    uint8 images when ``raw_uint8``."""
     from atq_tpu_torch.core.quantize import adaptive_ternary_quantization
     from atq_tpu_torch.core.schedules import GradualQuantizationScheduler
     from atq_tpu_torch.data.flickr8k import Flickr8kDataset
@@ -3133,10 +3189,12 @@ def _retrieval_step0_setup(tmp, optimal_alphas=True, amp=False, dropout=0.0,
              np.asarray(lengths, np.int32))
     cfg = RetrievalConfig(use_residual=True, reinit_model=True,
                           gradual_quant=True, warmup_epochs=2,
-                          contrastive_reg=0.05, epochs=2)
+                          contrastive_reg=0.05, epochs=2,
+                          moe_experts=moe_experts)
     model = ATQMultimodalRetrieval(
         vocab_size=ds.vocab_size, embed_dim=192, hidden_dim=384,
         use_residual=True, max_seq_length=SEQ_LEN, dropout=dropout,
+        text_moe_experts=moe_experts,
         compute_dtype=torch.bfloat16 if amp else None, device="cpu",
         generator=torch.Generator().manual_seed(0))
     reinit_model_(model, torch.Generator().manual_seed(99))
@@ -4267,6 +4325,397 @@ def retrieval_amp_step0_readings(tmp):
 # --compare: the packed kernels at serving's head shapes (M = 32 and 1),
 # the K-blocked shape and PACKED_SHAPES, and the fused kernels at the
 # recipe's two head layers, old against new.
+# The MoE phase (train_retrieval_moe): the README recipe with 8 experts a
+# text layer. A token whose expert differs between the card and the CPU
+# must be one whose two gate logits lie within MOE_GATE_GAP_RTOL of its
+# largest |logit| (float32 products in another order can swap a near tie).
+MOE_EXPERTS = 8
+MOE_GATE_GAP_RTOL = 1e-6
+MOE_TRAIN_ARGV = [a if a != "2" or RETRIEVAL_TRAIN_ARGV[i - 1] != "--epochs"
+                  else "1" for i, a in enumerate(RETRIEVAL_TRAIN_ARGV)] \
+    + ["--moe_experts", str(MOE_EXPERTS)]
+# The trained checkpoint's model flags, for serving (dense; --packed added
+# for the packed run) and evaluation (--packed --int8_trunk, as phase
+# evaluate runs it).
+MOE_MODEL_ARGV = ["--task", "retrieval"] + [
+    a for a in RETRIEVAL_ARGV[2:] if a != "--packed"] + [
+    "--moe_experts", str(MOE_EXPERTS)]
+MOE_EVAL_ARGV = MOE_MODEL_ARGV + ["--packed", "--int8_trunk"]
+# The stacks a text layer ternarizes each forward: w1's and w2's.
+MOE_BATCHED_PER_LAYER = 2
+MOE_TEXT_LAYERS = 4
+
+
+@contextlib.contextmanager
+def _moe_routing():
+    """Records each MoE call of the text layers: its gate logits (float64,
+    on the host), its valid-token mask and its aux loss."""
+    from atq_tpu_torch.nn import transformer as ttr
+
+    calls = []
+    moe_ffn = ttr.moe_ffn
+
+    def recording(x, params, *args, **kwargs):
+        y, aux = moe_ffn(x, params, *args, **kwargs)
+        mask = kwargs.get("token_mask")
+        with torch.no_grad():
+            calls.append({
+                "logits": (x @ params["gate"]).double().cpu(),
+                "valid": (mask.cpu() if mask is not None else
+                          torch.ones(x.shape[0], dtype=torch.bool)),
+                "aux": float(aux["aux_loss"])})
+        return y, aux
+
+    with mock.patch.object(ttr, "moe_ffn", recording):
+        yield calls
+
+
+def _routing_diff(card, cpu):
+    """Tokens whose expert differs (valid tokens only), and the largest
+    gate-logit gap of such a token over its largest |logit|."""
+    differ, worst = 0, 0.0
+    for a, b in zip(card, cpu):
+        if not torch.equal(a["valid"], b["valid"]):
+            raise AssertionError("MoE step 0: the token masks differ")
+        ea, eb = a["logits"].argmax(1), b["logits"].argmax(1)
+        rows = torch.nonzero(a["valid"] & (ea != eb)).flatten()
+        differ += len(rows)
+        for t in rows.tolist():
+            lg = b["logits"][t]
+            worst = max(worst, float(abs(lg[ea[t]] - lg[eb[t]])
+                                     / lg.abs().max()))
+    return differ, worst
+
+
+def _expert_patterns_equal(model):
+    """The experts' ternary patterns of every text layer, card against CPU,
+    bit for bit (the quantizer at the layers' sparsity)."""
+    from atq_tpu_torch.core.quantize import (
+        adaptive_ternary_quantization_batched,
+    )
+
+    planes = 0
+    for i in range(MOE_TEXT_LAYERS):
+        layer = getattr(model.text_encoder, f"layers_{i}")
+        for w in (layer.moe_w1, layer.moe_w2):
+            w = w.detach().cpu()
+            cpu, _ = adaptive_ternary_quantization_batched(
+                w, sparsity_target=layer.moe_sparsity)
+            card, _ = adaptive_ternary_quantization_batched(
+                w.cuda(), sparsity_target=layer.moe_sparsity)
+            if not torch.equal(card.cpu(), cpu):
+                raise AssertionError(f"MoE layer {i}: the expert patterns "
+                                     f"differ on the card")
+            planes += w.shape[0]
+    return planes
+
+
+@contextlib.contextmanager
+def _no_plain_on_cuda():
+    """Counts the batched order statistic's plain version reached with a
+    CUDA tensor (it must never be)."""
+    from atq_tpu_torch.ops import order_stat
+
+    hits = []
+    plain = order_stat.order_statistic_batched_plain
+
+    def counted(abs2d, ranks):
+        if abs2d.is_cuda:
+            hits.append(tuple(abs2d.shape))
+        return plain(abs2d, ranks)
+
+    with mock.patch.object(order_stat, "order_statistic_batched_plain",
+                           counted):
+        yield hits
+
+
+def _moe_serve(ckpt, device, packed, images, texts):
+    """A trained checkpoint through the serve CLI's retrieval routes on
+    ``device``: the embeddings of ``images`` (each sent alone, normalized)
+    and ``texts``, and the card's launches."""
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.serve.__main__ import (
+        build_parser,
+        build_retrieval_routes,
+    )
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    args = build_parser().parse_args(
+        MOE_MODEL_ARGV + ["--checkpoint", ckpt, "--device", device,
+                          "--max_wait_ms", "1"] + ["--packed"] * packed)
+    _reset_launches()
+    routes, servers = build_retrieval_routes(args, load_checkpoint(ckpt),
+                                             "parity", torch.device(device))
+    try:
+        img = [routes["/embed_image"]({"image": im.tolist(),
+                                       "normalize": True})["embedding"]
+               for im in images]
+        txt = [routes["/embed_text"]({"text": t})["embedding"]
+               for t in texts]
+    finally:
+        for s in servers:
+            s.stop()
+    return np.asarray(img), np.asarray(txt), kernel_launches()
+
+
+def phase_train_retrieval_moe(tmp):
+    """The ternary-expert MoE FFN (--moe_experts 8) at the README widths:
+    step 0 card against CPU, one epoch of the trainer's main(), serving and
+    evaluation of its final_model.npz against the CPU (the docstring's
+    train_retrieval_moe)."""
+    from atq_tpu_torch.data.flickr8k import Flickr8kDataset, load_vocab_file
+    from atq_tpu_torch.evaluate import main as evaluate_main
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.train.retrieval import main as retrieval_main
+
+    t0 = time.perf_counter()
+    model, batch, cfg = _retrieval_step0_setup(tmp, moe_experts=MOE_EXPERTS)
+    n_layers, n_large = _retrieval_path_layers(model)
+    per_step = {"order_stat": n_large, "batched_order_stat":
+                MOE_BATCHED_PER_LAYER * MOE_TEXT_LAYERS}
+    with _moe_routing() as cpu_calls:
+        cpu = _retrieval_step0(model, batch, cfg, "cpu", False)
+    with _moe_routing() as card_calls:
+        card = _retrieval_step0(model, batch, cfg, "cuda", False)
+    _check_launches("MoE step 0", card[4], per_step)
+    step0 = _compare_retrieval_step0("MoE", card, cpu, RET_GRAD_TOL_CPU,
+                                     RET_LEAF_TOL_CPU)
+    # The step's own calls (the first four; the embeddings' forward after
+    # it runs the layers again).
+    step_card, step_cpu = (c[:MOE_TEXT_LAYERS] for c in (card_calls,
+                                                         cpu_calls))
+    differ, gap = _routing_diff(step_card, step_cpu)
+    aux_rel = max(abs(a["aux"] - b["aux"]) / abs(b["aux"])
+                  for a, b in zip(step_card, step_cpu))
+    tokens = int(sum(c["valid"].sum() for c in step_cpu))
+    planes = _expert_patterns_equal(model)
+    if gap > MOE_GATE_GAP_RTOL or aux_rel > RET_LOSS_RTOL:
+        raise AssertionError(f"MoE step 0: {differ} of {tokens} tokens "
+                             f"routed otherwise, gate-logit gap {gap} "
+                             f"(limit {MOE_GATE_GAP_RTOL}); aux rel diff "
+                             f"{aux_rel} (limit {RET_LOSS_RTOL})")
+    step0.update({"launches": card[4], "routed_tokens": tokens,
+                  "tokens_routed_otherwise": differ,
+                  "max_gate_gap_over_max_logit": gap,
+                  "gate_gap_limit": MOE_GATE_GAP_RTOL,
+                  "aux_loss": [c["aux"] for c in step_card],
+                  "aux_rel_diff": aux_rel,
+                  "expert_planes_bit_equal": planes})
+    del model, cpu, card
+    step0_s = time.perf_counter() - t0
+
+    out_dir = os.path.join(tmp, "retrieval_moe")
+    data_dir = os.path.join(tmp, "no_flickr8k")
+    _reset_launches()
+    t1 = time.perf_counter()
+    with _no_plain_on_cuda() as plain_hits:
+        state, history, report = retrieval_main(
+            MOE_TRAIN_ARGV + ["--output_dir", out_dir, "--data_dir",
+                              data_dir])
+    wall = time.perf_counter() - t1
+    launches = kernel_launches()
+    stats = state["stats"]
+    losses = [x for epoch in stats["step_losses"] for x in epoch]
+    if len(losses) != RETRIEVAL_STEPS or not np.isfinite(losses).all():
+        raise AssertionError(f"train_retrieval_moe: {len(losses)} step "
+                             f"losses, finite {np.isfinite(losses).all()}")
+    _check_launches("train_retrieval_moe", stats["launches_per_step"][0],
+                    per_step)
+    if plain_hits:
+        raise AssertionError(f"train_retrieval_moe: the batched statistic's "
+                             f"plain version took CUDA tensors "
+                             f"{plain_hits[:3]}")
+    recalls = {f"mean_R@{k}": report["test_metrics"][f"mean_R@{k}"]
+               for k in (1, 5, 10)}
+    if not np.isfinite(list(recalls.values())).all():
+        raise AssertionError(f"train_retrieval_moe: recalls {recalls}")
+    # One epoch writes best_model.npz only when its R@1 beats 0;
+    # final_model.npz, the same weights when it does, is always there.
+    ckpt = os.path.join(out_dir, "final_model.npz")
+
+    vocab = load_vocab_file(os.path.join(out_dir, "vocab.json"))
+    val = Flickr8kDataset(data_dir, "val", image_size=IMAGE_SIZE,
+                          max_length=SEQ_LEN, vocab=vocab, raw_uint8=True)
+    images = [val[i][0].astype(np.float32) / 255.0 for i in range(4)]
+    texts = ["a dog runs on the grass", "two children play in the water",
+             "a man rides a bike", "a girl in a red dress"]
+    t2 = time.perf_counter()
+    serving = {}
+    for packed in (False, True):
+        got = _moe_serve(ckpt, "cuda", packed, images, texts)
+        want = _moe_serve(ckpt, "cpu", packed, images, texts)
+        err = max(float(np.abs(g - w).max()) for g, w in zip(got[:2],
+                                                            want[:2]))
+        name = "packed" if packed else "dense"
+        serving[name] = {"max_abs_diff": err, "limit": RETRIEVAL_ATOL,
+                         "launches": {k: v for k, v in got[2].items() if v}}
+        if err > RETRIEVAL_ATOL or got[2]["batched_order_stat"] != \
+                MOE_BATCHED_PER_LAYER * MOE_TEXT_LAYERS * len(texts):
+            raise AssertionError(f"train_retrieval_moe serve {name}: "
+                                 f"{serving[name]}")
+    serve_s = time.perf_counter() - t2
+
+    t3 = time.perf_counter()
+    evals = {}
+    for device in ("cuda", "cpu"):
+        _reset_launches()
+        evals[device] = evaluate_main(
+            MOE_EVAL_ARGV + ["--checkpoint", ckpt, "--data_dir", data_dir,
+                             "--device", device])
+        if device == "cuda":
+            eval_launches = {k: v for k, v in kernel_launches().items() if v}
+    got, want = evals["cuda"], evals["cpu"]
+    diffs = {k: abs(got[k] - want[k]) for k in want}
+    if any(d > 0 for d in diffs.values()):
+        # Near-tied scores may move: held as phase evaluate holds them.
+        img, txt = _moe_eval_embeddings(ckpt, data_dir)
+        slack = _recall_slack(img, txt, RETRIEVAL_ATOL)
+        bad = {k: d for k, d in diffs.items()
+               if d > slack["dedup" if k.endswith("_dedup")
+                            else k.split("_R@")[0]]}
+        if bad:
+            raise AssertionError(f"train_retrieval_moe evaluate: R@K "
+                                 f"beyond slack {bad}")
+    emit({"phase": "train_retrieval_moe", "argv": MOE_TRAIN_ARGV,
+          "step0": step0, "step0_seconds": step0_s, "wall_s": wall,
+          "steps": len(losses), "pairs_per_s": stats["pairs_per_sec"],
+          "step_ms_p50": [float(np.percentile(t, 50))
+                          for t in stats["step_ms"]],
+          "launches_per_step": stats["launches_per_step"],
+          "launches": launches, "loss_first_step": losses[0],
+          "loss_last_step": losses[-1], "test_recalls": recalls,
+          "serve": serving, "serve_seconds": serve_s,
+          "evaluate": {"cuda": got, "cpu": want, "abs_diff": diffs,
+                       "launches": eval_launches,
+                       "seconds": time.perf_counter() - t3},
+          "seconds": time.perf_counter() - t0})
+    return launches
+
+
+def _moe_eval_embeddings(ckpt, data_dir):
+    """The evaluation's test-split embeddings on the card (for the slack of
+    near-tied scores)."""
+    from atq_tpu_torch.data.flickr8k import prepare_flickr8k_dataloaders
+    from atq_tpu_torch.evaluate import build_parser as eval_parser
+    from atq_tpu_torch.serve.__main__ import build_retrieval
+    from atq_tpu_torch.train.retrieval import _batch_to, build_embed_fn
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    args = eval_parser().parse_args(MOE_EVAL_ARGV + ["--checkpoint", ckpt])
+    _, _, loader, vocab_size, _ = prepare_flickr8k_dataloaders(
+        batch_size=EVAL_BATCH, image_size=IMAGE_SIZE, max_length=SEQ_LEN,
+        root_dir=data_dir,
+        vocab_file=os.path.join(os.path.dirname(ckpt), "vocab.json"))
+    dev = torch.device("cuda")
+    embed = build_embed_fn(build_retrieval(args, load_checkpoint(ckpt),
+                                           "parity", dev, vocab_size))
+    img, txt = zip(*(tuple(e.cpu().numpy() for e in embed(
+        _batch_to(b, dev))) for b in loader))
+    return np.concatenate(img), np.concatenate(txt)
+
+
+# ResNet rewrites (resnet_rewrites): ResNet-18 at 160x160 in eval mode
+# (BatchNorm on its running statistics; 16 images). Limits: the features
+# with both flags within 1e-4 of the default path's largest |value| (the
+# stem's sum in another order and cuDNN's algorithms); the space-to-depth
+# stem's output and gradients (input and kernel, a random cotangent)
+# within 1e-4 of the direct stem's largest |value| (the CPU at these
+# shapes: 4.2e-7, 5.6e-7 and 9.6e-6, the kernel's a sum over 102,400
+# positions); the stem pool's gradient on a tie-free input within 1e-6 of
+# PyTorch's backward's largest, and the tie-split one within 1e-6 of the
+# CPU's (the same adds; a tie count divides), its sum kept within 1e-5.
+# The whole network's gradients with the space-to-depth stem are printed
+# against the default path's, each leaf in L2, and not held: an ulp of
+# difference moves a near-tied max of the stem pool, and with it an
+# element's whole gradient (1.4e-3 on the card, 3.0e-5 on the CPU at
+# 96x96 and 4 images, where fewer windows can tie).
+REWRITE_TOL = {"features": 1e-4, "s2d_stem": 1e-4, "pool_no_ties": 1e-6,
+               "pool_ties_vs_cpu": 1e-6, "pool_grad_sum_rel": 1e-5}
+
+
+def phase_resnet_rewrites():
+    from atq_tpu_torch.models.resnet import ResNetFeatures
+    from atq_tpu_torch.ops.fast_pool import fast_max_pool
+    from atq_tpu_torch.ops.s2d_stem import stem_conv
+
+    t0 = time.perf_counter()
+    gen = torch.Generator().manual_seed(31)
+    model = ResNetFeatures(device="cuda", generator=gen)
+    x = torch.randn(16, IMAGE_SIZE, IMAGE_SIZE, 3, generator=gen).cuda()
+    cot = torch.randn(16, 512, generator=gen).cuda()
+
+    def run(flags, grads=False):
+        with mock.patch.dict(os.environ, flags):
+            xi = x.clone().requires_grad_(grads)
+            model.zero_grad(set_to_none=True)
+            with torch.set_grad_enabled(grads):
+                y = model(xi)
+                if not grads:
+                    return y
+                (y * cot).sum().backward()
+            return {"input": xi.grad, **{n: p.grad for n, p in
+                                         model.named_parameters()}}
+
+    off = {"ATQ_S2D_STEM": "0", "ATQ_FAST_POOL": "0"}
+    ref = run(off)
+    both = run({"ATQ_S2D_STEM": "1", "ATQ_FAST_POOL": "1"})
+    readings = {"features": float((both - ref).abs().max()
+                                  / ref.abs().max())}
+    g_ref = run(off, grads=True)
+    g_s2d = run({"ATQ_S2D_STEM": "1", "ATQ_FAST_POOL": "0"}, grads=True)
+    worst = max((float((g_s2d[k] - g).norm() / g.norm()), k)
+                for k, g in g_ref.items())
+    net = {"worst_leaf_l2": worst[0], "leaf": worst[1]}
+
+    # The stem alone, direct and space-to-depth: output, dx and dw.
+    xs = x.permute(0, 3, 1, 2).contiguous()
+    c = torch.randn(16, 64, IMAGE_SIZE // 2, IMAGE_SIZE // 2,
+                    generator=gen).cuda()
+    stems = {}
+    for use_s2d in (False, True):
+        xi = xs.clone().requires_grad_()
+        wi = model.conv1.weight.detach().clone().requires_grad_()
+        y = stem_conv(xi, wi, use_s2d=use_s2d)
+        (y * c).sum().backward()
+        stems[use_s2d] = (y.detach(), xi.grad, wi.grad)
+    readings["s2d_stem"] = max(float((b - a).abs().max() / a.abs().max())
+                               for a, b in zip(stems[False], stems[True]))
+
+    # The stem pool: a tie-free map against PyTorch's max-pool backward,
+    # and the stem's own post-ReLU map (ties at 0) against the CPU.
+    with torch.no_grad():
+        stem = torch.relu(model.bn1(model.conv1(xs)))
+    shape = stem.shape
+    unique = (torch.randperm(stem.numel(), generator=gen).float()
+              / stem.numel()).reshape(shape).cuda()
+    g = torch.randn(16, shape[1], shape[2] // 2, shape[3] // 2,
+                    generator=gen).cuda()
+
+    def pool_grad(inp, fn):
+        inp = inp.clone().requires_grad_()
+        fn(inp).backward(g.to(inp.device))
+        return inp.grad
+
+    torch_pool = (lambda t: torch.nn.functional.max_pool2d(t, 3, 2, 1))
+    a, b = pool_grad(unique, fast_max_pool), pool_grad(unique, torch_pool)
+    readings["pool_no_ties"] = float((a - b).abs().max() / b.abs().max())
+    card = pool_grad(stem, fast_max_pool)
+    cpu = pool_grad(stem.cpu(), fast_max_pool)
+    readings["pool_ties_vs_cpu"] = float((card.cpu() - cpu).abs().max()
+                                         / cpu.abs().max())
+    readings["pool_grad_sum_rel"] = float(abs(card.sum() - g.sum())
+                                          / g.abs().sum())
+    bad = {k: (v, REWRITE_TOL[k]) for k, v in readings.items()
+           if v > REWRITE_TOL[k]}
+    if bad:
+        raise AssertionError(f"resnet_rewrites past the limits: {bad}")
+    emit({"phase": "resnet_rewrites", "readings": readings,
+          "limits": REWRITE_TOL, "s2d_network_grads": net,
+          "stem_zero_share": float((stem == 0).float().mean()),
+          "shape": [16, IMAGE_SIZE, IMAGE_SIZE, 3],
+          "seconds": time.perf_counter() - t0})
+
+
 COMPARE_MM = tuple((m, n, k) for m in (MAX_BATCH, 1) for n, k in MM_SHAPES) \
     + ((128, 128, 8704),)
 PACKED_KERNELS = ("ternary_matmul", "ternary_matmul32", "ternary_matmul_rpb")
@@ -4310,7 +4759,7 @@ def order_stat_rows(mod, gen):
         row["stream_ops"] = stream_ops_per_call(
             lambda: order_statistic_reductions(x, rank))
         rows.append(row)
-    for lead, n in BATCHED_OS_SHAPES[:2]:
+    for lead, n in BATCHED_OS_SHAPES[:2] + (MOE_OS_SHAPE,):
         row = mod.time_batched_order_stat(gen, lead, n)
         x = torch.randn(lead, n, device="cuda", generator=gen).abs()
         ranks = torch.full((lead,), row["rank"], dtype=torch.int32,
@@ -4623,6 +5072,8 @@ def main(argv=None):
             os.path.join(tmp, "retrieval_train", "best_model.npz"), tmp)
         phase_train_retrieval_scan(tmp)
         phase_train_retrieval_amp(tmp, drill_result)
+        moe_launches = phase_train_retrieval_moe(tmp)
+        phase_resnet_rewrites()
 
     sources = {
         "order_stat": ("atq_tpu_torch/csrc/order_stat.cu",
@@ -4675,6 +5126,7 @@ def main(argv=None):
                         "library_ms": t["library_ms"],
                         "device_ms": t["kernel_device_ms"],
                         "evaluate_launches": eval_launches.get(name, 0),
+                        "moe_launches": moe_launches.get(name, 0),
                         "serve_aot_launches": aot_launches.get(name, 0)})
     emit({"kernels": kernels})
     print(smi, flush=True)

@@ -285,6 +285,9 @@ def _opcheck_cases():
         "order_stat": (ops.order_stat.default,
                        (x.abs().reshape(-1), torch.tensor([37],
                                                           dtype=torch.int32))),
+        "order_stat_batched": (ops.order_stat_batched.default,
+                               (x.abs(), torch.tensor([0, 5, 199],
+                                                      dtype=torch.int32))),
         "ternary_matmul": (ops.ternary_matmul.default,
                            (x, pack_planar(w), 200, avec, True)),
         "ternary_matmul32": (ops.ternary_matmul32.default,

@@ -12,8 +12,9 @@
   within 1e-4 (tests/test_torch_retrieval.py's tolerance); a scanned
   (``--scan_layers``) copy of the checkpoint gives the same metrics and
   index bit for bit.
-- The ``--output`` keys, and the grad-mode, tokenizer-stamp and
-  ``--moe_experts`` exits.
+- ``--moe_experts 2``: an MoE checkpoint of the same widths, ``--packed``
+  (the expert planes stay dense): R@K equal.
+- The ``--output`` keys, and the grad-mode and tokenizer-stamp exits.
 """
 
 import gzip
@@ -125,8 +126,6 @@ def test_grad_mode_and_moe_exits(classifier, tmp_path):
     _save_checkpoint({**v, "params": params}, ttq)
     with pytest.raises(SystemExit, match="untrained alpha"):
         evaluate.main(base + ["--checkpoint", ttq, "--grad-mode", "parity"])
-    with pytest.raises(NotImplementedError, match="moe_experts"):
-        evaluate.main(base + ["--checkpoint", path, "--moe_experts", "2"])
 
 
 @pytest.fixture(scope="module")
@@ -155,7 +154,30 @@ def retrieval(tmp_path_factory):
     save_checkpoint(jax.tree_util.tree_map(np.asarray, scanned),
                     scanned_path)
     save_vocab_file(word_to_idx, str(scanned_dir / "vocab.json"))
+    moe_dir = root / "moe"
+    moe_dir.mkdir()
+    moe = ATQMultimodalRetrieval(
+        vocab_size=vocab_size, embed_dim=32, hidden_dim=64,
+        max_seq_length=12, use_residual=True, text_moe_experts=2,
+        device="cpu", generator=torch.Generator().manual_seed(1))
+    save_checkpoint(moe.jax_variables(), str(moe_dir / "best_model.npz"))
+    save_vocab_file(word_to_idx, str(moe_dir / "vocab.json"))
     return path, scanned_path, data
+
+
+def test_retrieval_moe_matches_jax(retrieval, tmp_path):
+    """A port-written MoE checkpoint evaluates on both packages alike."""
+    path, _, data = retrieval
+    ckpt = os.path.join(os.path.dirname(os.path.dirname(path)), "moe",
+                        "best_model.npz")
+    argv = ["--task", "retrieval", "--checkpoint", ckpt, "--use_residual",
+            "--packed", "--moe_experts", "2", "--data_dir",
+            data] + RET_WIDTHS
+    got = _metrics(tmp_path, "port", evaluate.main, argv + ["--device",
+                                                            "cpu"])
+    want = _metrics(tmp_path, "jax", jax_evaluate.main, argv)
+    assert {"image_to_text_R@1", "text_to_image_R@10"} <= set(got)
+    assert got == want
 
 
 def _index(path):

@@ -9,6 +9,8 @@
   the CPU); the features agree within 1e-5 (measured on the CPU:
   bit-identical at both sizes here). ``ATQ_INT8_DEQUANT=1`` stays within
   1e-4 of the int8 path, as in JAX's own test.
+- ``ATQ_S2D_STEM=1`` and ``ATQ_FAST_POOL=1``: the features against flax's
+  under the same flag (1e-4) and against the default path (1e-5).
 """
 
 import os
@@ -168,8 +170,17 @@ def test_int8_trunk_matches_jax(trunk):
 
 
 @pytest.mark.parametrize("flag", ["ATQ_S2D_STEM", "ATQ_FAST_POOL"])
-def test_unported_xla_rewrites_raise(trunk, monkeypatch, flag):
-    _, _, port, x, _, _ = trunk
+def test_xla_rewrites_match_jax(trunk, monkeypatch, flag):
+    """Each rewrite's flag set on both sides: the port's eval features
+    against flax's with the same flag, and against the port's default
+    path (ops/s2d_stem.py and ops/fast_pool.py are tested function by
+    function in tests/test_torch_s2d_stem.py and test_torch_fast_pool.py)."""
+    model, v, port, x, _, _ = trunk
+    with torch.no_grad():
+        default = port(torch.from_numpy(x)).numpy()
     monkeypatch.setenv(flag, "1")
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        port(torch.from_numpy(x))
+    want = np.asarray(model.apply(v, jnp.asarray(x), train=False))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(got, default, rtol=1e-5, atol=1e-5)

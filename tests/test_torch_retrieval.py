@@ -170,10 +170,6 @@ def test_similarity_and_embeddings_modes_match_jax(setup):
     with torch.no_grad():
         got_fused = port(*targs, return_fused=True).numpy()
     np.testing.assert_allclose(got_fused, want_fused, rtol=TOL, atol=TOL)
-    with pytest.raises(NotImplementedError):
-        ATQMultimodalRetrieval(vocab_size=10, embed_dim=EMBED,
-                               hidden_dim=HIDDEN, text_moe_experts=2,
-                               device="cpu")
 
 
 def test_interop_round_trip_keeps_every_collection(setup):

@@ -555,8 +555,7 @@ def test_fused_attention_with_dropout_takes_the_einsum_branch():
 # ---------------------------------------------------------------- the CLI
 
 
-UNPORTED = [["--moe_experts", "2"], ["--dp", "2"], ["--tp", "2"],
-            ["--fsdp"]]
+UNPORTED = [["--dp", "2"], ["--tp", "2"], ["--fsdp"]]
 
 
 @pytest.mark.parametrize("flags", UNPORTED, ids=[f[0] for f in UNPORTED])
