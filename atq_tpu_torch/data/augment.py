@@ -7,6 +7,8 @@ outside the source frame); ``random_rotate`` draws angles uniformly from
 ±max_deg; ``random_hflip`` flips each image with probability p. Random
 numbers come from a ``torch.Generator`` on the images' device, so they
 differ from JAX's; the tests feed both packages the same angles and flips.
+A data-parallel rank draws the global batch's values and keeps its rows
+(parallel/collectives.py ``rand_rows``).
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from atq_tpu_torch.parallel.collectives import rand_rows
 
 __all__ = ["random_rotate", "random_hflip", "classifier_augment"]
 
@@ -58,8 +62,7 @@ def _rotate_bilinear(images: torch.Tensor, theta: torch.Tensor):
 def random_rotate(images: torch.Tensor, generator: torch.Generator,
                   max_deg: float = 5.0) -> torch.Tensor:
     """Per-sample rotation by an angle uniform in ±max_deg degrees."""
-    u = torch.rand(images.shape[0], generator=generator,
-                   device=images.device)
+    u = rand_rows((images.shape[0],), generator, images.device)
     theta = (u * (2 * max_deg) - max_deg) * (math.pi / 180.0)
     return _rotate_bilinear(images, theta)
 
@@ -73,8 +76,7 @@ def hflip(images: torch.Tensor, flips: torch.Tensor) -> torch.Tensor:
 def random_hflip(images: torch.Tensor, generator: torch.Generator,
                  p: float = 0.5) -> torch.Tensor:
     """Per-sample horizontal flip with probability ``p``."""
-    u = torch.rand(images.shape[0], generator=generator,
-                   device=images.device)
+    u = rand_rows((images.shape[0],), generator, images.device)
     return hflip(images, u < p)
 
 

@@ -42,6 +42,10 @@ from atq_tpu_torch.nn.layers import (
     apply_selective_routing,
     dropout,
 )
+from atq_tpu_torch.parallel.collectives import (
+    active_data_shard,
+    global_sum,
+)
 from atq_tpu_torch.utils.platform import resolve_device
 
 
@@ -67,15 +71,41 @@ def _dense(fan_in: int, features: int, generator) -> nn.Linear:
 
 class _BatchNorm(nn.BatchNorm2d):
     """``nn.BatchNorm2d`` with flax's train-mode statistics: the running
-    variance moves towards the biased batch variance."""
+    variance moves towards the biased batch variance.
+
+    Inside a data-parallel step (parallel/collectives.py ``data_shard``)
+    the statistics are the global batch's, as under JAX's GSPMD: the
+    ranks' sums of x and x² are all-reduced (differentiably) and the
+    variance is flax's ``max(0, E[x²] − E[x]²)``, so every rank normalizes
+    alike and the running statistics equal the one-device step's."""
 
     def forward(self, x):
         if not self.training:
             return super().forward(x)
+        if active_data_shard() is not None:
+            return self._global_forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
             var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y
+
+    def _global_forward(self, x):
+        dims = (0, 2, 3)
+        count = x.shape[0] * x.shape[2] * x.shape[3]
+        sums = global_sum(torch.stack([x.sum(dim=dims),
+                                       (x * x).sum(dim=dims)]))
+        n = count * active_data_shard().count
+        mean, mean2 = sums[0] / n, sums[1] / n
+        var = torch.clamp(mean2 - mean * mean, min=0.0)
+        shape = (1, -1, 1, 1)
+        y = (x - mean.reshape(shape)) * torch.rsqrt(
+            var.reshape(shape) + self.eps)
+        y = y * self.weight.reshape(shape) + self.bias.reshape(shape)
+        with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)

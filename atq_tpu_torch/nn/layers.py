@@ -32,6 +32,15 @@ atq_tpu/nn/layers.py).
   rematerialized layer, so the recompute does not run the order statistic
   again (JAX's remat policy saves the threshold likewise).
 
+Under tensor parallelism (``tp``, a ``ModelShard`` set by
+parallel/sharded_model.py) a layer holds an out-features shard of
+``weight`` and ``precision_mask``; ``alpha``, the TTQ scales and ``bias``
+stay whole. The dense path quantizes the gathered weight (its threshold,
+through the order-statistic kernel, is the whole layer's) and multiplies by
+the shard's rows; the fused path runs its kernels on the shard with the
+whole layer's threshold. Either way the input's gradient and alpha's are
+summed over the 'model' group and the output is gathered along features.
+
 Parameters are drawn on the CPU from an explicit ``torch.Generator`` and
 then moved to the layer's device.
 """
@@ -55,6 +64,13 @@ from atq_tpu_torch.nn.initializers import (
     bias_uniform_torch_,
     kaiming_uniform_torch_,
 )
+from atq_tpu_torch.parallel.collectives import (
+    all_gather_embeddings,
+    copy_to_model,
+    gather_features,
+    gather_model_rows,
+    rand_rows,
+)
 from atq_tpu_torch.utils.platform import resolve_device
 
 DEFAULT_SPARSITY = 0.3
@@ -75,12 +91,12 @@ def dropout(x, rate: float, deterministic: bool,
     """flax ``nn.Dropout``: keep each unit with probability 1 − rate and
     scale the kept ones by 1 / (1 − rate). The mask is drawn from
     ``generator`` (on ``x``'s device), so a caller that seeds it gets the
-    same masks every run."""
+    same masks every run; a data-parallel rank draws the global batch's
+    mask and keeps its rows (parallel/collectives.py ``rand_rows``)."""
     if deterministic or rate == 0.0:
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) \
-        < keep_prob
+    keep = rand_rows(x.shape, generator, x.device) < keep_prob
     return torch.where(keep, x / keep_prob,
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
@@ -198,6 +214,9 @@ class _QuantizedLinear(nn.Module):
         # Serving entry (serve/packed_model.py:attach_packed_collection).
         self.packed_entry = None
         self.register_buffer("threshold", None, persistent=False)
+        # Tensor parallelism: a ModelShard when this layer holds an
+        # out-features shard (parallel/sharded_model.py).
+        self.tp = None
 
     def _init_ttq(self, sparsity_target) -> None:
         with torch.no_grad():
@@ -209,21 +228,47 @@ class _QuantizedLinear(nn.Module):
     def _fused_forward(self, x, sparsity_target, mask=None):
         from atq_tpu_torch.ops.fused_linear import fused_quantized_linear
 
-        thr = self.threshold
-        if thr is None:
+        thr, alpha = self.threshold, self.alpha
+        if self.tp is not None:  # the kernels run on the shard
+            thr = ternary_threshold(gather_model_rows(self.weight, self.tp),
+                                    sparsity_target=sparsity_target)
+            x, alpha = copy_to_model(x, self.tp), copy_to_model(alpha,
+                                                                self.tp)
+        elif thr is None:
             thr = ternary_threshold(self.weight,
                                     sparsity_target=sparsity_target)
-        y = fused_quantized_linear(x, self.weight, self.alpha, thr, mask=mask,
+        y = fused_quantized_linear(x, self.weight, alpha, thr, mask=mask,
                                    grad_mode=self.grad_mode)
         return self._add_bias(y)
 
     def _add_bias(self, y):
+        if self.tp is not None:
+            y = gather_features(y, self.tp)
         return y if self.bias is None else y + self.bias
 
     def _finish(self, x, w_eff):
+        if self.tp is not None:  # this shard's rows of the whole layer's
+            n = w_eff.shape[0] // self.tp.count
+            w_eff = w_eff[self.tp.index * n:(self.tp.index + 1) * n]
+            x = copy_to_model(x, self.tp)
         if self.dtype is not None:
             x, w_eff = x.to(self.dtype), w_eff.to(self.dtype)
         return self._add_bias(torch.matmul(x, w_eff.T))
+
+    def _whole(self, name: str):
+        """The layer's ``name`` tensor whole: under tensor parallelism the
+        out-features shards gathered (a weight with the gradient's true
+        adjoint, the shard's rows summed over the group) and a scalar
+        carried into the group (its gradient summed over it), so the
+        quantizer sees the whole layer, its threshold included."""
+        t = getattr(self, name)
+        if self.tp is None:
+            return t
+        if name == "precision_mask":
+            return gather_model_rows(t, self.tp)
+        if name == "weight":
+            return all_gather_embeddings(t, self.tp.group)
+        return copy_to_model(t, self.tp)
 
 
 class TernaryLinear(_QuantizedLinear):
@@ -247,13 +292,14 @@ class TernaryLinear(_QuantizedLinear):
         if self.pre_quantized:
             return self._finish(x, self.weight)
         if self.grad_mode == "ttq":
-            w_eff = ternarize_ttq(self.weight, self.wp, self.wn,
+            w_eff = ternarize_ttq(self._whole("weight"), self._whole("wp"),
+                                  self._whole("wn"),
                                   sparsity_target=DEFAULT_SPARSITY)
         elif _use_fused(self.fused, self.dtype):
             return self._fused_forward(x, DEFAULT_SPARSITY)
         else:
-            w_t, a = _quantize(self.weight, self.alpha, DEFAULT_SPARSITY,
-                               self.grad_mode)
+            w_t, a = _quantize(self._whole("weight"), self._whole("alpha"),
+                               DEFAULT_SPARSITY, self.grad_mode)
             w_eff = w_t * a
         return self._finish(x, w_eff)
 
@@ -291,13 +337,14 @@ class ResidualPrecisionBoostLinear(_QuantizedLinear):
             # The bool buffer goes to the kernels as it lies (read as uint8).
             return self._fused_forward(x, self.sparsity_target,
                                        mask=self.precision_mask)
-        mask = self.precision_mask.to(self.weight.dtype)
+        weight = self._whole("weight")
+        mask = self._whole("precision_mask").to(weight.dtype)
         if self.grad_mode == "ttq":
-            w_t = ternarize_ttq(self.weight, self.wp, self.wn,
+            w_t = ternarize_ttq(weight, self._whole("wp"), self._whole("wn"),
                                 sparsity_target=self.sparsity_target)
-            w_mixed = w_t * (1.0 - mask) + self.weight * mask
+            w_mixed = w_t * (1.0 - mask) + weight * mask
         else:
-            w_t, a = _quantize(self.weight, self.alpha, self.sparsity_target,
-                               self.grad_mode)
-            w_mixed = w_t * a * (1.0 - mask) + self.weight * mask
+            w_t, a = _quantize(weight, self._whole("alpha"),
+                               self.sparsity_target, self.grad_mode)
+            w_mixed = w_t * a * (1.0 - mask) + weight * mask
         return self._finish(x, w_mixed)

@@ -63,6 +63,7 @@ from atq_tpu_torch.nn.attention import (
 from atq_tpu_torch.nn.hoist import effective_weights, thresholds
 from atq_tpu_torch.nn.initializers import normal_std_
 from atq_tpu_torch.nn.layers import _QuantizedLinear, _use_fused, dropout
+from atq_tpu_torch.parallel.collectives import active_data_shard
 from atq_tpu_torch.parallel.moe import moe_ffn
 from atq_tpu_torch.utils.platform import resolve_device
 
@@ -142,8 +143,11 @@ class TernaryTransformerLayer(nn.Module):
         routed."""
         b, length, d = x.shape
         tokens = b * length
-        capacity = moe_capacity(tokens, self.moe_experts,
-                                self.moe_capacity_factor)
+        # A data-parallel rank routes its block of the global token set, at
+        # the global batch's capacity (parallel/moe.py ``_route``).
+        shard = active_data_shard()
+        capacity = moe_capacity(tokens * (shard.count if shard else 1),
+                                self.moe_experts, self.moe_capacity_factor)
         token_mask = None
         if key_padding_mask is not None:
             pad = torch.as_tensor(key_padding_mask, device=x.device)
@@ -202,6 +206,13 @@ def _fused(template) -> bool:
                and _use_fused(m.fused, m.dtype) for m in template.modules())
 
 
+def _tensor_parallel(template) -> bool:
+    """Whether the layer's projections hold out-features shards
+    (parallel/sharded_model.py sets their ``tp``)."""
+    return any(getattr(m, "tp", None) is not None
+               for m in template.modules())
+
+
 def run_layer(plain, preq, tensors, h, kwargs, grad_mode: str, dtype,
               remat: bool, remat_policy: str, quantized: bool):
     """One layer on ``tensors`` (its parameters and buffers by name).
@@ -210,8 +221,12 @@ def run_layer(plain, preq, tensors, h, kwargs, grad_mode: str, dtype,
     quantize here, outside the checkpoint, and run the layer pre-quantized,
     or on the fused path compute only the thresholds here and run the
     plain layer, whose fused ops take them; 'full' and no remat run the
-    plain layer, quantizer included."""
-    if not quantized and remat and remat_policy != "full":
+    plain layer, quantizer included. Under tensor parallelism the plain
+    layer runs whatever the policy: each projection takes its threshold
+    from its gathered weight (nn/layers.py), which a shard alone cannot
+    give."""
+    if not quantized and remat and remat_policy != "full" \
+            and not _tensor_parallel(plain):
         if _fused(plain):
             tensors = {**tensors, **thresholds(tensors)}
         else:
@@ -306,6 +321,10 @@ class ScannedTernaryStack(nn.Module):
                 generator: Optional[torch.Generator] = None):
         tensors = _tensors(self.scan.layer)
         if self.hoist_quant:
+            if _tensor_parallel(self._templates[0]):
+                raise NotImplementedError(
+                    "hoisted quantization of out-features shards: the "
+                    "thresholds need the gathered weights")
             tensors = {**tensors, **effective_weights(
                 tensors, self.grad_mode, self.dtype, batched=True)}
         per_layer = {name: t.unbind(0) for name, t in tensors.items()}

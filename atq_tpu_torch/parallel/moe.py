@@ -27,8 +27,12 @@ atq_tpu/parallel/moe.py: ``init_moe_params``, ``top1_dispatch`` and
 - The expert FFN's GELU is the tanh form (``jax.nn.gelu``'s default),
   where the dense FFN's is exact.
 
-``moe_ffn_sharded`` (expert parallelism over a process group) is not
-ported yet (ROADMAP.md queue 1 item 7).
+- **Expert parallelism** (:func:`moe_ffn_sharded`): the experts split over
+  an ``expert`` process group, the tokens too, one ``all_to_all_single``
+  each way (atq_tpu/parallel/moe.py:150-200), capacity per shard and the
+  statistics averaged over the group; differentiable.
+- Inside a data-parallel step the dense :func:`moe_ffn` routes over the
+  global token set (:func:`_route`), as JAX's GSPMD step does.
 """
 
 from __future__ import annotations
@@ -36,9 +40,17 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from atq_tpu_torch.core.quantize import adaptive_ternary_quantization_batched
+from atq_tpu_torch.parallel.collectives import (
+    active_data_shard,
+    all_gather_dim,
+    all_reduce_,
+    all_reduce_sum,
+    group_size,
+)
 
 
 def init_moe_params(generator: Optional[torch.Generator], d_model: int,
@@ -62,10 +74,19 @@ def _ternarize_expert_planes(w: torch.Tensor, sparsity_target: float):
     return w_t * alpha.reshape((-1,) + (1,) * (w.ndim - 1))
 
 
-def _route(x, gate_w, n_experts: int, capacity: int, token_mask):
+def _route(x, gate_w, n_experts: int, capacity: int, token_mask,
+           local: bool = False):
     """Top-1 routing of (T, D) tokens: ``(onehot_i (T, E) int32, gate (T,),
     pos (T,) int32, keep (T,) bool, aux)``. A masked token's one-hot row is
-    zero."""
+    zero.
+
+    Inside a data-parallel step (parallel/collectives.py ``data_shard``),
+    unless ``local``, the tokens are one rank's block of the global token
+    set, as JAX routes them under GSPMD: a token's slot counts the tokens
+    of the ranks before it (an exclusive scan of the per-expert counts over
+    the data group), and the statistics are the global batch's (their sums
+    all-reduced)."""
+    shard = None if local else active_data_shard()
     logits = x @ gate_w
     probs = torch.softmax(logits, dim=-1)
     expert = torch.argmax(probs, dim=-1)
@@ -77,6 +98,12 @@ def _route(x, gate_w, n_experts: int, capacity: int, token_mask):
     # 0-based position of each token in its expert's queue.
     position = (torch.cumsum(onehot_i, dim=0, dtype=torch.int32) * onehot_i
                 - onehot_i)
+    counts = torch.sum(onehot_i, dim=0, dtype=torch.int32)
+    if shard is not None:
+        ranks = all_gather_dim(counts[None], 0, shard.group)   # (n, E)
+        position = position + ranks[:shard.index].sum(
+            dim=0, dtype=torch.int32)[None, :] * onehot_i
+        counts = ranks.sum(dim=0, dtype=torch.int32)
     pos = torch.sum(position, dim=-1, dtype=torch.int32)
     keep = pos < capacity
 
@@ -87,10 +114,15 @@ def _route(x, gate_w, n_experts: int, capacity: int, token_mask):
     else:
         valid = token_mask.float()
         probs_f = probs_f * valid[:, None]
-        n_valid = torch.clamp(valid.sum(), min=1.0)
-    frac = torch.sum(onehot_i, dim=0).float() / n_valid
-    aux_loss = torch.mean(frac * (probs_f.sum(dim=0) / n_valid)) \
-        * n_experts ** 2
+        n_valid = valid.sum()
+    prob_sums = probs_f.sum(dim=0)
+    if shard is not None:
+        n_valid = all_reduce_(n_valid.clone(), shard.group)
+        prob_sums = all_reduce_sum(prob_sums, shard.group)
+    if token_mask is not None:
+        n_valid = torch.clamp(n_valid, min=1.0)
+    frac = counts.float() / n_valid
+    aux_loss = torch.mean(frac * (prob_sums / n_valid)) * n_experts ** 2
     return onehot_i, gate, pos, keep, {"expert_fraction": frac,
                                        "aux_loss": aux_loss}
 
@@ -149,3 +181,70 @@ def moe_ffn(x: torch.Tensor, params: Dict[str, torch.Tensor], capacity: int,
     out = torch.bmm(h, w2)                                   # (E, C, D)
     y = out[expert, col.clamp(max=capacity - 1)] * gate[:, None]
     return torch.where(routed[:, None], y, torch.zeros_like(y)), aux
+
+
+class _AllToAll(torch.autograd.Function):
+    """``all_to_all_single`` on equal dim-0 blocks: block j goes to rank j,
+    block i of the output came from rank i. The pattern is its own
+    transpose, so the backward sends the gradient's blocks back alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_to_all(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _all_to_all(x, group):
+    x = x.contiguous()
+    out = torch.empty_like(x)
+    dist.all_to_all_single(out, x, group=group)
+    return out
+
+
+def moe_ffn_sharded(x: torch.Tensor, params: Dict[str, torch.Tensor], group,
+                    capacity: int, ternary: bool = False,
+                    sparsity_target: float = 0.3,
+                    token_mask: Optional[torch.Tensor] = None):
+    """Expert-parallel MoE FFN over the process ``group`` of n ranks (the
+    mesh's ``expert`` axis in JAX): ``x`` (T, D) is this rank's token shard,
+    ``params["w1"]``/``["w2"]`` its E/n experts' planes (rank i holds
+    experts [i·E/n, (i+1)·E/n)), the gate (D, E) whole. ``capacity`` is per
+    shard per expert. Each rank routes its tokens into (E, C, D) slots as
+    :func:`top1_dispatch` does (its own cumsum), one all-to-all sends each
+    expert's slots to its rank ((E/n, n·C, D)), the local experts run, and
+    the reverse all-to-all brings the outputs home for the combine. The aux
+    statistics are averaged over the group. Returns ``(y, aux)``; the math
+    of a rank is :func:`moe_ffn`'s on its token shard."""
+    n = group_size(group)
+    n_experts = params["gate"].shape[-1]
+    if n_experts % n:
+        raise ValueError(f"n_experts={n_experts} not divisible by the "
+                         f"expert group's size {n}")
+    onehot_i, gate, pos, keep, aux = _route(x, params["gate"], n_experts,
+                                            capacity, token_mask, local=True)
+    slot = (pos[:, None] == torch.arange(capacity, device=x.device)).to(
+        x.dtype)
+    dispatch = (onehot_i.to(x.dtype)[:, :, None] * slot[:, None, :]
+                * keep[:, None, None])
+    combine = dispatch * gate[:, None, None]
+    w1, w2 = params["w1"], params["w2"]
+    if ternary:
+        w1 = _ternarize_expert_planes(w1, sparsity_target)
+        w2 = _ternarize_expert_planes(w2, sparsity_target)
+    buf = torch.einsum("tec,td->ecd", dispatch, x)          # (E, C, D)
+    local_e, d = n_experts // n, x.shape[-1]
+    if n > 1:  # token-major -> expert-major: (E/n, n·C, D)
+        buf = _AllToAll.apply(buf, group).reshape(n, local_e, capacity, d)
+        buf = buf.transpose(0, 1).reshape(local_e, n * capacity, d)
+    h = F.gelu(torch.einsum("ecd,edh->ech", buf, w1), approximate="tanh")
+    out = torch.einsum("ech,ehd->ecd", h, w2)
+    if n > 1:  # expert-major -> token-major: (E, C, D)
+        out = out.reshape(local_e, n, capacity, d).transpose(0, 1)
+        out = _AllToAll.apply(out, group).reshape(n_experts, capacity, d)
+    y = torch.einsum("tec,ecd->td", combine, out)
+    aux = {k: all_reduce_sum(v, group) / n for k, v in aux.items()}
+    return y, aux

@@ -13,8 +13,15 @@ Port of atq_tpu/serve/index.py on one device:
   is exact in float32), times the row scales.
 
 Embeddings from the retrieval model are L2-normalized, so the dot product
-is the cosine score. The row-sharded multi-device search
-(``_sharded_search_fn``) waits for slice H.
+is the cosine score.
+
+``search(..., mesh=M)`` is the row-sharded search of JAX's
+``_sharded_search_fn`` over the ranks of M's 'data' axis (every rank
+calls it, with the same corpus and queries): rank i holds rows
+``[i·C/n, (i+1)·C/n)`` of the capacity tier C on its device, scores and
+top-k's them (the int8 corpus too), and the ranks' ``n·k`` candidates per
+query are all-gathered and merged into the global top-k. A tier that the
+axis does not divide is searched whole, as in JAX.
 """
 
 from __future__ import annotations
@@ -60,6 +67,7 @@ class EmbeddingIndex:
             self._scales = np.zeros((self._capacity,), np.float32)
         self._ids: List[str] = []
         self._device_corpus = None  # committed tensors, None = dirty
+        self._device_shard = None  # (mesh, capacity, rows) or None
         self._lock = threading.RLock()
 
     def __len__(self) -> int:
@@ -99,7 +107,7 @@ class EmbeddingIndex:
                 self._q8[n0:n1], self._scales[n0:n1] = \
                     self._quantize_rows(embs)
             self._ids.extend(ids)
-            self._device_corpus = None
+            self._device_corpus = self._device_shard = None
             return n1
 
     @staticmethod
@@ -128,6 +136,42 @@ class EmbeddingIndex:
                     self._embs.copy()).to(self.device)
         return self._device_corpus
 
+    def _shard(self, mesh):
+        """This rank's block of the corpus rows on its device, committed if
+        an add made it stale."""
+        cached = self._device_shard
+        if cached is None or cached[0] is not mesh \
+                or cached[1] != self._capacity:
+            n_dev, i = mesh.shape["data"], mesh.index("data")
+            local = self._capacity // n_dev
+            rows = slice(i * local, (i + 1) * local)
+            if self.quantize == "int8":
+                part = (torch.from_numpy(self._q8[rows].copy()).to(
+                    self.device), torch.from_numpy(
+                    self._scales[rows].copy()).to(self.device))
+            else:
+                part = torch.from_numpy(self._embs[rows].copy()).to(
+                    self.device)
+            self._device_shard = (mesh, self._capacity, part)
+        return self._device_shard[2]
+
+    def _sharded_topk(self, corpus, q: torch.Tensor, n: int, k: int, mesh):
+        """The global top-k from each rank's local top-k: the candidates'
+        scores and global slots all-gathered over 'data' and merged."""
+        from atq_tpu_torch.parallel.collectives import all_gather_dim
+
+        n_dev, i = mesh.shape["data"], mesh.index("data")
+        local = self._capacity // n_dev
+        scores = self._scores(corpus, q)
+        slot = i * local + torch.arange(local, device=self.device)[None, :]
+        scores = scores.masked_fill(slot >= n, float("-inf"))
+        v, idx = torch.topk(scores, min(k, local), dim=1)
+        group = mesh.group("data")
+        v_all = all_gather_dim(v, 1, group)
+        g_all = all_gather_dim(idx + i * local, 1, group)
+        top, sel = torch.topk(v_all, k, dim=1)
+        return top, torch.gather(g_all, 1, sel)
+
     def _scores(self, corpus, q: torch.Tensor) -> torch.Tensor:
         if self.quantize == "int8":
             c8, scales = corpus
@@ -136,14 +180,15 @@ class EmbeddingIndex:
         return torch.matmul(q, corpus.T)
 
     def search(self, queries: np.ndarray, k: int = 5,
-               normalize: bool = False
+               normalize: bool = False, mesh=None
                ) -> Tuple[List[List[str]], np.ndarray]:
         """Top-``k`` corpus items per query by dot-product score.
 
         ``queries``: ``(B, dim)`` or ``(dim,)``. Returns ``(ids, scores)``:
         ids as a list of per-query lists, scores ``(B, k_eff)`` with
         ``k_eff = min(k, len(self))``; a 1-D query gives one list and a
-        1-D score row."""
+        1-D score row. With ``mesh`` (parallel/mesh.py) the corpus rows
+        are sharded over its 'data' ranks (module docstring)."""
         q = np.asarray(queries, np.float32)
         squeeze = q.ndim == 1
         if squeeze:
@@ -154,17 +199,23 @@ class EmbeddingIndex:
         if normalize:
             q = q / np.maximum(np.linalg.norm(q, axis=1, keepdims=True),
                                1e-12)
+        use_mesh = (mesh is not None
+                    and self._capacity % mesh.shape["data"] == 0)
         with self._lock:
             n = len(self._ids)
             if n == 0:
                 raise ValueError("index is empty")
             ids = list(self._ids)
-            corpus = self._corpus()
+            corpus = self._shard(mesh) if use_mesh else self._corpus()
         k_eff = max(1, min(int(k), n))
-        scores = self._scores(corpus, torch.from_numpy(q).to(self.device))
-        slot = torch.arange(scores.shape[1], device=self.device)[None, :]
-        scores = scores.masked_fill(slot >= n, float("-inf"))
-        top, idx = torch.topk(scores, k_eff, dim=1)
+        qt = torch.from_numpy(q).to(self.device)
+        if use_mesh:
+            top, idx = self._sharded_topk(corpus, qt, n, k_eff, mesh)
+        else:
+            scores = self._scores(corpus, qt)
+            slot = torch.arange(scores.shape[1], device=self.device)[None, :]
+            scores = scores.masked_fill(slot >= n, float("-inf"))
+            top, idx = torch.topk(scores, k_eff, dim=1)
         top, idx = top.cpu().numpy(), idx.cpu().numpy()
         out_ids = [[ids[j] for j in row] for row in idx]
         if squeeze:

@@ -7,16 +7,19 @@ Port of atq_tpu/serve/int8_trunk.py, with the same rules:
 - **BatchNorm**: eval-mode BatchNorm folds exactly into each conv's
   per-channel rescale and bias.
 - **Activations**: dynamic symmetric per-tensor int8,
-  ``a_scale = max(max|x|, 1e-8) / 127`` computed on the device per call.
+  ``a_scale = max(max|x|, 1e-8) · float32(1/127)`` computed on the device
+  per call: the product XLA makes of JAX's ``/ 127`` in the jitted programs
+  that serve.py and evaluate.py run.
 - **Compute**: the JAX package convolves the int8 operands with an int32
   accumulator. PyTorch has no int8 convolution on CUDA, so the port runs
   every conv as im2col (``Tensor.unfold`` on the int8 NHWC activations)
   and one integer matrix product: ``torch._int_mm`` (int8 x int8 -> int32,
   cuBLASLt) on the card, a float64 matmul over the same integers on the CPU
   (exact: every |sum| <= 127^2 * 4608 < 2^53). Both equal the JAX int32
-  result bit for bit before the float32 rescale
-  ``y * (a_scale * scale) + bias``. ``ATQ_INT8_DEQUANT=1`` keeps its
-  meaning: a float32 product over the same integers.
+  result bit for bit before the rescale ``fma(y, a_scale * scale, bias)``,
+  rounded once to float32 as XLA's fused multiply-add rounds it.
+  ``ATQ_INT8_DEQUANT=1`` keeps its meaning: a float32 product over the
+  same integers.
 
 Each entry holds its int8 weights as an (O, K_pad) matrix whose transpose
 im2col's patches multiply: K = C·kh·kw in (C, kh, kw) order, zero-padded to
@@ -44,6 +47,7 @@ import torch.nn.functional as F
 from atq_tpu_torch.utils.platform import resolve_device
 
 _BN_EPS = 1e-5  # models/resnet.py BatchNorm
+_INV_127 = float(np.float32(1.0) / np.float32(127.0))
 
 
 def _quantize_weight(kernel: np.ndarray):
@@ -143,11 +147,11 @@ def int8_conv(entry: Dict, x: torch.Tensor, stride: int = 1,
     """Quantize ``x`` (NHWC) per tensor, convolve in integers, rescale:
     ``conv(x_q, W_q) * (a_scale * entry.scale) + entry.bias`` (NHWC)."""
     x = x.float()
-    # A tensor divisor: PyTorch divides a CUDA tensor by a Python scalar as
-    # a product with its reciprocal, which can miss the quotient by an ulp
-    # and move the quantization grid off the CPU's (and JAX's).
-    a_scale = torch.clamp(x.abs().max(), min=1e-8) / torch.full(
-        (), 127.0, device=x.device)
+    # JAX's served programs are jitted, and XLA turns ``max / 127`` into a
+    # product with the float32 reciprocal of 127: the scale is that product
+    # on every device (a quotient can differ by an ulp and move the grid).
+    a_scale = torch.clamp(x.abs().max(), min=1e-8) * torch.full(
+        (), _INV_127, device=x.device)
     xq = torch.clamp(torch.round(x / a_scale), -127, 127)
     kh, kw, _ = entry["ksize"]
     w = entry["kernel"]
@@ -158,8 +162,12 @@ def int8_conv(entry: Dict, x: torch.Tensor, stride: int = 1,
         a, (b, ho, wo) = _im2col(xq.to(torch.int8), kh, kw, stride, padding,
                                  w.shape[1])
         y = _int_matmul(a, w)
-    y = y.reshape(b, ho, wo, -1)
-    return y * (a_scale * entry["scale"]) + entry["bias"]
+    # XLA contracts the rescale into one fused multiply-add: float32(y)
+    # times the float32 factor is exact in float64, so the sum rounded once
+    # to float32 is the fma's result (a float32 product and sum round twice).
+    y = y.reshape(b, ho, wo, -1).float().double()
+    factor = (a_scale * entry["scale"]).double()
+    return torch.addcmul(entry["bias"].double(), y, factor).float()
 
 
 def int8_resnet_apply(tree: Dict, x: torch.Tensor,

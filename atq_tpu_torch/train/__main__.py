@@ -10,9 +10,11 @@ update; every ``--orbax-freq`` epochs the whole training state goes to
 ``--checkpoint-dir``/orbax_<dataset>/step_N, and ``--resume`` continues from
 the newest one. ``--profile-dir D`` traces the run's first epoch into D
 (``python -m atq_tpu_torch.utils.profile_step D`` summarizes it);
-``--tensorboard-dir T`` writes the epoch scalars to T. Flags of features
-not ported yet (``--dp``/``--tp``/``--fsdp``) raise
-``NotImplementedError``. Plots are written when matplotlib is installed and
+``--tensorboard-dir T`` writes the epoch scalars to T. ``--dp``/``--tp``/
+``--fsdp`` run under torchrun, one process a device (``torchrun
+--nproc_per_node 4 -m atq_tpu_torch.train --use-rpb --dp 4``; with
+``--device cpu`` over gloo); ``--batch-size`` is the global batch and rank
+0 alone reports. Plots are written when matplotlib is installed and
 skipped otherwise.
 """
 
@@ -21,6 +23,7 @@ from __future__ import annotations
 import argparse
 import os
 
+from atq_tpu_torch.parallel.mesh import world_rank
 from atq_tpu_torch.train.classifier import ClassifierConfig, train_classifier
 from atq_tpu_torch.utils.platform import resolve_device
 
@@ -60,12 +63,14 @@ def build_parser() -> argparse.ArgumentParser:
                              "semantics, ste = straight-through estimator)")
     parser.add_argument("--data-dir", type=str, default="./data")
     parser.add_argument("--dp", type=int, default=None,
-                        help="Data-parallel device count (not ported yet)")
+                        help="Data-parallel size (under torchrun; default "
+                             "world // tp)")
     parser.add_argument("--tp", type=int, default=1,
-                        help="Tensor-parallel size (not ported yet)")
+                        help="Tensor-parallel size: classifier_0/3's "
+                             "out-features over the model ranks")
     parser.add_argument("--fsdp", action="store_true",
-                        help="Fully-sharded data parallelism (not ported "
-                             "yet)")
+                        help="Fully-sharded data parallelism: large state "
+                             "leaves over the data ranks")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--subset-fraction", type=float, default=1.0,
                         help="Fraction of the dataset to use (quick runs)")
@@ -124,6 +129,8 @@ def main(argv=None):
         loaders = get_data(cfg.batch_size, cfg.data_dir,
                            subset_fraction=args.subset_fraction)
     state, results = train_classifier(cfg, loaders=loaders)
+    if world_rank() != 0:  # rank 0 alone reports and plots
+        return state, results
 
     if cfg.bit_packing and cfg.use_rpb:
         from atq_tpu_torch.core.packing import TernaryBitPacking

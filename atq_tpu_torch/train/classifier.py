@@ -38,8 +38,17 @@ the directory (utils/profile_step.py reads it back; each epoch's training
 steps lie in a ``train_steps`` span). ``tensorboard_dir``
 writes each epoch's scalars under ``classifier/`` (utils/tb.py).
 
-Not ported yet (each raises ``NotImplementedError``): data, tensor or
-fully-sharded parallelism (ROADMAP.md queue 1).
+``dp``/``tp``/``fsdp`` run under torchrun, one process a device
+(``torchrun --nproc_per_node N -m atq_tpu_torch.train --dp N``; NCCL on
+the card, gloo with ``--device cpu``). ``batch_size`` is the global batch:
+each rank trains both models on its rows (of each global microbatch with
+``grad_accum_steps``) with the global batch's augmentation and dropout
+draws and BatchNorm statistics, and the reduced gradients are the
+one-device step's up to float reassociation. ``tp`` shards
+``classifier_0``/``classifier_3``'s out-features over the 'model' ranks
+(JAX's ``layer_names``), ``fsdp`` the large leaves of both models over the
+'data' ranks. The L1 term is the whole model's once. Rank 0 alone prints
+and writes files; checkpoints are whole.
 """
 
 from __future__ import annotations
@@ -63,6 +72,14 @@ from atq_tpu_torch.models.image_classifier import (
     BaselineCNNClassifier,
 )
 from atq_tpu_torch.ops import kernel_launches
+from atq_tpu_torch.parallel.collectives import all_reduce_
+from atq_tpu_torch.parallel.mesh import (
+    Mesh,
+    from_rank0,
+    training_mesh,
+    world_rank,
+)
+from atq_tpu_torch.parallel.sharded_model import ShardedModel
 from atq_tpu_torch.train.checkpoint import (
     copy_into,
     numpy_rng_state,
@@ -120,19 +137,27 @@ class ClassifierConfig:
     device: Optional[str] = None  # None: the GPU
 
 
-def _check_supported(cfg: ClassifierConfig) -> None:
-    if cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp:
-        raise NotImplementedError(
-            "dp/tp/fsdp parallelism (slice H) is not ported to "
-            "atq_tpu_torch yet (ROADMAP.md queue 1)")
+TP_LAYERS = ("classifier_0", "classifier_3")  # JAX's layer_names
 
 
 def _l1_penalty(model: torch.nn.Module) -> torch.Tensor:
     """Σ|p| over every parameter named ``weight``: the quantized layers'
     latent weights, the conv kernels and the BatchNorm scales (the JAX
-    leaves ``weight``, ``kernel`` and ``scale``)."""
-    return sum(p.abs().sum() for name, p in model.named_parameters()
-               if name.rsplit(".", 1)[-1] == "weight")
+    leaves ``weight``, ``kernel`` and ``scale``). A tensor-parallel layer's
+    shard adds the other shards' sums as a constant: the value is the whole
+    layer's, the gradient its own elements'."""
+    total = 0
+    for module in model.modules():
+        for name, p in module.named_parameters(recurse=False):
+            if name != "weight":
+                continue
+            term = p.abs().sum()
+            shard = getattr(module, "tp", None)
+            if shard is not None:
+                part = term.detach()
+                term = term + (all_reduce_(part.clone(), shard.group) - part)
+            total = total + term
+    return total
 
 
 @torch.no_grad()
@@ -177,7 +202,9 @@ class _OptaxChain:
     """The gradient transforms in front of an optax update rule:
 
     - clip: ``g·max_norm/‖g‖`` when the global norm ``‖g‖ ≥ max_norm``
-      (``clip_grad_norm_`` differs: it adds 1e-6 to the norm);
+      (``clip_grad_norm_`` differs: it adds 1e-6 to the norm); a sharded
+      trainer sets ``global_norm_sq`` so that the norm is the whole
+      gradient's, over every rank's blocks;
     - decay: ``g + wd·p`` on the parameters the mask selects (optax's
       ``add_decayed_weights``, the L2 term of torch Adam's
       ``weight_decay``), before the update rule.
@@ -205,6 +232,9 @@ class _OptaxChain:
                           if weight_decay else [])
         self._zeros = [None] * len(self.params)
         self.count = 0
+        # A sharded trainer's (parallel/sharded_model.py): the whole
+        # gradient's squared norm from this rank's tensors' squared norms.
+        self.global_norm_sq = None
 
     def _grads(self):
         out = []
@@ -220,8 +250,12 @@ class _OptaxChain:
     def _transformed_grads(self):
         grads = self._grads()
         if self.clip_norm is not None:
-            norm = torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads)))
+            norms = torch._foreach_norm(grads)
+            if self.global_norm_sq is None:
+                norm = torch.linalg.vector_norm(torch.stack(norms))
+            else:
+                norm = torch.sqrt(self.global_norm_sq(
+                    [n * n for n in norms]))
             keep = norm < self.clip_norm
             one = torch.ones_like(norm)
             grads = torch._foreach_div(grads, torch.where(keep, one, norm))
@@ -346,14 +380,45 @@ def normalize_augment(images: torch.Tensor, dataset: str,
 
 def build_train_step(atq_model, base_model, atq_opt, base_opt,
                      cfg: ClassifierConfig,
-                     generator: Optional[torch.Generator] = None):
+                     generator: Optional[torch.Generator] = None,
+                     mesh: Optional[Mesh] = None, sharded=None):
     """``train_step(images, labels, l1_weight) -> metrics``: one co-trained
     step (teacher update first, then the student distilled from the
     teacher's pre-update logits). ``generator`` drives augmentation and
     dropout. After the call each parameter's ``.grad`` holds this step's
     gradient; the metrics are device tensors. With ``cfg.grad_accum_steps``
     N > 1 the step is ``accum_train_step`` (the module docstring); a batch
-    that N does not divide raises ``ValueError``, as in JAX."""
+    that N does not divide raises ``ValueError``, as in JAX.
+
+    Over a ``mesh`` the batch is the global one: each rank runs its rows
+    (of each global microbatch, with N > 1) under :meth:`Mesh.data_shard`,
+    ``sharded`` (the student's and the teacher's ``ShardedModel``) reduces
+    each model's gradients before its update, and the metrics are the
+    global batch's (the losses averaged, the counts summed)."""
+    mesh = mesh or Mesh(1, 1)
+    atq_sh, base_sh = sharded if sharded is not None else (None, None)
+
+    def reduce_and_step(model_sh, opt):
+        if model_sh is not None:
+            model_sh.reduce_grads()
+        opt.step()
+        if model_sh is not None:
+            model_sh.release()
+
+    def gather():
+        for model_sh in (atq_sh, base_sh):
+            if model_sh is not None:
+                model_sh.gather()
+
+    def global_metrics(m):
+        if mesh.shape["data"] == 1:
+            return m
+        keys = sorted(m)
+        packed = torch.stack([m[k].float() for k in keys])
+        all_reduce_(packed, mesh.group("data"))
+        return {k: (packed[i] / mesh.shape["data"] if "loss" in k
+                    else packed[i].to(m[k].dtype))
+                for i, k in enumerate(keys)}
 
     def student_loss(images, labels, base_logits, l1_weight):
         logits = atq_model(images, generator=generator)
@@ -371,23 +436,28 @@ def build_train_step(atq_model, base_model, atq_opt, base_opt,
         return images
 
     def train_step(images, labels, l1_weight):
-        images = prepare(images)
-        base_model.zero_grad(set_to_none=True)
-        base_logits = base_model(images, generator=generator)
-        base_loss = _cross_entropy(base_logits, labels)
-        base_loss.backward()
-        base_opt.step()
+        images, labels = mesh.rows(images), mesh.rows(labels)
+        gather()
+        with mesh.data_shard():
+            images = prepare(images)
+            base_model.zero_grad(set_to_none=True)
+            base_logits = base_model(images, generator=generator)
+            base_loss = _cross_entropy(base_logits, labels)
+            base_loss.backward()
+        reduce_and_step(base_sh, base_opt)
 
-        atq_model.zero_grad(set_to_none=True)
-        loss, logits = student_loss(images, labels, base_logits, l1_weight)
-        loss.backward()
-        atq_opt.step()
-        return {
+        with mesh.data_shard():
+            atq_model.zero_grad(set_to_none=True)
+            loss, logits = student_loss(images, labels, base_logits,
+                                        l1_weight)
+            loss.backward()
+        reduce_and_step(atq_sh, atq_opt)
+        return global_metrics({
             "loss": loss.detach(),
             "base_loss": base_loss.detach(),
             "atq_correct": (logits.argmax(-1) == labels).sum(),
             "base_correct": (base_logits.argmax(-1) == labels).sum(),
-        }
+        })
 
     n_accum = cfg.grad_accum_steps
 
@@ -397,27 +467,30 @@ def build_train_step(atq_model, base_model, atq_opt, base_opt,
             raise ValueError(f"batch size {total} not divisible by "
                              f"grad_accum_steps {n_accum}")
         micro = total // n_accum
+        gather()
         base_model.zero_grad(set_to_none=True)
         atq_model.zero_grad(set_to_none=True)
         sums = None
         for i in range(n_accum):
             part = slice(i * micro, (i + 1) * micro)
-            x, y = prepare(images[part]), labels[part]
-            base_logits = base_model(x, generator=generator)
-            base_loss = _cross_entropy(base_logits, y)
-            # .grad sums the microbatches: each backward carries 1/N.
-            (base_loss / n_accum).backward()
-            loss, logits = student_loss(x, y, base_logits, l1_weight)
-            (loss / n_accum).backward()
+            with mesh.data_shard():
+                x = prepare(mesh.rows(images[part]))
+                y = mesh.rows(labels[part])
+                base_logits = base_model(x, generator=generator)
+                base_loss = _cross_entropy(base_logits, y)
+                # .grad sums the microbatches: each backward carries 1/N.
+                (base_loss / n_accum).backward()
+                loss, logits = student_loss(x, y, base_logits, l1_weight)
+                (loss / n_accum).backward()
             m = {"loss": loss.detach() / n_accum,
                  "base_loss": base_loss.detach() / n_accum,
                  "atq_correct": (logits.argmax(-1) == y).sum(),
                  "base_correct": (base_logits.argmax(-1) == y).sum()}
             sums = m if sums is None else {k: sums[k] + v
                                            for k, v in m.items()}
-        base_opt.step()
-        atq_opt.step()
-        return sums
+        reduce_and_step(base_sh, base_opt)
+        reduce_and_step(atq_sh, atq_opt)
+        return global_metrics(sums)
 
     return train_step if n_accum <= 1 else accum_train_step
 
@@ -476,10 +549,10 @@ class _StepClock:
         return [(b - a) * 1e3 for a, b in zip(self.marks, self.marks[1:])]
 
 
-def _weight_distribution(atq_model) -> str:
-    layer = atq_model.classifier_0
+def _weight_distribution(weight, layer) -> str:
+    """The ternary pattern's shares of ``layer``'s whole ``weight``."""
     w_t, _ = adaptive_ternary_quantization(
-        layer.weight.detach(), alpha=layer.alpha,
+        weight.detach(), alpha=layer.alpha,
         sparsity_target=layer.sparsity_target)
     total = w_t.numel()
     pct = [100.0 * (w_t == v).sum().item() / total for v in (-1, 0, 1)]
@@ -487,31 +560,59 @@ def _weight_distribution(atq_model) -> str:
             f"+1: {pct[2]:.1f}%")
 
 
+def _whole_opt_state(opt, model_sh):
+    state = opt.state_dict()
+    if model_sh is None:
+        return state
+    return {k: model_sh.to_full(v) if isinstance(v, list) else v
+            for k, v in state.items()}
+
+
+def _local_opt_state(state, model_sh):
+    if model_sh is None:
+        return state
+    return {k: model_sh.to_local(v) if isinstance(v, list) else v
+            for k, v in state.items()}
+
+
 def classifier_train_state(atq_model, base_model, atq_opt, base_opt,
                            step_gen, train_loader, epoch: int,
-                           best_val_acc: float) -> dict:
+                           best_val_acc: float, sharded=None) -> dict:
     """Everything a resumed run needs to go on along the same trajectory
     (the live tensors): both models' parameters and buffers, both
     optimizers, the epochs done, the best validation accuracy, the step
-    generator, the train loader's epoch and numpy's global RNG."""
+    generator, the train loader's epoch and numpy's global RNG. With
+    ``sharded`` (the two ``ShardedModel``s) every tensor is whole (a
+    collective)."""
+    atq_sh, base_sh = sharded if sharded is not None else (None, None)
     return {"epoch": epoch, "best_val_acc": float(best_val_acc),
-            "atq_model": atq_model.state_dict(),
-            "base_model": base_model.state_dict(),
-            "atq_optimizer": atq_opt.state_dict(),
-            "base_optimizer": base_opt.state_dict(),
+            "atq_model": (atq_model.state_dict() if atq_sh is None
+                          else atq_sh.full_state_dict()),
+            "base_model": (base_model.state_dict() if base_sh is None
+                           else base_sh.full_state_dict()),
+            "atq_optimizer": _whole_opt_state(atq_opt, atq_sh),
+            "base_optimizer": _whole_opt_state(base_opt, base_sh),
             "generator": step_gen.get_state(),
             "loader_epoch": getattr(train_loader, "epoch", None),
             "numpy_rng": numpy_rng_state()}
 
 
 def load_classifier_train_state(state: dict, atq_model, base_model, atq_opt,
-                                base_opt, step_gen, train_loader) -> None:
+                                base_opt, step_gen, train_loader,
+                                sharded=None) -> None:
     """Put :func:`classifier_train_state`'s values into the live objects,
-    bit for bit (the epoch and best accuracy are the caller's)."""
-    atq_model.load_state_dict(state["atq_model"])
-    base_model.load_state_dict(state["base_model"])
-    atq_opt.load_state_dict(state["atq_optimizer"])
-    base_opt.load_state_dict(state["base_optimizer"])
+    bit for bit (the epoch and best accuracy are the caller's); with
+    ``sharded`` each whole tensor is re-sharded onto this rank."""
+    atq_sh, base_sh = sharded if sharded is not None else (None, None)
+    for model, model_sh, key in ((atq_model, atq_sh, "atq_model"),
+                                 (base_model, base_sh, "base_model")):
+        if model_sh is None:
+            model.load_state_dict(state[key])
+        else:
+            model_sh.load_full_state_dict(state[key])
+    atq_opt.load_state_dict(_local_opt_state(state["atq_optimizer"], atq_sh))
+    base_opt.load_state_dict(_local_opt_state(state["base_optimizer"],
+                                              base_sh))
     step_gen.set_state(state["generator"])
     if state["loader_epoch"] is not None:
         train_loader.epoch = state["loader_epoch"]
@@ -533,8 +634,10 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
         measure_model_memory,
     )
 
-    _check_supported(cfg)
     device = resolve_device(cfg.device)
+    mesh = training_mesh(cfg.dp, cfg.tp, device)
+    main_rank = world_rank() == 0
+    verbose = verbose and main_rank
     if loaders is None:
         if cfg.dataset == "mnist":
             loaders = get_mnist_data(cfg.batch_size, cfg.data_dir,
@@ -559,15 +662,21 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
                                        device=device, generator=init_gen)
 
     steps_per_epoch = len(train_loader)
-    atq_opt = make_optimizer(
-        cfg, atq_model.named_parameters(), steps_per_epoch,
-        weight_decay=1e-4,
-        decay_mask=ternary_latent_decay_mask(atq_model, cfg.grad_mode))
-    base_opt = make_optimizer(cfg, base_model.named_parameters(),
-                              steps_per_epoch, clip=False)
+    decay_mask = ternary_latent_decay_mask(atq_model, cfg.grad_mode)
+    atq_sh = ShardedModel(atq_model, mesh, fsdp=cfg.fsdp,
+                          layer_names=TP_LAYERS)
+    base_sh = ShardedModel(base_model, mesh, fsdp=cfg.fsdp,
+                           layer_names=TP_LAYERS)
+    atq_opt = make_optimizer(cfg, atq_sh.optim_params, steps_per_epoch,
+                             weight_decay=1e-4, decay_mask=decay_mask)
+    base_opt = make_optimizer(cfg, base_sh.optim_params, steps_per_epoch,
+                              clip=False)
+    multi = (atq_sh, base_sh) if mesh.size > 1 else None
+    if multi is not None:
+        atq_opt.global_norm_sq = atq_sh.global_norm_sq
     step_gen = torch.Generator(device=device).manual_seed(cfg.seed + 17)
     train_step = build_train_step(atq_model, base_model, atq_opt, base_opt,
-                                  cfg, step_gen)
+                                  cfg, step_gen, mesh, (atq_sh, base_sh))
 
     initial_sparsity, final_sparsity = 0.05, cfg.sparsity
     best_val_acc = 0.0
@@ -584,7 +693,7 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
     def train_state(epoch):
         return classifier_train_state(atq_model, base_model, atq_opt,
                                       base_opt, step_gen, train_loader,
-                                      epoch, best_val_acc)
+                                      epoch, best_val_acc, multi)
 
     orbax_dir = os.path.join(cfg.checkpoint_dir, f"orbax_{cfg.dataset}")
     start_epoch = 0
@@ -597,17 +706,20 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
         else:
             load_classifier_train_state(saved, atq_model, base_model,
                                         atq_opt, base_opt, step_gen,
-                                        train_loader)
+                                        train_loader, multi)
             best_val_acc = saved["best_val_acc"]
+            if verbose or multi is not None:  # a collective with ranks
+                digest = state_digest(to_host(train_state(start_epoch)))
             if verbose:
                 print(f"Resumed from {orbax_dir} at epoch {start_epoch}")
-                print(f"Restored training state (sha256 "
-                      f"{state_digest(to_host(train_state(start_epoch)))})",
+                print(f"Restored training state (sha256 {digest})",
                       flush=True)
 
-    prof = start_trace(cfg.profile_dir, device) if cfg.profile_dir else None
+    # Rank 0 alone writes the trace and TensorBoard files.
+    prof = (start_trace(cfg.profile_dir, device)
+            if cfg.profile_dir and main_rank else None)
     traced_from = kernel_launches()
-    tb = MetricsWriter(cfg.tensorboard_dir)
+    tb = MetricsWriter(cfg.tensorboard_dir if main_rank else None)
     for epoch in range(start_epoch, cfg.epochs):
         current_sparsity = initial_sparsity + (
             final_sparsity - initial_sparsity
@@ -653,7 +765,8 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
         train_acc = 100.0 * totals.get("atq_correct", 0) / max(1, count)
         base_acc = 100.0 * totals.get("base_correct", 0) / max(1, count)
         results["train_accuracies"].append(train_acc)
-        val_acc, _ = _run_eval(atq_model, val_loader, device)
+        with atq_sh.whole():
+            val_acc = from_rank0(_run_eval(atq_model, val_loader, device)[0])
         results["val_accuracies"].append(val_acc)
         tb.scalars(epoch + 1, {
             "train_acc": train_acc, "base_acc": base_acc,
@@ -667,8 +780,10 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
                   f"Val {val_acc:.1f}% | Sparsity {current_sparsity:.2f} | "
                   f"{imgs_per_sec:.0f} imgs/s | {epoch_time:.1f}s",
                   flush=True)
-        if cfg.use_rpb and (epoch + 1) % 5 == 0 and verbose:
-            print(_weight_distribution(atq_model))
+        if cfg.use_rpb and (epoch + 1) % 5 == 0:
+            weight = atq_sh.full_state_dict()["classifier_0.weight"]
+            if verbose:
+                print(_weight_distribution(weight, atq_model.classifier_0))
         if prof is not None and epoch == start_epoch:
             stop_trace(prof, device)
             prof = None
@@ -677,23 +792,39 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
                                            for k in now}
         if val_acc > best_val_acc:
             best_val_acc = val_acc
-            save_checkpoint(to_jax_variables(atq_model.state_dict()),
-                            ckpt_path)
+            whole = atq_sh.full_state_dict()
+            if main_rank:
+                save_checkpoint(to_jax_variables(whole), ckpt_path)
             if verbose:
                 print(f"Model saved with accuracy: {best_val_acc:.1f}%")
         if (epoch + 1) % cfg.orbax_freq == 0 or (epoch + 1) == cfg.epochs:
             # After this epoch's best-accuracy update (JAX writes before
             # it, so its resumed run forgets that epoch's accuracy).
             host = to_host(train_state(epoch + 1))
-            state_path = save_train_state(orbax_dir, epoch + 1, host)
+            if main_rank:
+                state_path = save_train_state(orbax_dir, epoch + 1, host)
             if verbose:
                 print(f"Saved training state to {state_path} (sha256 "
                       f"{state_digest(host)})", flush=True)
 
     if prof is not None:  # no epoch ran
         stop_trace(prof, device)
-    test_acc, _ = _run_eval(atq_model, test_loader, device)
-    base_test_acc, _ = _run_eval(base_model, test_loader, device)
+    with atq_sh.whole(), base_sh.whole():
+        test_acc, _ = _run_eval(atq_model, test_loader, device)
+        base_test_acc, _ = _run_eval(base_model, test_loader, device)
+    if multi is not None:
+        # The efficiency figures below time one process's forward: whole
+        # copies on every rank, whose forward is no collective.
+        whole = atq_sh.full_state_dict()
+        base_whole = base_sh.full_state_dict()
+        atq_model = ATQImageClassifier(
+            num_classes=10, input_channels=1, use_rpb=cfg.use_rpb,
+            sparsity_target=cfg.sparsity, hidden_size=hidden_size,
+            grad_mode=cfg.grad_mode, device=device)
+        atq_model.load_state_dict(whole)
+        base_model = BaselineCNNClassifier(hidden_size=hidden_size,
+                                           device=device)
+        base_model.load_state_dict(base_whole)
     ips = results["imgs_per_sec"]
     results.update({
         "test_acc": test_acc,
@@ -732,5 +863,6 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
     tb.close()
     state = {"atq_model": atq_model, "base_model": base_model,
              "atq_opt": atq_opt, "base_opt": base_opt,
-             "generator": step_gen}
+             "generator": step_gen, "mesh": mesh,
+             "sharded": (atq_sh, base_sh)}
     return state, results

@@ -62,8 +62,21 @@ times the mean of the layers' load-balance losses to the loss, as JAX
 does; the GradCache step adds it in pass 2, where each microbatch's term
 reaches the parameters directly (``aux_scale · moe_aux_weight · aux / N``).
 
-Not ported yet (each raises ``NotImplementedError``, ROADMAP.md queue 1
-item 7): ``--dp``/``--tp``/``--fsdp``.
+``--dp``/``--tp``/``--fsdp`` run under torchrun, one process a device
+(``torchrun --nproc_per_node N -m atq_tpu_torch.train.retrieval --dp N``;
+NCCL on the card, gloo with ``--device cpu``). ``--batch_size`` is the
+global batch, as in JAX: every rank loads it, embeds its rows and takes
+the loss over the all-gathered embeddings, so the step is the one-device
+step on the global batch up to float reassociation (the flips and masks
+are the global batch's draws, BatchNorm's statistics and the MoE routing
+the global batch's; parallel/collectives.py). ``--tp`` shards the
+projections' out-features over the 'model' ranks and ``--fsdp`` the large
+state leaves over the 'data' ranks, each leaf as JAX places it
+(parallel/mesh.py, parallel/sharded_model.py). Every rank keeps the same
+schedule, EMA, validation and best-R@1 decision; rank 0 alone prints and
+writes files, each checkpoint whole. Under ``--tp`` the scanned stack
+(``--scan_layers``) shards its stacked (L, out, in) projections and runs
+each layer with its quantizer inside the checkpoint.
 """
 
 from __future__ import annotations
@@ -101,6 +114,14 @@ from atq_tpu_torch.models.retrieval import (
     get_model_size_info,
 )
 from atq_tpu_torch.ops import kernel_launches
+from atq_tpu_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    from_rank0,
+    training_mesh,
+    world_rank,
+)
+from atq_tpu_torch.parallel.sharded_model import ShardedModel
 from atq_tpu_torch.train.checkpoint import (
     copy_into,
     numpy_rng_state,
@@ -134,7 +155,7 @@ from atq_tpu_torch.utils.profile_step import (
     stop_trace,
 )
 from atq_tpu_torch.utils.tb import MetricsWriter
-from atq_tpu_torch.utils.timing import sec_per_call
+from atq_tpu_torch.utils.timing import sec_per_call, sync_tree
 
 EMA_DECAY = 0.999
 
@@ -193,13 +214,6 @@ class RetrievalConfig:
     attn_impl: str = "einsum"
     moe_aux_weight: float = 0.01
     grad_accum_steps: int = 1
-
-
-def _check_supported(cfg: RetrievalConfig) -> None:
-    if cfg.dp not in (None, 1) or cfg.tp != 1 or cfg.fsdp:
-        raise NotImplementedError(
-            "dp/tp/fsdp parallelism (slice H2) is not ported to "
-            "atq_tpu_torch yet (ROADMAP.md queue 1)")
 
 
 def normalize_images(images: torch.Tensor) -> torch.Tensor:
@@ -380,13 +394,23 @@ def _train_forward(model, generator, images, captions, lengths, moe: bool,
 def build_retrieval_train_step(model, optimizer, criterion,
                                cfg: RetrievalConfig,
                                generator: Optional[torch.Generator] = None,
-                               ema_params=None):
+                               ema_params=None, mesh: Optional[Mesh] = None,
+                               sharded: Optional[ShardedModel] = None):
     """``train_step(batch, temperature, curriculum_kind,
     baseline_embeds=None) -> loss`` (a device tensor). ``generator`` draws
     the flips and the dropout masks; ``ema_params`` (a list aligned with
-    ``model.parameters()``) is moved towards the updated parameters. With
-    ``cfg.grad_accum_steps`` > 1 the step is :func:`_gradcache_step`'s."""
-    params = list(model.parameters())
+    the optimizer's tensors) is moved towards the updated parameters. With
+    ``cfg.grad_accum_steps`` > 1 the step is :func:`_gradcache_step`'s.
+
+    Over a ``mesh`` the batch is the global one: each rank embeds its rows
+    (:meth:`Mesh.rows`) under :meth:`Mesh.data_shard` (the flips and masks
+    are the global batch's draws, BatchNorm and the MoE router see the
+    global batch), the loss takes the all-gathered embeddings as its
+    negative pool, and ``sharded`` reduces the gradients before the update
+    (parallel/sharded_model.py)."""
+    mesh = mesh or Mesh(1, 1)
+    params = ([t for _, t in sharded.optim_params] if sharded is not None
+              else list(model.parameters()))
 
     def prepare(images):
         if images.dtype == torch.uint8:
@@ -394,30 +418,38 @@ def build_retrieval_train_step(model, optimizer, criterion,
         return images
 
     def update():
+        if sharded is not None:
+            sharded.reduce_grads()
         optimizer.step()
         if ema_params is not None:
             with torch.no_grad():
                 torch._foreach_mul_(ema_params, EMA_DECAY)
                 torch._foreach_add_(ema_params, torch._foreach_mul(
                     params, 1 - EMA_DECAY))
+        if sharded is not None:
+            sharded.release()
 
     def train_step(batch, temperature, curriculum_kind,
                    baseline_embeds=None):
-        images, captions, lengths = batch[:3]
+        images, captions, lengths = (mesh.rows(t) for t in batch[:3])
         image_ids = batch[3] if cfg.use_multi_positive else None
-        images = prepare(images)
-        model.zero_grad(set_to_none=True)
-        img_emb, txt_emb, moe_aux = _train_forward(
-            model, generator, images, captions, lengths,
-            cfg.moe_experts > 0, cfg.grad_checkpointing)
-        if cfg.grad_checkpointing:
-            # The recompute moves BatchNorm's running statistics again.
-            stats = _batchnorm_stats(model)
-            saved = [s.clone() for s in stats]
-        loss = pool_loss(img_emb.float(), txt_emb.float(), temperature,
-                         curriculum_kind, baseline_embeds, image_ids, cfg,
-                         criterion, moe_aux)
-        loss.backward()
+        with mesh.data_shard():
+            images = prepare(images)
+            model.zero_grad(set_to_none=True)
+            if sharded is not None:
+                sharded.gather()
+            img_emb, txt_emb, moe_aux = _train_forward(
+                model, generator, images, captions, lengths,
+                cfg.moe_experts > 0, cfg.grad_checkpointing)
+            if cfg.grad_checkpointing:
+                # The recompute moves BatchNorm's running statistics again.
+                stats = _batchnorm_stats(model)
+                saved = [s.clone() for s in stats]
+            loss = pool_loss(mesh.gather_rows(img_emb.float()),
+                             mesh.gather_rows(txt_emb.float()), temperature,
+                             curriculum_kind, baseline_embeds, image_ids,
+                             cfg, criterion, moe_aux)
+            loss.backward()
         if cfg.grad_checkpointing:
             with torch.no_grad():
                 torch._foreach_copy_(stats, saved)
@@ -426,9 +458,11 @@ def build_retrieval_train_step(model, optimizer, criterion,
 
     def gradcache_step(batch, temperature, curriculum_kind,
                        baseline_embeds=None):
+        if sharded is not None:
+            sharded.gather()
         loss = _gradcache_step(model, criterion, cfg, generator, prepare,
                                batch, temperature, curriculum_kind,
-                               baseline_embeds)
+                               baseline_embeds, mesh)
         update()
         return loss
 
@@ -437,7 +471,7 @@ def build_retrieval_train_step(model, optimizer, criterion,
 
 def _gradcache_step(model, criterion, cfg: RetrievalConfig, generator,
                     prepare, batch, temperature, curriculum_kind,
-                    baseline_embeds):
+                    baseline_embeds, mesh: Optional[Mesh] = None):
     """GradCache (Gao et al., "Scaling Deep Contrastive Learning Batch Size
     under Memory Limited Setup"), as the JAX step
     (atq_tpu/train/retrieval.py:381-533): the loss keeps the whole batch
@@ -464,7 +498,17 @@ def _gradcache_step(model, criterion, cfg: RetrievalConfig, generator,
       running statistics it moves; they are set back to pass 1's final
       ones, and the generator to its state after pass 1.
 
-    A batch that N does not divide raises ``ValueError``, as in JAX."""
+    A batch that N does not divide raises ``ValueError``, as in JAX.
+
+    Over a ``mesh``, as JAX splits the global batch into the N microbatches
+    and then shards each: a rank embeds its rows of every global microbatch
+    under :meth:`Mesh.data_shard` (BatchNorm's statistics are each global
+    microbatch's), pass 1 all-gathers each microbatch's embeddings into the
+    pool, and pass 2 backpropagates the rank's rows of the pool's gradient
+    times dp, the factor of the plain step's gather (the summed gradients
+    are divided by dp)."""
+    mesh = mesh or Mesh(1, 1)
+    dp = mesh.shape["data"]
     images, captions, lengths = batch[:3]
     image_ids = batch[3] if cfg.use_multi_positive else None
     n_accum = cfg.grad_accum_steps
@@ -475,21 +519,24 @@ def _gradcache_step(model, criterion, cfg: RetrievalConfig, generator,
     micro = total // n_accum
     parts = [slice(i * micro, (i + 1) * micro) for i in range(n_accum)]
 
+    def local(part):
+        return (prepare(mesh.rows(images[part])), mesh.rows(captions[part]),
+                mesh.rows(lengths[part]))
+
     def replay(state):
         if generator is not None:
             generator.set_state(state)
 
     moe = cfg.moe_experts > 0
     starts, img_parts, txt_parts, aux_parts = [], [], [], []
-    with torch.no_grad():
+    with torch.no_grad(), mesh.data_shard():
         for part in parts:
             starts.append(generator.get_state() if generator is not None
                           else None)
-            img, txt, aux = _train_forward(
-                model, generator, prepare(images[part]), captions[part],
-                lengths[part], moe, remat=False)
-            img_parts.append(img.float())
-            txt_parts.append(txt.float())
+            img, txt, aux = _train_forward(model, generator, *local(part),
+                                           moe, remat=False)
+            img_parts.append(mesh.gather_rows(img.float()))
+            txt_parts.append(mesh.gather_rows(txt.float()))
             aux_parts.append(aux)
     end = generator.get_state() if generator is not None else None
     stats = _batchnorm_stats(model)
@@ -507,15 +554,17 @@ def _gradcache_step(model, criterion, cfg: RetrievalConfig, generator,
     model.zero_grad(set_to_none=True)
     for part, start in zip(parts, starts):
         replay(start)
-        img, txt, aux = _train_forward(
-            model, generator, prepare(images[part]), captions[part],
-            lengths[part], moe, cfg.grad_checkpointing)
-        outs = [img.float(), txt.float()]
-        grads = [cot_img[part], cot_txt[part]]
-        if moe:  # reaches the parameters directly, not via the embeddings
-            outs.append(aux_scale * cfg.moe_aux_weight * aux / n_accum)
-            grads.append(torch.ones_like(outs[-1]))
-        torch.autograd.backward(outs, grads)
+        with mesh.data_shard():
+            img, txt, aux = _train_forward(model, generator, *local(part),
+                                           moe, cfg.grad_checkpointing)
+            outs = [img.float(), txt.float()]
+            grads = [mesh.rows(cot_img[part]), mesh.rows(cot_txt[part])]
+            if dp > 1:
+                grads = [g * dp for g in grads]
+            if moe:  # reaches the parameters directly, not via embeddings
+                outs.append(aux_scale * cfg.moe_aux_weight * aux / n_accum)
+                grads.append(torch.ones_like(outs[-1]))
+            torch.autograd.backward(outs, grads)
     with torch.no_grad():
         torch._foreach_copy_(stats, final_stats)
     replay(end)
@@ -523,24 +572,35 @@ def _gradcache_step(model, criterion, cfg: RetrievalConfig, generator,
 
 
 def build_baseline_train_step(baseline_model, baseline_optimizer, criterion,
-                              generator: Optional[torch.Generator] = None):
+                              generator: Optional[torch.Generator] = None,
+                              mesh: Optional[Mesh] = None,
+                              sharded: Optional[ShardedModel] = None):
     """The full-precision baseline's step: one contrastive update, then the
     updated model's eval-mode embeddings of the batch (for distillation).
-    Returns ``step(batch, temperature) -> (loss, (img, txt))``."""
+    Returns ``step(batch, temperature) -> (loss, (img, txt))``. Over a
+    ``mesh`` it is data-parallel as the ATQ step is (the baseline stays
+    whole on every rank, as JAX leaves it unplaced), and the embeddings are
+    the global batch's."""
+    mesh = mesh or Mesh(1, 1)
 
     def step(batch, temperature):
-        images, captions, lengths = batch[:3]
-        if images.dtype == torch.uint8:
-            images = random_hflip(normalize_images(images), generator)
-        baseline_model.zero_grad(set_to_none=True)
-        img, txt = baseline_model(images, captions, lengths,
-                                  return_embeddings=True, train=True)
-        loss = criterion(img, txt, temperature=temperature)
-        loss.backward()
+        images, captions, lengths = (mesh.rows(t) for t in batch[:3])
+        with mesh.data_shard():
+            if images.dtype == torch.uint8:
+                images = random_hflip(normalize_images(images), generator)
+            baseline_model.zero_grad(set_to_none=True)
+            img, txt = baseline_model(images, captions, lengths,
+                                      return_embeddings=True, train=True)
+            loss = criterion(mesh.gather_rows(img), mesh.gather_rows(txt),
+                             temperature=temperature)
+            loss.backward()
+        if sharded is not None:
+            sharded.reduce_grads()
         baseline_optimizer.step()
         with torch.no_grad():
             embeds = baseline_model(images, captions, lengths,
                                     return_embeddings=True, train=False)
+            embeds = tuple(mesh.gather_rows(e) for e in embeds)
         return loss.detach(), embeds
 
     return step
@@ -559,9 +619,12 @@ def _swapped_in(params, values):
             torch._foreach_copy_(params, saved)
 
 
-def build_embed_fn(model, ema_params=None):
+def build_embed_fn(model, ema_params=None,
+                   sharded: Optional[ShardedModel] = None):
     """``embed(batch, use_ema=False) -> (image, text)`` embeddings in eval
-    mode (dense), from the EMA parameters when asked."""
+    mode (dense), from the EMA parameters when asked. With ``sharded`` the
+    module is gathered for the call and the EMA (kept on the optimizer's
+    blocks) is gathered to the module's shapes."""
     params = list(model.parameters())
 
     @torch.no_grad()
@@ -569,9 +632,13 @@ def build_embed_fn(model, ema_params=None):
         images, captions, lengths = batch[:3]
         if images.dtype == torch.uint8:
             images = normalize_images(images)
-        ctx = (_swapped_in(params, ema_params) if use_ema
-               else contextlib.nullcontext())
-        with ctx:
+        with contextlib.ExitStack() as stack:
+            if sharded is not None:
+                stack.enter_context(sharded.whole())
+            if use_ema:
+                values = (ema_params if sharded is None
+                          else sharded.to_module(ema_params))
+                stack.enter_context(_swapped_in(params, values))
             return model(images, captions, lengths, return_embeddings=True,
                          train=False)
 
@@ -603,10 +670,12 @@ def evaluate_model(embed_fn, loader, device, topk=(1, 5, 10),
     return metrics
 
 
-def _variables(model, params=None, collections=None) -> Dict:
+def _variables(model, params=None, collections=None, state=None) -> Dict:
     """The model's JAX-layout variables, with ``params`` (aligned with
-    ``model.parameters()``) in place of its own when given."""
-    sd = model.state_dict()
+    ``model.parameters()``) in place of its own when given; ``state`` is
+    the state dict to read (a sharded model's whole one) instead of the
+    module's."""
+    sd = dict(model.state_dict() if state is None else state)
     if params is not None:
         for (name, _), value in zip(model.named_parameters(), params):
             sd[name] = value
@@ -618,22 +687,30 @@ def _variables(model, params=None, collections=None) -> Dict:
 
 def retrieval_train_state(model, optimizer, ema, baseline, baseline_opt,
                           generators, train_loader, epoch: int,
-                          best_val_r1: float) -> Dict:
+                          best_val_r1: float,
+                          sharded: Optional[ShardedModel] = None) -> Dict:
     """Everything a resumed run needs to go on along the same trajectory
     (the live tensors; checkpoint.py's ``save_train_state`` writes it):
     the model's parameters and buffers (quant, BatchNorm, constants), the
     optimizer's count and moments, the EMA, the co-trained baseline and its
     optimizer, the epochs done, the best validation R@1, the state of
     every stateful generator, the train loader's epoch (its shuffle) and
-    numpy's global RNG."""
+    numpy's global RNG. With ``sharded`` every tensor is whole (a
+    collective), so the state resumes on any mesh."""
+    opt_state = optimizer.state_dict()
+    if sharded is not None:
+        opt_state = {k: sharded.to_full(v) if isinstance(v, list) else v
+                     for k, v in opt_state.items()}
     state = {"epoch": epoch, "best_val_r1": float(best_val_r1),
-             "model": model.state_dict(),
-             "optimizer": optimizer.state_dict(),
+             "model": (model.state_dict() if sharded is None
+                       else sharded.full_state_dict()),
+             "optimizer": opt_state,
              "generators": {k: g.get_state() for k, g in generators.items()},
              "loader_epoch": getattr(train_loader, "epoch", None),
              "numpy_rng": numpy_rng_state()}
     if ema is not None:
-        state["ema_params"] = list(ema)
+        state["ema_params"] = (list(ema) if sharded is None
+                               else sharded.to_full(ema))
     if baseline is not None:
         state["baseline"] = baseline.state_dict()
         state["baseline_optimizer"] = baseline_opt.state_dict()
@@ -641,18 +718,27 @@ def retrieval_train_state(model, optimizer, ema, baseline, baseline_opt,
 
 
 def load_retrieval_train_state(state: Dict, model, optimizer, ema, baseline,
-                               baseline_opt, generators,
-                               train_loader) -> None:
+                               baseline_opt, generators, train_loader,
+                               sharded: Optional[ShardedModel] = None
+                               ) -> None:
     """Put :func:`retrieval_train_state`'s values into the live objects,
-    bit for bit (the epoch and best R@1 are the caller's)."""
-    model.load_state_dict(state["model"])
-    optimizer.load_state_dict(state["optimizer"])
+    bit for bit (the epoch and best R@1 are the caller's); with
+    ``sharded`` each whole tensor is re-sharded onto this rank."""
+    opt_state = state["optimizer"]
+    if sharded is None:
+        model.load_state_dict(state["model"])
+    else:
+        sharded.load_full_state_dict(state["model"])
+        opt_state = {k: sharded.to_local(v) if isinstance(v, list) else v
+                     for k, v in opt_state.items()}
+    optimizer.load_state_dict(opt_state)
     if (ema is None) != ("ema_params" not in state) or \
             (baseline is None) != ("baseline" not in state):
         raise ValueError("the saved training state was written with other "
                          "--use_ema / --train_baseline flags")
     if ema is not None:
-        copy_into(ema, state["ema_params"])
+        copy_into(ema, state["ema_params"] if sharded is None
+                  else sharded.to_local(state["ema_params"]))
     if baseline is not None:
         baseline.load_state_dict(state["baseline"])
         baseline_opt.load_state_dict(state["baseline_optimizer"])
@@ -667,18 +753,22 @@ def load_retrieval_train_state(state: Dict, model, optimizer, ema, baseline,
     set_numpy_rng_state(state["numpy_rng"])
 
 
-def optax_state_tree(cfg: RetrievalConfig, optimizer, model) -> Dict:
+def optax_state_tree(cfg: RetrievalConfig, optimizer, model,
+                     sharded: Optional[ShardedModel] = None) -> Dict:
     """The optimizer's state under the paths of the JAX trainer's optax
     chain (``checkpoint_epoch_N.npz``'s ``optimizer_state_dict``): the
     clip (when on) is element 0 of the outer chain, then adamw's
     ``(ScaleByAdamState, _, ScaleByScheduleState)``, sgd's
     ``(_, ((TraceState,), ScaleByScheduleState))`` or adam's
     ``(_, ScaleByAdamState, ScaleByScheduleState)``; moments in the
-    params' JAX layout, counts int32."""
+    params' JAX layout, counts int32 (whole tensors with ``sharded``)."""
     count = np.asarray(optimizer.count, np.int32)
 
     def tree(moments):
-        return _variables(model, moments)["params"]
+        if sharded is None:
+            return _variables(model, moments)["params"]
+        return _variables(model, sharded.to_full(moments),
+                          state=sharded.full_state_dict())["params"]
 
     if cfg.optimizer == "sgd":
         inner = {"1": {"0": {"trace": tree(optimizer.trace)},
@@ -703,8 +793,10 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
         save_vocab_file,
     )
 
-    _check_supported(cfg)
     device = resolve_device(cfg.device)
+    mesh = training_mesh(cfg.dp, cfg.tp, device)
+    main_rank = world_rank() == 0
+    verbose = verbose and main_rank
     os.makedirs(cfg.output_dir, exist_ok=True)
     np.random.seed(cfg.seed)
     if loaders is None:
@@ -716,7 +808,9 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
             vocab_file=cfg.vocab_file, raw_uint8=cfg.device_preprocess,
             with_image_ids=cfg.use_multi_positive)
     train_loader, val_loader, test_loader, vocab_size, word_to_idx = loaders
-    save_vocab_file(word_to_idx, os.path.join(cfg.output_dir, "vocab.json"))
+    if main_rank:
+        save_vocab_file(word_to_idx,
+                        os.path.join(cfg.output_dir, "vocab.json"))
 
     model = ATQMultimodalRetrieval(
         vocab_size=vocab_size, embed_dim=cfg.embed_dim,
@@ -762,9 +856,13 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
     sparsity_plan = retrieval_sparsity_plan(cfg)
 
     steps_per_epoch = max(1, len(train_loader))
-    optimizer = make_retrieval_optimizer(cfg, model.named_parameters(),
+    sharded = ShardedModel(model, mesh, fsdp=cfg.fsdp)
+    optimizer = make_retrieval_optimizer(cfg, sharded.optim_params,
                                          steps_per_epoch)
-    ema = ([p.detach().clone() for p in model.parameters()]
+    multi = sharded if mesh.size > 1 else None  # the whole-tensor paths
+    if multi is not None:
+        optimizer.global_norm_sq = sharded.global_norm_sq
+    ema = ([t.detach().clone() for _, t in sharded.optim_params]
            if cfg.use_ema else None)
     step_gen = torch.Generator(device=device).manual_seed(cfg.seed + 7)
 
@@ -788,11 +886,12 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
         generators["baseline"] = torch.Generator(
             device=device).manual_seed(cfg.seed + 11)
         baseline_step = build_baseline_train_step(
-            baseline, baseline_opt, criterion, generators["baseline"])
+            baseline, baseline_opt, criterion, generators["baseline"], mesh,
+            ShardedModel(baseline, mesh, layer_names=()))
 
     train_step = build_retrieval_train_step(model, optimizer, criterion, cfg,
-                                            step_gen, ema)
-    embed_fn = build_embed_fn(model, ema)
+                                            step_gen, ema, mesh, sharded)
+    embed_fn = build_embed_fn(model, ema, sharded)
 
     best_val_r1 = 0.0
     train_losses, val_history, pairs_per_sec_hist = [], [], []
@@ -804,7 +903,7 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
     def train_state(epoch):
         return retrieval_train_state(model, optimizer, ema, baseline,
                                      baseline_opt, generators, train_loader,
-                                     epoch, best_val_r1)
+                                     epoch, best_val_r1, multi)
 
     orbax_dir = os.path.join(cfg.output_dir, "orbax")
     start_epoch = 0
@@ -817,15 +916,18 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
         else:
             load_retrieval_train_state(saved, model, optimizer, ema,
                                        baseline, baseline_opt, generators,
-                                       train_loader)
+                                       train_loader, multi)
             best_val_r1 = saved["best_val_r1"]
+            if verbose or multi is not None:  # a collective with ranks
+                digest = state_digest(to_host(train_state(start_epoch)))
             if verbose:
                 print(f"Resumed from {orbax_dir} at epoch {start_epoch}")
-                print(f"  Restored training state (sha256 "
-                      f"{state_digest(to_host(train_state(start_epoch)))})")
+                print(f"  Restored training state (sha256 {digest})")
 
-    tb = MetricsWriter(cfg.tensorboard_dir)
-    prof = start_trace(cfg.profile_dir, device) if cfg.profile_dir else None
+    # Rank 0 alone writes TensorBoard files and the trace.
+    tb = MetricsWriter(cfg.tensorboard_dir if main_rank else None)
+    prof = (start_trace(cfg.profile_dir, device)
+            if cfg.profile_dir and main_rank else None)
     traced_from = kernel_launches()
     for epoch in range(start_epoch, cfg.epochs):
         criterion.set_epoch(epoch, cfg.epochs)
@@ -872,8 +974,8 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
         train_loss = sum(step_losses) / max(1, len(step_losses))
         train_losses.append(train_loss)
 
-        val_metrics = evaluate_model(embed_fn, val_loader, device,
-                                     use_ema=cfg.use_ema)
+        val_metrics = from_rank0(evaluate_model(embed_fn, val_loader, device,
+                                                use_ema=cfg.use_ema))
         val_history.append(val_metrics)
         if verbose:
             print(f"Epoch {epoch + 1}/{cfg.epochs} - {epoch_time:.1f}s "
@@ -887,17 +989,24 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
             if verbose:
                 print(f"  New best model with validation R@1: "
                       f"{best_val_r1:.2f}%")
-            save_checkpoint(_variables(model, collections=core),
-                            os.path.join(cfg.output_dir, "best_model.npz"))
-            if cfg.use_ema:
+            whole = sharded.full_state_dict()
+            ema_whole = sharded.to_full(ema) if cfg.use_ema else None
+            if main_rank:
                 save_checkpoint(
-                    _variables(model, ema, collections=core),
-                    os.path.join(cfg.output_dir, "best_ema_model.npz"))
+                    _variables(model, collections=core, state=whole),
+                    os.path.join(cfg.output_dir, "best_model.npz"))
+                if cfg.use_ema:
+                    save_checkpoint(
+                        _variables(model, ema_whole, collections=core,
+                                   state=whole),
+                        os.path.join(cfg.output_dir, "best_ema_model.npz"))
         epoch_metrics = {"train_loss": float(train_loss),
                          "pairs_per_sec": float(pairs_per_sec),
                          **{k: float(v) for k, v in val_metrics.items()}}
-        with open(metrics_path, "a") as f:
-            f.write(json.dumps({"epoch": epoch + 1, **epoch_metrics}) + "\n")
+        if main_rank:
+            with open(metrics_path, "a") as f:
+                f.write(json.dumps({"epoch": epoch + 1, **epoch_metrics})
+                        + "\n")
         tb.scalars(epoch + 1, epoch_metrics, prefix="retrieval/")
         tb.flush()
         if prof is not None and epoch == start_epoch:
@@ -909,40 +1018,54 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
         if (epoch + 1) % cfg.checkpoint_freq == 0 \
                 or (epoch + 1) == cfg.epochs:
             host = to_host(train_state(epoch + 1))
-            state_path = save_train_state(orbax_dir, epoch + 1, host)
-            if verbose:
-                print(f"  Saved training state to {state_path} (sha256 "
-                      f"{state_digest(host)})")
-            ckpt_path = os.path.join(cfg.output_dir,
-                                     f"checkpoint_epoch_{epoch + 1}.npz")
-            save_checkpoint({
-                "epoch": np.asarray(epoch + 1),
-                "model_state_dict": _variables(
-                    model, collections=("params", "quant", "batch_stats")),
-                "optimizer_state_dict": optax_state_tree(cfg, optimizer,
-                                                         model),
-                "best_val_r1": np.asarray(best_val_r1),
-            }, ckpt_path)
-            if verbose:
-                print(f"  Saved checkpoint to {ckpt_path}")
+            whole = sharded.full_state_dict()
+            optim_tree = optax_state_tree(cfg, optimizer, model, multi)
+            if main_rank:
+                state_path = save_train_state(orbax_dir, epoch + 1, host)
+                if verbose:
+                    print(f"  Saved training state to {state_path} (sha256 "
+                          f"{state_digest(host)})")
+                ckpt_path = os.path.join(cfg.output_dir,
+                                         f"checkpoint_epoch_{epoch + 1}.npz")
+                save_checkpoint({
+                    "epoch": np.asarray(epoch + 1),
+                    "model_state_dict": _variables(
+                        model, collections=("params", "quant",
+                                            "batch_stats"), state=whole),
+                    "optimizer_state_dict": optim_tree,
+                    "best_val_r1": np.asarray(best_val_r1),
+                }, ckpt_path)
+                if verbose:
+                    print(f"  Saved checkpoint to {ckpt_path}")
 
     if prof is not None:  # no epoch ran
         stop_trace(prof, device)
-    save_checkpoint(_variables(model, collections=core),
-                    os.path.join(cfg.output_dir, "final_model.npz"))
+    whole = sharded.full_state_dict()
     history = {"train_losses": [float(x) for x in train_losses],
                "val_metrics": [{k: float(v) for k, v in m.items()}
                                for m in val_history]}
-    with open(os.path.join(cfg.output_dir, "training_history.json"),
-              "w") as f:
-        json.dump(history, f, indent=4)
-    _plot_training_curves(train_losses, val_history, cfg.output_dir)
+    if main_rank:
+        save_checkpoint(_variables(model, collections=core, state=whole),
+                        os.path.join(cfg.output_dir, "final_model.npz"))
+        with open(os.path.join(cfg.output_dir, "training_history.json"),
+                  "w") as f:
+            json.dump(history, f, indent=4)
+        _plot_training_curves(train_losses, val_history, cfg.output_dir)
 
     best_path = os.path.join(cfg.output_dir, "best_model.npz")
+    barrier()  # rank 0 has written best_model.npz
     if os.path.exists(best_path):
-        model.load_jax_variables(load_checkpoint(best_path))
+        best = load_checkpoint(best_path)
+        if mesh.size == 1:
+            model.load_jax_variables(best)
+        else:
+            sharded.load_full_state_dict(from_jax_variables(
+                {k: v for k, v in best.items() if isinstance(v, dict)}))
         if verbose:
             print(f"Loaded best model from {best_path}")
+    # The module stays whole from here, so the latency's forward gathers
+    # nothing (with --tp it is still a collective).
+    sharded.gather()
     test_metrics = evaluate_model(embed_fn, test_loader, device)
 
     one = (torch.zeros((1, cfg.image_size, cfg.image_size, 3),
@@ -950,24 +1073,26 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
            torch.zeros((1, cfg.max_seq_length), dtype=torch.long,
                        device=device),
            torch.tensor([5], device=device))
-    # Single-sample latency by slope timing, as the JAX trainer takes it.
-    atq_time_ms = sec_per_call(lambda: embed_fn(one)) * 1000.0
+    # Single-sample latency by slope timing, as the JAX trainer takes it
+    # (with --tp every rank, whose forward is a collective, calls in step).
+    atq_time_ms = _latency_ms(lambda: embed_fn(one), mesh)
     baseline_time_ms = None
     if baseline is not None:
         def baseline_embed():
             with torch.no_grad():
                 return baseline(*one, return_embeddings=True, train=False)
 
-        baseline_time_ms = sec_per_call(baseline_embed) * 1000.0
+        baseline_time_ms = _latency_ms(baseline_embed, Mesh(1, 1))
 
     report = {
         "best_val_r1": float(best_val_r1),
         "test_metrics": {k: float(v) for k, v in test_metrics.items()},
-        "atq_inference_time_ms": float(atq_time_ms),
+        "atq_inference_time_ms": (float(atq_time_ms)
+                                  if atq_time_ms is not None else None),
         "baseline_inference_time_ms": (float(baseline_time_ms)
                                        if baseline_time_ms else None),
         "speed_ratio": (float(baseline_time_ms / atq_time_ms)
-                        if baseline_time_ms and atq_time_ms > 0 else None),
+                        if baseline_time_ms and atq_time_ms else None),
         "model_size_mb": float(model_info["estimated_memory_usage_MB"]),
         "parameters": int(model_info["total_parameters"]),
         "pairs_per_sec": (float(np.mean(pairs_per_sec_hist[1:])
@@ -976,8 +1101,10 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
                           if pairs_per_sec_hist else None),
         "training_args": dataclasses.asdict(cfg),
     }
-    with open(os.path.join(cfg.output_dir, "final_report.json"), "w") as f:
-        json.dump(report, f, indent=4)
+    if main_rank:
+        with open(os.path.join(cfg.output_dir, "final_report.json"),
+                  "w") as f:
+            json.dump(report, f, indent=4)
     if verbose:
         print("=" * 50)
         print("TRAINING COMPLETE")
@@ -989,8 +1116,26 @@ def train_retrieval(cfg: RetrievalConfig, loaders=None, verbose=True):
     state = {"model": model, "optimizer": optimizer, "ema_params": ema,
              "baseline": baseline, "baseline_optimizer": baseline_opt,
              "generators": generators, "embed_fn": embed_fn,
+             "mesh": mesh, "sharded": sharded,
              "stats": {**stats, "pairs_per_sec": pairs_per_sec_hist}}
     return state, history, report
+
+
+def _latency_ms(fn, mesh: Mesh) -> Optional[float]:
+    """ms per call of ``fn``: utils/timing.py's ``sec_per_call`` on a mesh
+    of one model rank (on rank 0 alone; the others report None), or a fixed
+    count of calls on every rank where the forward is a collective."""
+    if mesh.shape["model"] == 1:
+        if world_rank() != 0:
+            return None
+        return sec_per_call(fn) * 1000.0
+    fn()
+    barrier()
+    t0 = time.perf_counter()
+    for _ in range(20):
+        out = fn()
+    sync_tree(out)
+    return (time.perf_counter() - t0) / 20 * 1000.0
 
 
 def _plot_training_curves(train_losses, val_history, output_dir) -> None:
@@ -1099,7 +1244,7 @@ def build_parser() -> argparse.ArgumentParser:
         choices=["parity", "ste", "ttq"])
     add("--data_dir", type=str, default="./data/flickr8k")
     add("--dp", type=int, default=None,
-        help="Data-parallel device count (not ported yet)")
+        help="Data-parallel size (under torchrun; default world // tp)")
     add("--moe_experts", type=int, default=0,
         help="Ternary-expert MoE FFN in every text layer (0: dense FFN)")
     add("--attn_impl", type=str, default="einsum",
@@ -1113,9 +1258,11 @@ def build_parser() -> argparse.ArgumentParser:
         help="GradCache microbatches per step (the full batch stays the "
              "negative pool)")
     add("--fsdp", action="store_true",
-        help="Fully-sharded data parallelism (not ported yet)")
+        help="Fully-sharded data parallelism: large state leaves shard "
+             "over the data ranks")
     add("--tp", type=int, default=1,
-        help="Tensor-parallel size (not ported yet)")
+        help="Tensor-parallel size: the projections' out-features shard "
+             "over the model ranks")
     add("--synthetic_images", type=int, default=400,
         help="Synthetic corpus size when real data missing")
     add("--resume", action="store_true",

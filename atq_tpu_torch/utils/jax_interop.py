@@ -140,53 +140,65 @@ def from_jax_variables(tree: Dict) -> Dict[str, torch.Tensor]:
     return sd
 
 
-def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
-    """Inverse of :func:`from_jax_variables`: JAX variables (nested dicts
-    of numpy arrays) from a port ``state_dict``."""
-    by_module: Dict[tuple, Dict[str, np.ndarray]] = {}
+def jax_layout(state_dict: Dict[str, torch.Tensor]) -> Dict[str, tuple]:
+    """Where each entry of a port ``state_dict`` lies in the JAX variables:
+    ``{key: (collection, path, perm)}`` with the JAX leaf equal to
+    ``tensor.permute(perm)`` (``perm`` None for the same axes). BatchNorm's
+    ``num_batches_tracked`` has no JAX leaf and is left out."""
+    by_module: Dict[tuple, Dict[str, torch.Tensor]] = {}
     for key, t in state_dict.items():
         *mod, name = key.split(".")
-        by_module.setdefault(tuple(mod), {})[name] = (
-            t.detach().cpu().numpy())
-    out: Dict = {"params": {}, "quant": {}, "batch_stats": {},
-                 "constants": {}}
-
-    def put(coll, mod, name, value):
-        node = out[coll]
-        for p in mod:
-            node = node.setdefault(p, {})
-        node[name] = value
-
+        by_module.setdefault(tuple(mod), {})[name] = t
+    out: Dict[str, tuple] = {}
     for mod, leaves in by_module.items():
         is_bn = "running_mean" in leaves
         lead = 1 if "scan" in mod else 0  # the stacked layer axis
-        for name, a in leaves.items():
+        for name, t in leaves.items():
+            key = ".".join(mod + (name,))
+            ndim = t.dim()
+            perm = None
             if is_bn:
                 if name == "num_batches_tracked":
                     continue
                 if name in _BN_STATS_INV:
-                    put("batch_stats", mod, _BN_STATS_INV[name], a)
+                    coll, jname = "batch_stats", _BN_STATS_INV[name]
                 else:
-                    put("params", mod, _BN_PARAMS_INV[name], a)
+                    coll, jname = "params", _BN_PARAMS_INV[name]
             elif name in _QUANT:
-                put("quant", mod, name, a)
+                coll, jname = "quant", name
             elif name in _CONSTANTS:
-                put("constants", mod, name, a)
+                coll, jname = "constants", name
             elif name == "weight" and mod and (
                     mod[-1] == "embedding" or mod[-1].startswith("Embed")):
-                put("params", mod, "embedding", a)
-            elif name == "weight" and a.ndim == 4:
-                put("params", mod, "kernel",
-                    np.ascontiguousarray(a.transpose(2, 3, 1, 0)))
+                coll, jname = "params", "embedding"
+            elif name == "weight" and ndim == 4:
+                coll, jname, perm = "params", "kernel", (2, 3, 1, 0)
             elif name == "weight" and "alpha" not in leaves \
-                    and a.ndim - lead == 1:  # LayerNorm
-                put("params", mod, "scale", a)
-            elif name == "weight" and a.ndim - lead == 2 \
+                    and ndim - lead == 1:  # LayerNorm
+                coll, jname = "params", "scale"
+            elif name == "weight" and ndim - lead == 2 \
                     and "alpha" not in leaves:
-                put("params", mod, "kernel",
-                    np.ascontiguousarray(np.swapaxes(a, -1, -2)))
+                coll, jname = "params", "kernel"
+                perm = tuple(range(ndim - 2)) + (ndim - 1, ndim - 2)
             else:
-                put("params", mod, name, a)
+                coll, jname = "params", name
+            out[key] = (coll, mod + (jname,), perm)
+    return out
+
+
+def to_jax_variables(state_dict: Dict[str, torch.Tensor]) -> Dict:
+    """Inverse of :func:`from_jax_variables`: JAX variables (nested dicts
+    of numpy arrays) from a port ``state_dict``."""
+    out: Dict = {"params": {}, "quant": {}, "batch_stats": {},
+                 "constants": {}}
+    for key, (coll, path, perm) in jax_layout(state_dict).items():
+        a = state_dict[key].detach().cpu().numpy()
+        if perm is not None:
+            a = np.ascontiguousarray(a.transpose(perm))
+        node = out[coll]
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = a
     return {k: v for k, v in out.items() if v}
 
 

@@ -2,6 +2,8 @@
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 
@@ -13,6 +15,9 @@ def resolve_device(device=None) -> torch.device:
     ``device="cpu"``. A CUDA request on a host without a GPU raises rather
     than carrying on silently on the CPU.
 
+    Under torchrun (``LOCAL_RANK`` set) "cuda" is the rank's own card,
+    ``cuda:LOCAL_RANK``, made the current device.
+
     On CUDA, TF32 is switched off for matmuls and cuDNN convolutions: the
     JAX reference computes in float32, and cuDNN would otherwise run the
     convolutions in TF32 by default.
@@ -23,6 +28,9 @@ def resolve_device(device=None) -> torch.device:
             raise RuntimeError(
                 "atq_tpu_torch: CUDA requested (the default) but no GPU is "
                 "available; pass device='cpu' to run the plain PyTorch path")
+        if dev.index is None and "LOCAL_RANK" in os.environ:
+            dev = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
+            torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
     elif dev.type != "cpu":

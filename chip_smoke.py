@@ -46,6 +46,11 @@
                                    # train_retrieval_scan's step-0 limits
                                    # (unrolled twice, scanned, planted
                                    # fault; dense and fused), JSON in OUT
+    python3 chip_smoke.py --scale-out
+                                   # the build and phase scale_out alone
+                                   # on every card of the machine
+    (--scale-out-checks and --scale-out-runs are the torchrun ranks that
+    phase scale_out starts)
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -333,6 +338,37 @@ Phases, one JSON line each; any failure exits non-zero:
                 space-to-depth stem are printed, not held (the comment
                 above REWRITE_TOL says why).
 
+  scale_out     the multi-GPU scale-out on all N cards of the machine
+                (torch.cuda.device_count()) in two torchrun launches.
+                First the checks, over NCCL at world N, or at N = 1 over
+                gloo at world 2 with both ranks on the one card (NCCL
+                takes one rank a card): step 0 of the README recipe's
+                widths at the global batch 16 a rank, dp over the world
+                and the same with --fsdp (at N >= 4 also dp=N/2 x tp=2
+                --fsdp and --moe_experts 8), against the one-GPU step on
+                the same batch (the comment above SCALE_ENVELOPE has the
+                limits), with a planted fault (every dα dropped) that must
+                fail, 27 order statistics a step (the MoE: 19 and 8
+                batched) and the per-rank state bytes; then the parallel
+                library (LIBRARY_TOL): the negative pool's gather and its
+                backward, moe_ffn_sharded (8 ternary experts, 8/world a
+                rank, 2 batched order statistics), the row-sharded search
+                (float32 and int8, ids equal), ring attention and the
+                GPipe pipeline with their gradients, each against the
+                one-process port on the same card (gloo carries the
+                collectives of CUDA tensors but not their point-to-point
+                sends, so over gloo the ring and the pipeline run on host
+                tensors). Then, through torchrun --nproc_per_node N (one
+                process a card, NCCL; at N = 1 world 1, where no process
+                group starts, as JAX's init_distributed does nothing for
+                one process), a short epoch of python -m
+                atq_tpu_torch.train.retrieval's main() with --dp N, and
+                --fsdp, dp=N/2 x tp=2 --fsdp and --moe_experts 8 where N
+                allows (counts reset before each run in every rank and
+                read after; pairs/s, the steady rate of the median step,
+                the launches a step equal to step 0's), and the
+                classifier's with --dp N (imgs/s).
+
 The order statistic is held bit-exact (max equal, sum within 1e-6
 relative) against the sort at OS_SIZES and RETRIEVAL_OS_SIZES (randn), at
 401,408, 18,432 and 2,359,296 with duplicates, zeros, an all-equal row, a
@@ -388,7 +424,8 @@ Then one line {"kernels": [...]} (launch counts from the main-path phase
 that runs each kernel: serve_dense, serve_packed, serve_retrieval_pack32,
 serve_dense_correction, train_fused, train_encoder; train_retrieval and
 train_retrieval_scan print their own on their lines; each kernel's
-moe_launches are train_retrieval_moe's epoch),
+moe_launches are train_retrieval_moe's epoch, its scale_out_launches
+scale_out's dp=N epoch on rank 0),
 the card's name and power limit as nvidia-smi prints them, and the result
 line {"ok": true, "device": {...}}. Without a GPU, or without the rest of
 the repo beside it, the script exits non-zero and prints no result.
@@ -398,6 +435,7 @@ import contextlib
 import dataclasses
 import importlib
 import json
+import math
 import os
 import shutil
 import subprocess
@@ -4976,6 +5014,493 @@ def compare(parent, out_dir="outputs/compare", *kinds):
     emit({"per_batch_device_ms_old_new": per_batch})
 
 
+# ------------------------------------------------------------ scale_out
+#
+# The multi-GPU scale-out (parallel/, the trainers' --dp/--tp/--fsdp) on
+# every card of the machine, N = torch.cuda.device_count(), through torchrun
+# (one process a card, NCCL; the checks at N = 1 over gloo, two ranks on
+# the card): each worker mode below runs in every rank and rank 0 writes
+# what it read. Step 0 of the README recipe's widths at the global batch
+# 16 a rank is held against the one-GPU step on the same batch,
+# with a planted fault (every dα dropped) that must fail, and the
+# order-statistic launches a step equal to the one-GPU step's. The limits
+# (_scale_compare): the loss within RET_LOSS_RTOL and the embeddings within
+# RET_EMBED_ATOL, or SCALE_ENVELOPE times how far the one-GPU step moves
+# them when its images are scaled by 1 ± 1e-6, where that is larger; each
+# gradient leaf above rounding within its train_retrieval card-vs-CPU
+# limit (RET_LEAF_TOL_CPU by _leaf_group) of its L2 norm plus
+# SCALE_ENVELOPE times that leaf's own move. The sharded step sums its
+# gradients over the ranks and takes BatchNorm's statistics from the
+# ranks' sums; float reassociation alone then moves the trunk's nearly
+# cancelling leaves (on the CPU at N = 4 with --moe_experts 8: a trunk
+# leaf by 2.0e-2 of its norm and the largest element by 2.0e-2 of the
+# largest gradient, the text tensors by 2.8e-4; tests/_dp_reference.py
+# has the same envelope on the CPU).
+SCALE_ENVELOPE = 10.0
+SCALE_ROWS = 16  # a card's rows: the global --batch_size is 16·N
+SCALE_STEPS = 8  # the short epoch's steps: --synthetic_images 32·N
+SCALE_TRAIN_ARGV = ["--embed_dim", "192", "--hidden_dim", "384",
+                    "--learning_rate", "5e-5", "--image_size", "160",
+                    "--use_residual", "--reinit_model", "--gradual_quant",
+                    "--warmup_epochs", "2", "--contrastive_reg", "0.05",
+                    "--epochs", "1", "--checkpoint_freq", "1"]
+SCALE_CLASSIFIER_ARGV = ["--use-rpb", "--distill", "--use-l1",
+                         "--clip-grad", "--epochs", "1",
+                         "--subset-fraction", "0.05"]
+# The library at the recipe's text-tower widths: moe_ffn_sharded with 8
+# experts over the group (8/N a card; 800 tokens a rank), the row-sharded
+# search of 1,000 embeddings of 192 (float32 and int8), ring attention over
+# a sequence of 64 a rank's block times the group (16 x 8 heads x 24), and
+# a GPipe of one stage a rank (a 192-wide tanh layer, 8 microbatches).
+# Each against the one-process port on the same card within LIBRARY_TOL.
+LIBRARY_TOL = 1e-4
+MOE_EXPERTS, MOE_ROWS = 8, 800
+
+
+def _torchrun(n, args, timeout=600):
+    """``torchrun --nproc_per_node n chip_smoke.py ARGS`` from this
+    checkout; raises on a non-zero exit."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    cmd = [sys.executable, "-m", "torch.distributed.run",
+           "--nproc_per_node", str(n), "--master_port", str(port),
+           os.path.abspath(__file__)] + [str(a) for a in args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True,
+                          timeout=timeout)
+    if proc.returncode:
+        raise AssertionError(f"torchrun {args[:2]} exited "
+                             f"{proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{proc.stderr[-8000:]}")
+    return time.perf_counter() - t0
+
+
+def _rank0_write(out, value):
+    from atq_tpu_torch.parallel.mesh import world_rank
+
+    if world_rank() == 0:
+        torch.save(value, out)
+
+
+def _scale_step0(spec, device):
+    """Step 0 of each of the spec's configs over a mesh of the world: the
+    one-GPU step's reading (loss, embeddings, gradients whole, launches)
+    and this rank's state bytes at rest."""
+    from atq_tpu_torch.losses.contrastive import HardNegativeMiningInfoNCE
+    from atq_tpu_torch.models.retrieval import ATQMultimodalRetrieval
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.parallel.mesh import make_mesh
+    from atq_tpu_torch.parallel.sharded_model import ShardedModel
+    from atq_tpu_torch.train.retrieval import (
+        RetrievalConfig,
+        _batch_to,
+        build_retrieval_train_step,
+    )
+
+    out = {}
+    for name, conf in spec["configs"].items():
+        experts = conf.get("moe", 0)
+        model = ATQMultimodalRetrieval(
+            vocab_size=spec["vocab"], embed_dim=192, hidden_dim=384,
+            use_residual=True, max_seq_length=SEQ_LEN, dropout=0.0,
+            text_moe_experts=experts, device="cpu")
+        model.load_state_dict(spec["state"][experts])
+        model.to(device)
+        mesh = make_mesh(conf["dp"], conf.get("tp", 1))
+        sharded = ShardedModel(model, mesh, fsdp=conf.get("fsdp", False))
+        cfg = RetrievalConfig(**spec["cfg"][experts])
+        criterion = HardNegativeMiningInfoNCE(lambda_reg=cfg.contrastive_reg)
+        criterion.set_epoch(0, cfg.epochs)
+        step = build_retrieval_train_step(model, _NoUpdate(), criterion, cfg,
+                                          None, None, mesh, sharded)
+        b = _batch_to(spec["batch"][experts], device)
+        _reset_launches()
+        loss = step(b, torch.tensor(criterion.get_current_temperature(),
+                                    device=device),
+                    torch.tensor(0, device=device))
+        launches = kernel_launches()
+        tensors = [t for _, t in sharded.optim_params]
+        grads = sharded.to_full([t.grad if t.grad is not None
+                                 else torch.zeros_like(t) for t in tensors])
+        sharded.gather()
+        with torch.no_grad(), mesh.data_shard():
+            img, txt = model(*(mesh.rows(t) for t in b),
+                             return_embeddings=True, train=True)
+            img, txt = mesh.gather_rows(img), mesh.gather_rows(txt)
+        names = [n for n, _ in model.named_parameters()]
+        out[name] = {
+            "reading": (float(loss), img.double().cpu(), txt.double().cpu(),
+                        {n: g.detach().double().cpu()
+                         for n, g in zip(names, grads)}, launches),
+            "state_bytes": sharded.state_bytes()}
+        del model, sharded, grads
+        torch.cuda.empty_cache()
+    return out
+
+
+def scale_out_checks(spec_path, out_path, backend):
+    """Worker (every rank): step 0 of the spec's configs, then the parallel
+    library, over the world (``backend`` nccl, a card a rank, or gloo, the
+    ranks sharing card 0); rank 0 writes both."""
+    import torch.distributed as dist
+
+    from atq_tpu_torch.utils.platform import resolve_device
+
+    dev = torch.device("cuda", int(os.environ["LOCAL_RANK"])
+                       if backend == "nccl" else 0)
+    resolve_device(dev)  # TF32 off
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, init_method="env://")
+    spec = torch.load(spec_path, weights_only=False)
+    out = {"step0": _scale_step0(spec, dev),
+           "library": _scale_library(dev, backend)}
+    _rank0_write(out_path, out)
+    dist.destroy_process_group()
+
+
+def scale_out_runs(spec_path, out_path):
+    """Worker (every rank): each of the spec's trainer runs in turn, ``(name,
+    kind, argv)`` with ``kind`` retrieval or classifier, main() with the
+    counts reset before it and read after it; rank 0 writes each run's
+    throughput, losses, step times, launches a step and state bytes."""
+    from atq_tpu_torch.ops import kernel_launches
+
+    out = {}
+    for name, kind, argv in torch.load(spec_path, weights_only=False):
+        _reset_launches()
+        t0 = time.perf_counter()
+        if kind == "retrieval":
+            from atq_tpu_torch.train.retrieval import main as retrieval_main
+
+            state, _, report = retrieval_main(list(argv))
+            stats = state["stats"]
+            rate = {"pairs_per_s": stats["pairs_per_sec"],
+                    "report_pairs_per_s": report["pairs_per_sec"]}
+            losses, per_step = (stats["step_losses"],
+                                stats["launches_per_step"])
+            sharded, opt = state["sharded"], state["optimizer"]
+            seconds, step_ms = stats["epoch_seconds"], stats["step_ms"]
+        else:
+            from atq_tpu_torch.train.__main__ import main as train_main
+
+            state, results = train_main(list(argv))
+            rate = {"imgs_per_s": results["imgs_per_sec"]}
+            losses, per_step = (results["step_losses"],
+                                results["launches_per_step"])
+            sharded, opt = state["sharded"][0], state["atq_opt"]
+            seconds, step_ms = results["epoch_seconds"], results["step_ms"]
+        moments = sum(t.numel() * t.element_size()
+                      for k in opt.MOMENTS for t in getattr(opt, k))
+        out[name] = {
+            **rate, "epoch_seconds": seconds,
+            "wall_s": time.perf_counter() - t0,
+            "step_ms_p50": [float(np.percentile(t[1:], 50))
+                            for t in step_ms],
+            "step_losses": losses, "launches_per_step": per_step,
+            "launches": kernel_launches(), "state_bytes": sharded.state_bytes(),
+            "moment_bytes": moments}
+        del state
+        torch.cuda.empty_cache()
+    _rank0_write(out_path, out)
+
+
+def _scale_library(dev, backend):
+    """The parallel library over the world on ``dev``, each result against
+    the one-process port on the same card: the largest differences over
+    the ranks and moe_ffn_sharded's launches."""
+    import torch.distributed as dist
+
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.parallel import collectives as C
+    from atq_tpu_torch.parallel.mesh import make_mesh
+    from atq_tpu_torch.parallel.moe import moe_ffn, moe_ffn_sharded
+    from atq_tpu_torch.parallel.pipeline import pipeline_apply
+    from atq_tpu_torch.parallel.ring_attention import (
+        dense_reference_attention,
+        ring_attention,
+    )
+    from atq_tpu_torch.serve.index import EmbeddingIndex
+
+    mesh = make_mesh()
+    group, n, me = mesh.group("data"), mesh.shape["data"], mesh.index("data")
+    gen = torch.Generator().manual_seed(5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen) * scale).to(dev)
+
+    out, diffs = {"backend": backend, "world": n}, {}
+
+    def diff(name, got, want):
+        diffs[name] = max(diffs.get(name, 0.0),
+                          (got - want).abs().max().item())
+
+    # Collectives: the negative pool's gather and its backward.
+    emb, emb_g = randn(SCALE_ROWS * n, 192), randn(SCALE_ROWS * n, 192)
+    local = mesh.rows(emb).clone().requires_grad_()
+    gathered = C.all_gather_embeddings(local, group)
+    (gathered * emb_g).sum().backward()
+    diff("all_gather_embeddings", gathered, emb)
+    diff("all_gather_embeddings_grad", local.grad, n * mesh.rows(emb_g))
+
+    # moe_ffn_sharded: 8 ternary experts at the text tower's widths.
+    d, h = 192, 384
+    x_all = randn(MOE_ROWS * n, d)
+    g_all = randn(MOE_ROWS * n, d)
+    params = {"gate": randn(d, MOE_EXPERTS, scale=d ** -0.5),
+              "w1": randn(MOE_EXPERTS, d, h, scale=d ** -0.5),
+              "w2": randn(MOE_EXPERTS, h, d, scale=h ** -0.5)}
+    cap = math.ceil(MOE_ROWS / MOE_EXPERTS * 1.25)
+    e_local = MOE_EXPERTS // n
+    mine = slice(me * e_local, (me + 1) * e_local)
+    x = mesh.rows(x_all).clone().requires_grad_()
+    p = {"gate": params["gate"].clone().requires_grad_(),
+         "w1": params["w1"][mine].clone().requires_grad_(),
+         "w2": params["w2"][mine].clone().requires_grad_()}
+    _reset_launches()
+    y, aux = moe_ffn_sharded(x, p, group, cap, ternary=True,
+                             sparsity_target=0.1)
+    out["moe_launches"] = kernel_launches()
+    ((y * mesh.rows(g_all)).sum() + aux["aux_loss"]).backward()
+    whole = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xs = x_all.clone().requires_grad_()
+    total, ys, auxes = 0.0, [], []
+    for r in range(n):  # the one-process port, shard by shard
+        rows = slice(r * MOE_ROWS, (r + 1) * MOE_ROWS)
+        yr, ar = moe_ffn(xs[rows], whole, cap, ternary=True,
+                         sparsity_target=0.1)
+        total = total + (yr * g_all[rows]).sum() + ar["aux_loss"]
+        ys.append(yr)
+        auxes.append(ar["aux_loss"])
+    total.backward()
+    diff("moe_y", y, ys[me])
+    diff("moe_aux", aux["aux_loss"], torch.stack(auxes).mean())
+    diff("moe_dx", x.grad, mesh.rows(xs.grad))
+    diff("moe_dw1", p["w1"].grad, whole["w1"].grad[mine])
+    diff("moe_dw2", p["w2"].grad, whole["w2"].grad[mine])
+    dgate = C.all_reduce_(p["gate"].grad.clone(), group)
+    diff("moe_dgate", dgate, whole["gate"].grad)
+
+    # The row-sharded search, float32 and int8.
+    corpus = randn(1000, 192).cpu().numpy()
+    corpus /= np.linalg.norm(corpus, axis=1, keepdims=True)
+    queries = randn(8, 192).cpu().numpy()
+    for quantize in ("none", "int8"):
+        index = EmbeddingIndex(dim=192, capacity=1024, quantize=quantize,
+                               device=dev)
+        index.add([f"c{i}" for i in range(1000)], corpus)
+        want_ids, want = index.search(queries, k=10)
+        ids, got = index.search(queries, k=10, mesh=mesh)
+        if ids != want_ids:
+            raise AssertionError(f"sharded search ({quantize}): ids differ")
+        diff("search_" + quantize, torch.from_numpy(got),
+             torch.from_numpy(want))
+
+    # Ring attention over the group's sequence blocks. Gloo carries no
+    # point-to-point exchange of CUDA tensors (its send of one fails), so
+    # over gloo the ring and the pipeline run on host tensors.
+    p2p = dev if backend == "nccl" else torch.device("cpu")
+    out["p2p_device"] = str(p2p)
+    b, heads, blk, dh = 16, 8, 64, 24
+    q, k, v, g = (randn(b, heads, blk * n, dh).to(p2p) for _ in range(4))
+    pad = torch.zeros((b, blk * n), dtype=torch.bool, device=p2p)
+    pad[0, -5:] = True
+
+    def block(t, dim):
+        return C.shard_rows(t.transpose(0, dim), me, n).transpose(0, dim)
+
+    ql, kl, vl = (block(t, 2).clone().requires_grad_() for t in (q, k, v))
+    o = ring_attention(ql, kl, vl, group, block(pad, 1))
+    (o * block(g, 2)).sum().backward()
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    oa = dense_reference_attention(qa, ka, va, pad)
+    (oa * g).sum().backward()
+    diff("ring_o", o, block(oa, 2))
+    for name, got, want in (("dq", ql, qa), ("dk", kl, ka),
+                            ("dv", vl, va)):
+        diff("ring_" + name, got.grad, block(want.grad, 2))
+
+    # The pipeline: one stage a rank.
+    w, bias = (randn(n, 192, 192, scale=192 ** -0.5).to(p2p),
+               randn(n, 192).to(p2p))
+    px, pg = randn(64, 192).to(p2p), randn(64, 192).to(p2p)
+    stage = {"w": w.clone().requires_grad_(),
+             "b": bias.clone().requires_grad_()}
+    py = pipeline_apply(lambda s, t: torch.tanh(t @ s["w"] + s["b"]), stage,
+                        px, group=group, n_micro=8)
+    (py * pg).sum().backward()
+    ws, bs = w.clone().requires_grad_(), bias.clone().requires_grad_()
+    hseq = px
+    for s in range(n):
+        hseq = torch.tanh(hseq @ ws[s] + bs[s])
+    (hseq * pg).sum().backward()
+    diff("pipeline_y", py, hseq)
+    diff("pipeline_dw", stage["w"].grad[me], ws.grad[me])
+    diff("pipeline_db", stage["b"].grad[me], bs.grad[me])
+
+    all_diffs = [None] * n
+    dist.all_gather_object(all_diffs, diffs)
+    out["max_abs_diff"] = {k: max(dd[k] for dd in all_diffs) for k in diffs}
+    return out
+
+
+def phase_scale_out(tmp):
+    """Phase scale_out (module docstring)."""
+    n = torch.cuda.device_count()
+    # The checks' world: N cards over NCCL, or two ranks on the one card
+    # over gloo (NCCL takes one rank a card).
+    backend, world = ("nccl", n) if n >= 2 else ("gloo", 2)
+    t0 = time.perf_counter()
+    configs = {f"dp{world}": {"dp": world},
+               f"dp{world}_fsdp": {"dp": world, "fsdp": True}}
+    if n >= 4:
+        configs.update({"dp2_tp2_fsdp": {"dp": n // 2, "tp": 2,
+                                         "fsdp": True},
+                        f"dp{n}_moe8": {"dp": n, "moe": MOE_EXPERTS}})
+    spec = {"configs": configs, "state": {}, "batch": {}, "cfg": {}}
+    one, envelope = {}, {}
+    for experts in sorted({c.get("moe", 0) for c in configs.values()}):
+        model, batch, cfg = _retrieval_step0_setup(
+            tmp, n=SCALE_ROWS * world, moe_experts=experts)
+        spec["state"][experts] = model.state_dict()
+        spec["batch"][experts] = batch
+        spec["cfg"][experts] = dataclasses.asdict(cfg)
+        spec["vocab"] = model.text_encoder.embedding.weight.shape[0]
+        one[experts] = _retrieval_step0(model, batch, cfg, "cuda", False)
+        envelope[experts] = [
+            _retrieval_step0(model, (batch[0] * np.float32(1 + e),)
+                             + tuple(batch[1:]), cfg, "cuda", False)
+            for e in (1e-6, -1e-6)]
+        del model
+    spec_path = os.path.join(tmp, "scale_spec.pt")
+    torch.save(spec, spec_path)
+    checks_out = os.path.join(tmp, "scale_checks.pt")
+    checks_s = _torchrun(world, ["--scale-out-checks", spec_path,
+                                 checks_out, backend])
+    emit({"phase": "scale_out_checks", "seconds": time.perf_counter() - t0,
+          "torchrun_s": checks_s})
+    got = torch.load(checks_out, weights_only=False)
+    step0 = {}
+    for name, conf in configs.items():
+        want, env = one[conf.get("moe", 0)], envelope[conf.get("moe", 0)]
+        reading = got["step0"][name]["reading"]
+        step0[name] = _scale_compare(name, reading, want, env)
+        _check_launches(f"scale_out {name} step 0", reading[4], want[4])
+        step0[name]["launches"] = reading[4]
+        step0[name]["state_bytes"] = got["step0"][name]["state_bytes"]
+        try:
+            _scale_compare("planted", _planted(reading, "alpha"), want, env)
+        except AssertionError:
+            pass
+        else:
+            raise AssertionError(f"scale_out {name}: the planted fault "
+                                 "(every dα dropped) passed")
+    library = got["library"]
+    bad = {k: v for k, v in library["max_abs_diff"].items()
+           if not v <= LIBRARY_TOL}
+    if bad:
+        raise AssertionError(f"scale_out library past {LIBRARY_TOL}: {bad}")
+    if library["moe_launches"]["batched_order_stat"] != 2:
+        raise AssertionError("moe_ffn_sharded: batched order statistic "
+                             f"launches {library['moe_launches']}")
+
+    # The trainers through torchrun, one launch for every run.
+    recipe = SCALE_TRAIN_ARGV + ["--batch_size", str(SCALE_ROWS * n),
+                                 "--synthetic_images",
+                                 str(4 * n * SCALE_STEPS), "--data_dir",
+                                 os.path.join(tmp, "no_flickr8k")]
+    train = {f"dp{n}": ["--dp", str(n)]}
+    if n >= 2:  # one rank has nothing to shard
+        train[f"dp{n}_fsdp"] = ["--dp", str(n), "--fsdp"]
+    if n >= 4:
+        train.update({"dp2_tp2_fsdp": ["--dp", str(n // 2), "--tp", "2",
+                                       "--fsdp"],
+                      f"dp{n}_moe8": ["--dp", str(n), "--moe_experts",
+                                      str(MOE_EXPERTS)]})
+    runs_spec = [(name, "retrieval", recipe + flags
+                  + ["--output_dir", os.path.join(tmp, name)])
+                 for name, flags in train.items()]
+    runs_spec.append(("classifier", "classifier", SCALE_CLASSIFIER_ARGV + [
+        "--batch-size", str(256 * n), "--dp", str(n), "--device", "cuda",
+        "--checkpoint-dir", os.path.join(tmp, "scale_classifier"),
+        "--plots-dir", os.path.join(tmp, "scale_plots")]))
+    runs_path = os.path.join(tmp, "scale_runs_spec.pt")
+    torch.save(runs_spec, runs_path)
+    runs_out = os.path.join(tmp, "scale_runs.pt")
+    runs_s = _torchrun(n, ["--scale-out-runs", runs_path, runs_out])
+    runs = torch.load(runs_out, weights_only=False)
+    for name, run in runs.items():
+        # Steady rate: the global batch over the median step after the
+        # first (an 8-step epoch's own rate is mostly its set-up).
+        rows = 256 * n if name == "classifier" else SCALE_ROWS * n
+        run["steady_per_s"] = [rows / (t / 1000.0)
+                               for t in run["step_ms_p50"]]
+        _scale_run_checks(name, run, step0.get(name))
+    emit({"phase": "scale_out", "cards": n, "backend": "nccl",
+          "checks_backend": backend, "checks_world": world,
+          "checks": [f"step0 {k}" for k in sorted(step0)] + ["library"]
+          + [f"run {k}" for k in sorted(runs)],
+          "step0": step0, "library": library, "checks_torchrun_s": checks_s,
+          "runs": runs, "runs_torchrun_s": runs_s,
+          "seconds": time.perf_counter() - t0})
+    return dict(runs[f"dp{n}"]["launches"])
+
+
+def _scale_compare(what, got, want, env):
+    """A sharded step-0 reading ``got`` against the one-GPU ``want``
+    (comment above SCALE_ENVELOPE); ``env``: the one-GPU step on the
+    images scaled by 1 ± 1e-6. Returns the readings (each leaf group's
+    worst error over its limit), raising past a limit."""
+    k = SCALE_ENVELOPE
+    rel = abs(got[0] - want[0]) / abs(want[0])
+    emb = max((a - b).abs().max().item() for a, b in zip(got[1:3],
+                                                         want[1:3]))
+    env_rel = max(abs(e[0] - want[0]) / abs(want[0]) for e in env)
+    env_emb = max((a - b).abs().max().item() for e in env
+                  for a, b in zip(e[1:3], want[1:3]))
+    limits = {"loss": max(RET_LOSS_RTOL, k * env_rel),
+              "embeddings": max(RET_EMBED_ATOL, k * env_emb)}
+    scale = max(g.abs().max().item() for g in want[3].values())
+    worst, elem = {}, 0.0
+    for n, g in want[3].items():
+        err = (got[3][n] - g).norm().item()
+        elem = max(elem, (got[3][n] - g).abs().max().item() / scale)
+        if g.abs().max().item() <= RET_ROUNDING * scale:
+            continue
+        moved = max((e[3][n] - g).norm().item() for e in env)
+        ratio = err / (RET_LEAF_TOL_CPU[_leaf_group(n, g)] * g.norm().item()
+                       + k * moved)
+        group = _leaf_group(n, g)
+        if ratio >= worst.get(group, ("", -1.0))[1]:
+            worst[group] = (n, ratio)
+    out = {"loss": got[0], "loss_rel_diff": rel,
+           "embedding_max_abs_diff": emb, "limits": limits,
+           "leaf_error_over_limit": worst,
+           "grad_max_abs_diff_over_max": elem}
+    if rel > limits["loss"] or emb > limits["embeddings"] or any(
+            v > 1.0 for _, v in worst.values()):
+        raise AssertionError(f"{what} step 0 past its limits: "
+                             f"{json.dumps(out)}")
+    return out
+
+
+def _scale_run_checks(name, run, step0):
+    """A short epoch under torchrun: finite losses, the order statistic
+    launched every step, the launches a step those of its step 0."""
+    losses = [x for epoch in run["step_losses"] for x in epoch]
+    if not losses or not np.isfinite(losses).all():
+        raise AssertionError(f"scale_out {name}: losses {losses}")
+    per_step = run["launches_per_step"][0]
+    if per_step.get("order_stat", 0) <= 0:
+        raise AssertionError(f"scale_out {name}: no order statistic "
+                             f"launched ({per_step})")
+    if step0 is not None:
+        _check_launches(f"scale_out {name} epoch", per_step,
+                        step0["launches"])
+
+
 def _smi():
     return subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
@@ -5003,6 +5528,12 @@ def main(argv=None):
         resolve_device("cuda")
         traced_aot(*argv[1:])
         return 0
+    workers = {"--scale-out-checks": scale_out_checks,
+               "--scale-out-runs": scale_out_runs}
+    if argv[:1] and argv[0] in workers:  # a torchrun rank of scale_out
+        os.environ["ATQ_NO_DOWNLOAD"] = "1"
+        workers[argv[0]](*argv[1:])
+        return 0
     from atq_tpu_torch.utils.platform import resolve_device
 
     readings_modes = {"--retrieval-step0": retrieval_step0_readings,
@@ -5025,6 +5556,11 @@ def main(argv=None):
     os.environ["ATQ_NO_DOWNLOAD"] = "1"  # the synthetic data; no network
     smi = _smi()
     phase_build(smi)
+    if argv[:1] == ["--scale-out"]:  # the build and scale_out alone
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_scale_out(tmp)
+        print(smi, flush=True)
+        return 0
     errs, timings = phase_kernels()
 
     images = synthetic_test_set("fashion_mnist", N_REQUESTS)[0].astype(
@@ -5074,6 +5610,7 @@ def main(argv=None):
         phase_train_retrieval_amp(tmp, drill_result)
         moe_launches = phase_train_retrieval_moe(tmp)
         phase_resnet_rewrites()
+        scale_launches = phase_scale_out(tmp)
 
     sources = {
         "order_stat": ("atq_tpu_torch/csrc/order_stat.cu",
@@ -5127,6 +5664,7 @@ def main(argv=None):
                         "device_ms": t["kernel_device_ms"],
                         "evaluate_launches": eval_launches.get(name, 0),
                         "moe_launches": moe_launches.get(name, 0),
+                        "scale_out_launches": scale_launches.get(name, 0),
                         "serve_aot_launches": aot_launches.get(name, 0)})
     emit({"kernels": kernels})
     print(smi, flush=True)

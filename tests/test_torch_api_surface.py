@@ -3,9 +3,9 @@
 ``atq_tpu``, ``.core``, ``.nn``, ``.models``, ``.data``, ``.utils``,
 ``.parallel`` and ``.losses`` export has a counterpart in the same
 ``atq_tpu_torch`` package's ``__all__``, under the same name or a
-documented one, except the multi-process names of ``parallel``, which
-are not ported yet (ROADMAP.md queue 1 item 7). Importing the packages
-builds and loads no CUDA source.
+documented one; ``MULTI_PROCESS``, the names once left for the scale-out
+slice, is empty now. Importing the packages builds and loads no CUDA
+source.
 """
 
 import ast
@@ -24,13 +24,7 @@ PACKAGES = ["", "core", "nn", "models", "data", "utils", "parallel",
 RENAMED = {"quantized_weight_policy": "REMAT_POLICIES",
            "quantized_weight_and_dots_policy": "REMAT_POLICIES",
            "apply_platform_env": "resolve_device"}
-MULTI_PROCESS = {
-    "make_mesh", "shard_batch", "replicate", "data_sharding", "fsdp_spec",
-    "shard_state_fsdp", "shard_state_tp", "shard_tree_tp",
-    "init_distributed", "global_batch_from_local", "process_batch_slice",
-    "all_gather_embeddings", "psum_grads", "pipeline_apply",
-    "split_microbatches", "merge_microbatches", "stack_stage_params",
-    "moe_ffn_sharded"}
+MULTI_PROCESS = set()
 
 
 def _jax_all(pkg):

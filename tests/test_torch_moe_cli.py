@@ -9,11 +9,9 @@
   that checkpoint, ``--packed`` and ``--packed --aot DIR`` (exported, then
   loaded): the ``--aot`` programs batch-polymorphic and bit for bit with
   the live packed server, which is within 2e-2 of the dense server (the
-  packed layers' corrections are rounded to bf16); with the float trunk,
-  within 1e-4 of JAX's ``serve.py --packed --moe_experts 2`` (the expert
-  planes stay dense in both);
-- ``--dp``, ``--tp`` and ``--fsdp`` still raise
-  (tests/test_torch_retrieval_train.py).
+  packed layers' corrections are rounded to bf16); with the int8 trunk
+  and with the float one, within 1e-4 of JAX's ``serve.py --packed
+  --moe_experts 2`` (the expert planes stay dense in both).
 
 ``python -m atq_tpu_torch.evaluate --moe_experts`` is in
 tests/test_torch_evaluate.py.
@@ -95,9 +93,6 @@ def _answers(path, *extra):
 
 
 def test_serve_cli_packed_and_aot(trained, tmp_path, capsys):
-    import serve as jax_serve
-    from atq_tpu.train.classifier import load_checkpoint as jax_load
-
     path = trained[0]
     dense = _answers(path, "--device", "cpu")
     packed = _answers(path, "--packed", "--device", "cpu")
@@ -113,13 +108,22 @@ def test_serve_cli_packed_and_aot(trained, tmp_path, capsys):
     for got, want in zip(packed, dense):  # bf16-rounded corrections
         np.testing.assert_allclose(got, want, rtol=0, atol=PACKED_ATOL)
 
-    # The float trunk on both sides: here the image tower is not the MoE's
-    # concern, and after training the int8 trunk's image embedding of one
-    # image differs from JAX's by 1.3e-2 (ROADMAP.md queue 3).
-    packed = _answers(path, "--packed", "--no_int8_trunk", "--device",
-                      "cpu")
+
+@pytest.mark.parametrize("trunk", [(), ("--no_int8_trunk",)],
+                         ids=["int8_trunk", "float_trunk"])
+def test_serve_cli_matches_serve_py(trained, trunk):
+    """The port's ``serve --packed`` against JAX's ``serve.py --packed`` on
+    the trained MoE checkpoint, with the int8 trunk (the default) and with
+    the float one. The int8 trunk matches because the port rounds as XLA's
+    jitted program does: the activation scale is ``max|x|`` times
+    float32(1/127), and the rescale is one fused multiply-add."""
+    import serve as jax_serve
+    from atq_tpu.train.classifier import load_checkpoint as jax_load
+
+    path = trained[0]
+    packed = _answers(path, "--packed", *trunk, "--device", "cpu")
     jax_args = jax_serve.build_parser().parse_args(
-        _argv(path, "--packed", "--no_int8_trunk"))
+        _argv(path, "--packed", *trunk))
     routes, servers = jax_serve.build_retrieval_routes(
         jax_args, jax_load(path), "parity")
     try:

@@ -21,8 +21,8 @@ FFN 64, images 32x32, batch 4, sequence 8; tests/test_train_steps.py).
   leaf's step-0 gradient and change from init, in both models, against
   JAX's (the tolerances below);
 - ``--grad_checkpointing`` gives the same gradients, bit for bit;
-- the CLI mirrors train_multimodal.py's flags, and those of features not
-  ported yet raise.
+- the CLI mirrors train_multimodal.py's flags, and ``--dp``/``--tp`` above
+  one rank raise without torchrun.
 
 The artifact files are held against a JAX run in
 tests/test_torch_retrieval_artifacts.py.
@@ -555,14 +555,33 @@ def test_fused_attention_with_dropout_takes_the_einsum_branch():
 # ---------------------------------------------------------------- the CLI
 
 
-UNPORTED = [["--dp", "2"], ["--tp", "2"], ["--fsdp"]]
+PARALLEL = [["--dp", "2"], ["--tp", "2"], ["--fsdp"]]
 
 
-@pytest.mark.parametrize("flags", UNPORTED, ids=[f[0] for f in UNPORTED])
-def test_unported_flags_raise(tmp_path, flags):
+@pytest.mark.parametrize("flags", PARALLEL, ids=[f[0] for f in PARALLEL])
+def test_parallel_flags_in_one_process(tmp_path, flags):
+    """Without torchrun a mesh of more than one rank raises, naming it,
+    before anything is written; a one-rank ``--fsdp`` shards nothing and
+    trains as the plain trainer (the multi-rank steps:
+    tests/test_torch_dp_retrieval.py)."""
     out = tmp_path / "out"
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1"):
-        ptrain.main(["--device", "cpu", "--output_dir", str(out)] + flags)
+    argv = ["--device", "cpu", "--output_dir", str(out)] + flags
+    if flags == ["--fsdp"]:
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # a file that trains: one thread a worker
+        try:
+            _, history, _ = ptrain.main(argv + [
+                "--batch_size", "4", "--embed_dim", "32", "--hidden_dim",
+                "64", "--image_size", "32", "--max_seq_length", "12",
+                "--synthetic_images", "20", "--epochs", "1", "--data_dir",
+                str(tmp_path / "no_flickr8k")])
+        finally:
+            torch.set_num_threads(threads)
+        assert np.isfinite(history["train_losses"]).all()
+        assert (out / "final_model.npz").exists()
+        return
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
+        ptrain.main(argv)
     assert not out.exists()
 
 

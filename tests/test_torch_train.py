@@ -425,9 +425,24 @@ def test_trainer_checkpoint_serves_on_jax(tmp_path):
 
 @pytest.mark.parametrize("field,value", [("dp", 2), ("tp", 2),
                                          ("fsdp", True)])
-def test_unported_options_raise(field, value):
-    cfg = ptrain.ClassifierConfig(device="cpu", **{field: value})
-    with pytest.raises(NotImplementedError, match="not ported"):
+def test_parallel_options_in_one_process(tmp_path, field, value):
+    """Without torchrun a mesh of more than one rank raises, naming it; a
+    one-rank ``fsdp`` shards nothing and trains as the plain trainer (the
+    multi-rank steps: tests/test_torch_dp_classifier.py)."""
+    cfg = ptrain.ClassifierConfig(device="cpu", epochs=1, use_rpb=True,
+                                  checkpoint_dir=str(tmp_path),
+                                  **{field: value})
+    if field == "fsdp":
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)  # a test that trains: one thread a worker
+        try:
+            _, results = ptrain.train_classifier(
+                cfg, loaders=_tiny_loaders(), verbose=False)
+        finally:
+            torch.set_num_threads(threads)
+        assert np.isfinite(results["epoch_losses"]).all()
+        return
+    with pytest.raises(ValueError, match="torchrun --nproc_per_node 2"):
         ptrain.train_classifier(cfg, loaders=_tiny_loaders(), verbose=False)
 
 
