@@ -14,9 +14,9 @@ checkpoint without ``constants`` gets its positional table), builds the
 model as the serving CLI does (serve/__main__.py ``build_classifier``,
 ``build_retrieval``: ``--packed`` serves every quantized layer from 2-bit
 planes, ``--int8_trunk`` the ResNet trunk from int8) and evaluates it with
-the trainers' own loops (train/classifier.py ``_run_eval``,
-train/retrieval.py ``evaluate_model``). ``--save_index`` embeds the
-split's unique images into an ``EmbeddingIndex`` ``.npz`` that
+the trainers' own loops (train/classifier.py ``build_eval_step`` and
+``_run_eval``, train/retrieval.py ``evaluate_model``). ``--save_index``
+embeds the split's unique images into an ``EmbeddingIndex`` ``.npz`` that
 ``python -m atq_tpu_torch.serve --index_file`` preloads. A TTQ checkpoint
 evaluated without ``--grad-mode ttq`` (or auto) exits, as does a
 ``vocab.json`` stamped by another tokenizer than the active one.
@@ -96,7 +96,7 @@ def _evaluate_classifier(args, ckpt, grad_mode, device):
         get_fashion_mnist_data,
         get_mnist_data,
     )
-    from atq_tpu_torch.train.classifier import _run_eval
+    from atq_tpu_torch.train.classifier import _run_eval, build_eval_step
 
     get_data = (get_mnist_data if args.dataset == "mnist"
                 else get_fashion_mnist_data)
@@ -104,7 +104,7 @@ def _evaluate_classifier(args, ckpt, grad_mode, device):
         args.batch_size, args.data_dir or "./data", subset_fraction=1.0)
     loader = val_loader if args.split == "val" else test_loader
     model = build_classifier(args, ckpt, grad_mode, device)
-    acc, loss = _run_eval(model, loader, device)
+    acc, loss = _run_eval(build_eval_step(model), loader, device)
     print(f"{args.dataset} {args.split} accuracy: {acc:.2f}%")
     return {"accuracy": acc, "loss": loss}
 

@@ -202,6 +202,22 @@ class ResNetFeatures(nn.Module):
 
 
 
+def resnet18_features(device=None,
+                      generator: Optional[torch.Generator] = None,
+                      dtype=None) -> ResNetFeatures:
+    """Headless ResNet-18 (BasicBlock, stages 2-2-2-2; 512 features)."""
+    return ResNetFeatures((2, 2, 2, 2), BasicBlock, device=device,
+                          generator=generator, dtype=dtype)
+
+
+def resnet50_features(device=None,
+                      generator: Optional[torch.Generator] = None,
+                      dtype=None) -> ResNetFeatures:
+    """Headless ResNet-50 (Bottleneck, stages 3-4-6-3; 2048 features)."""
+    return ResNetFeatures((3, 4, 6, 3), Bottleneck, device=device,
+                          generator=generator, dtype=dtype)
+
+
 def _torch_conv_to_flax(w: np.ndarray) -> np.ndarray:
     # torch conv weight (O, I, kh, kw) -> flax (kh, kw, I, O)
     return np.transpose(w, (2, 3, 1, 0))

@@ -190,6 +190,17 @@ class ATQMultimodalRetrieval(nn.Module):
         return to_jax_variables(self.state_dict())
 
 
+def modality_dropout_flags(generator: Optional[torch.Generator] = None,
+                           rate: float = 0.1):
+    """Per-batch modality-drop decisions ``(drop_image, drop_text)``, each
+    true with probability ``rate``, drawn from ``generator``. As in the
+    JAX package (and the reference it follows), the retrieval model sets
+    these flags but its forward never reads them; the legacy classifier
+    (models/legacy.py) does."""
+    u = torch.rand(2, generator=generator)
+    return bool(u[0] < rate), bool(u[1] < rate)
+
+
 def get_model_size_info(params: dict, use_rpb: bool = True) -> dict:
     """Parameter counts per component of a JAX-layout param tree and the
     reference's estimated ternarized memory (75% of parameters at 2 bits

@@ -38,7 +38,7 @@ from atq_tpu_torch.nn.attention import (
     _proj,
     lengths_to_padding_mask,
 )
-from atq_tpu_torch.nn.initializers import normal_std_
+from atq_tpu_torch.nn.initializers import normal_std_, xavier_uniform_gain_
 from atq_tpu_torch.nn.layers import dropout
 from atq_tpu_torch.nn.transformer import (
     ScannedTernaryStack,
@@ -162,12 +162,9 @@ def apply_reference_text_init(variables: dict,
     clobbers by accident, is drawn from the same xavier rule. Other leaves
     are kept. Values are drawn from ``generator``; the input is not
     mutated."""
-    gain = 0.8
-
     def xavier(shape):
-        bound = gain * np.sqrt(6.0 / (shape[-1] + shape[-2]))
-        return torch.empty(shape).uniform_(-bound, bound,
-                                           generator=generator).numpy()
+        return xavier_uniform_gain_(torch.empty(shape), 0.8,
+                                    generator=generator).numpy()
 
     def walk(node, keys):
         if isinstance(node, dict):

@@ -10,7 +10,9 @@
 - The encoder of the production-shape step (train/scale.py) uses flax's
   ``nn.Embed`` default (:func:`embed_default_`), ``nn.Dense`` default
   (:func:`lecun_normal_`, zero bias) and ``nn.LayerNorm`` (ones, zeros);
-  :func:`normal_std_` is the JAX package's ``normal_std``.
+  :func:`normal_std_` is the JAX package's ``normal_std``, and
+  :func:`xavier_uniform_gain_` its ``xavier_uniform_gain`` (the
+  reference's text-tower re-init, models/text_encoder.py).
 
 The two frameworks draw different numbers from one seed, so cross-checks
 carry weights across (utils/jax_interop.py) rather than re-drawing them;
@@ -65,6 +67,20 @@ def bias_uniform_torch_(tensor: torch.Tensor, fan_in: int,
                         generator: Optional[torch.Generator] = None):
     """PyTorch's default bias: ``U(-1/sqrt(fan_in), 1/sqrt(fan_in))``."""
     bound = 1.0 / math.sqrt(fan_in)
+    return tensor.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def xavier_uniform_gain_(tensor: torch.Tensor, gain: float = 0.8,
+                         generator: Optional[torch.Generator] = None):
+    """``xavier_uniform_`` with ``gain`` over the last two axes (fan-in
+    the last, fan-out the one before): ``U(-b, b)``, ``b = gain ·
+    sqrt(6 / (fan_in + fan_out))``; the reference's re-init of quantized
+    networks (atq_tpu/nn/initializers.py:xavier_uniform_gain)."""
+    shape = tensor.shape
+    fan_in = shape[-1]
+    fan_out = shape[-2] if len(shape) >= 2 else shape[-1]
+    bound = gain * math.sqrt(6.0 / (fan_in + fan_out))
     return tensor.uniform_(-bound, bound, generator=generator)
 
 

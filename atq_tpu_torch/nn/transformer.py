@@ -38,7 +38,8 @@ atq_tpu/nn/transformer.py).
 :func:`normalize_checkpoint` turns a JAX-layout retrieval checkpoint whose
 text stack is scanned (``text_encoder/layers/scan/layer``) into the
 unrolled ``layers_{i}`` layout that serving runs, as the JAX package's
-serve.py does for every checkpoint.
+serve.py does for every checkpoint; :func:`normalize_text_encoder_layout`
+does it for one text-encoder subtree.
 """
 
 from __future__ import annotations
@@ -409,16 +410,41 @@ def _unflatten(flat):
     return tree
 
 
+def _scanned_num_layers(subtree, dest: str = "layers") -> int:
+    """The layer count of a scanned subtree: its stacked leaves' leading
+    axis."""
+    leaves = [v for k, v in _flatten(subtree).items()
+              if k.startswith(f"{dest}.scan.")]
+    if not leaves:
+        raise ValueError("scanned subtree has no leaves")
+    return int(leaves[0].shape[0])
+
+
 def _unroll(subtree, dest: str = "layers"):
     """A scanned text-encoder subtree (nested dict of arrays) unrolled
     through :func:`unstack_layer_params`; the layer count is the stacked
     leaves' leading axis."""
-    flat = _flatten(subtree)
-    leaves = [v for k, v in flat.items() if k.startswith(f"{dest}.scan.")]
-    if not leaves:
-        raise ValueError("scanned subtree has no leaves")
-    return _unflatten(unstack_layer_params(flat, int(leaves[0].shape[0]),
-                                           dest=dest))
+    return _unflatten(unstack_layer_params(
+        _flatten(subtree), _scanned_num_layers(subtree, dest), dest=dest))
+
+
+def normalize_text_encoder_layout(params_te: dict, quant_te: dict,
+                                  num_layers: Optional[int] = None):
+    """A text-encoder subtree (nested dicts of arrays) in the unrolled
+    ``layers_{i}`` layout that evaluation and serving run: a scanned one
+    is unrolled, ``quant_te`` too when it is scanned. The layer count is
+    read off the stacked leaves; ``num_layers``, when given, must equal
+    it. Returns ``(params_te, quant_te, was_scanned)``; an unrolled input
+    comes back as it is."""
+    if not is_scanned_text_layout(params_te):
+        return params_te, quant_te, False
+    derived = _scanned_num_layers(params_te)
+    if num_layers is not None and num_layers != derived:
+        raise ValueError(f"scanned checkpoint has {derived} layers, caller "
+                         f"expected {num_layers}")
+    if is_scanned_text_layout(quant_te):
+        quant_te = _unroll(quant_te)
+    return _unroll(params_te), quant_te, True
 
 
 def normalize_checkpoint(ckpt: dict):

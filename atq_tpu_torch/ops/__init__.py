@@ -64,3 +64,14 @@ from atq_tpu_torch.ops import (  # noqa: E402,F401
     order_stat,
     ternary_matmul,
 )
+from atq_tpu_torch.ops.fast_pool import fast_max_pool  # noqa: E402
+from atq_tpu_torch.ops.ternary_matmul import (  # noqa: E402
+    kernel_eligible,
+    packed_ternary_matmul,
+)
+
+# The JAX package's exports (its pallas_eligible is kernel_eligible here),
+# then the port's launch and FLOP counts.
+__all__ = ["fast_max_pool", "packed_ternary_matmul", "kernel_eligible",
+           "kernel_wrappers", "kernel_launches", "kernel_flops",
+           "matmul_flops"]

@@ -32,6 +32,11 @@ moved to the serving device. Indices are held as int64 (torch indexing
 needs them) where the JAX export stores uint16, or int32 under
 ``ATQ_PACK32``; the values are the same, but ``packed_collection_bytes``
 counts the tensors as stored, so it differs from the JAX count.
+``PackedClassifier.memory_footprint_bytes`` counts the indices at the
+JAX export's widths, so it equals the JAX package's figure.
+
+:class:`PackedClassifier` is the classifier's deployment form: its conv
+features dense, its head from :func:`pack_quantized_params`' entries.
 """
 
 from __future__ import annotations
@@ -131,34 +136,39 @@ def pack_quantized_layer(params: Dict, quant: Optional[Dict] = None,
 
 
 def packed_linear_apply(entry: Dict, x: torch.Tensor) -> torch.Tensor:
-    """Forward through a packed layer (routing in the module docstring),
-    then the bias."""
-    n, k = entry["shape"]
-    alpha_neg = entry.get("alpha_neg")  # TTQ asymmetric scale, else None
-    is_p32 = entry["packed"].dtype == torch.int32  # pack_planar32 layout
-    if "correction" in entry and alpha_neg is None and not is_p32:
-        y = packed_ternary_matmul_rpb(x, entry["packed"], entry["correction"],
-                                      (n, k), alpha=entry["alpha"])
-    else:
-        y = _packed_and_correction(entry, x, n, k, alpha_neg, is_p32)
+    """Forward through a packed layer (routing in the module docstring):
+    the sum of :func:`_packed_terms` in their order, then the bias."""
+    terms = iter(_packed_terms(entry, x).values())
+    y = next(terms)
+    for t in terms:
+        y = y + t.to(y.dtype)
     if "bias" in entry:
         y = y + entry["bias"]
     return y
 
 
-def _packed_and_correction(entry, x, n, k, alpha_neg, is_p32):
-    y = packed_ternary_matmul(x, entry["packed"], (n, k),
-                              alpha=entry["alpha"],
-                              layout="planar32" if is_p32 else "planar",
-                              alpha_neg=alpha_neg)
+def _packed_terms(entry: Dict, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The terms a packed layer adds, by name, in the order it adds them:
+    ``rpb`` (the fused kernel, a dense correction in it), or ``packed``
+    (the packed kernel) then ``correction`` (dense), ``ell`` and ``coo``
+    where the entry has them."""
+    n, k = entry["shape"]
+    alpha_neg = entry.get("alpha_neg")  # TTQ asymmetric scale, else None
+    is_p32 = entry["packed"].dtype == torch.int32  # pack_planar32 layout
+    if "correction" in entry and alpha_neg is None and not is_p32:
+        return {"rpb": packed_ternary_matmul_rpb(
+            x, entry["packed"], entry["correction"], (n, k),
+            alpha=entry["alpha"])}
+    terms = {"packed": packed_ternary_matmul(
+        x, entry["packed"], (n, k), alpha=entry["alpha"],
+        layout="planar32" if is_p32 else "planar", alpha_neg=alpha_neg)}
     if "correction" in entry:  # dense correction (TTQ or planar32)
-        y = y + torch.matmul(x.float(),
-                             entry["correction"].float().T).to(y.dtype)
+        terms["correction"] = torch.matmul(x.float(),
+                                           entry["correction"].float().T)
     if "corr_idx" in entry:
         gathered = x[:, entry["corr_idx"]]  # (m, N, C)
-        vals = entry["corr_val"].float()
-        y = y + torch.einsum("mnc,nc->mn", gathered.float(),
-                             vals).to(y.dtype)
+        terms["ell"] = torch.einsum("mnc,nc->mn", gathered.float(),
+                                    entry["corr_val"].float())
     if "coo_row" in entry:
         contrib = x[:, entry["coo_col"]].float() * entry["coo_val"].float()
         spill = torch.zeros((n, x.shape[0]), dtype=torch.float32,
@@ -171,8 +181,103 @@ def _packed_and_correction(entry, x, n, k, alpha_neg, is_p32):
                              accumulate=True)
         else:
             spill.index_add_(0, entry["coo_row"], contrib.T)
-        y = y + spill.T.to(y.dtype)
-    return y
+        terms["coo"] = spill.T
+    return terms
+
+
+def pack_quantized_params(params: Dict, quant: Dict, layer_names,
+                          device=None) -> Dict[str, Dict]:
+    """Pack the quantized layers ``layer_names`` of a JAX-layout model
+    (``params``/``quant`` trees) by name, each entry on ``device``."""
+    dev = resolve_device(device)
+    return {name: pack_quantized_layer(params[name], quant.get(name),
+                                       device=dev)
+            for name in layer_names}
+
+
+def _jax_itemsize(entry: Dict, field: str) -> int:
+    """The width the JAX export stores an entry's field at: the planes and
+    values as here, the ELL/COO indices as uint16 where the dimension they
+    index fits it (int32 otherwise, and always under ``ATQ_PACK32``),
+    where the port holds int64."""
+    v = entry[field]
+    if field not in ("corr_idx", "coo_row", "coo_col"):
+        return v.element_size()
+    if entry["packed"].dtype == torch.int32:  # the ATQ_PACK32 export
+        return 4
+    n, k = entry["shape"]
+    extent = n if field == "coo_row" else k
+    return 2 if extent <= np.iinfo(np.uint16).max else 4
+
+
+class PackedClassifier:
+    """Serving wrapper of ``ATQImageClassifier``: the model of
+    models/image_classifier.py in eval mode, its full-precision conv
+    features on their BatchNorm running statistics and its two head layers
+    serving from 2-bit planes (:func:`attach_packed_collection`; on the
+    card the packed matmul kernel, the port of ``_kernel``, with no dense
+    fallback), the deployment target of the JAX package's class of the
+    same name.
+
+    ``params``, ``quant`` and ``batch_stats`` are the JAX-layout trees of
+    a checkpoint (utils/jax_interop.py ``load_checkpoint``). ``use_rpb``
+    and ``hidden_size`` describe the checkpoint, and a head that is not
+    ``hidden_size`` wide, or whose precision mask is there without
+    ``use_rpb`` or missing with it, raises. Everything is moved to
+    ``device`` once, at construction."""
+
+    def __init__(self, params: Dict, quant: Dict, batch_stats: Dict,
+                 use_rpb: bool = True, hidden_size: int = 128,
+                 device="cuda"):
+        from atq_tpu_torch.models.image_classifier import ATQImageClassifier
+        from atq_tpu_torch.utils.jax_interop import from_jax_variables
+
+        head = params["classifier_0"]
+        width, in_features = np.shape(head["weight"])
+        if width != hidden_size:
+            raise ValueError(f"the checkpoint's head is {width} wide, not "
+                             f"hidden_size={hidden_size}")
+        if use_rpb != ("precision_mask" in quant.get("classifier_0", {})):
+            raise ValueError(f"use_rpb={use_rpb} does not match the "
+                             f"checkpoint's head")
+        self.device = resolve_device(device)
+        self.model = ATQImageClassifier(
+            num_classes=np.shape(params["classifier_3"]["weight"])[0],
+            input_channels=np.shape(params["features"]["conv1"]["kernel"])[2],
+            use_rpb=use_rpb, hidden_size=hidden_size,
+            grad_mode="ttq" if "wp" in head else "parity",
+            image_size=4 * int(round(np.sqrt(in_features / 64))),
+            device=self.device,
+            generator=torch.Generator())  # overwritten by the checkpoint
+        self.model.load_state_dict(from_jax_variables(
+            {"params": params, "quant": quant, "batch_stats": batch_stats}))
+        self.packed = pack_quantized_params(
+            params, quant, ["classifier_0", "classifier_3"],
+            device=self.device)
+        attach_packed_collection(self.model, {
+            name: {"entry": e} for name, e in self.packed.items()})
+
+    @torch.inference_mode()
+    def __call__(self, x) -> torch.Tensor:
+        """Logits for NHWC images (a tensor or an array), on the device."""
+        return self.model(torch.as_tensor(x, dtype=torch.float32,
+                                          device=self.device))
+
+    def memory_footprint_bytes(self) -> Dict[str, int]:
+        """Serving weight bytes, counted field for field as the JAX
+        package counts them (the planes, the corrections at 2 bytes a
+        value, the indices at the width its export stores them, the bias
+        at 4 bytes a value), and the dense float32 weights' bytes."""
+        total = 0
+        for entry in self.packed.values():
+            for field in ("packed", "correction", "corr_idx", "corr_val",
+                          "coo_row", "coo_col", "coo_val", "bias"):
+                if field in entry:
+                    total += entry[field].numel() * _jax_itemsize(entry,
+                                                                  field)
+        dense = sum(int(np.prod(e["shape"])) * 4
+                    for e in self.packed.values())
+        return {"packed_bytes": int(total), "dense_fp32_bytes": int(dense)}
 
 
 def export_packed_collection(params: Dict, quant: Optional[Dict] = None,

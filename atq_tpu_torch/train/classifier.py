@@ -53,6 +53,7 @@ and writes files; checkpoints are whole.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import os
 import time
@@ -93,7 +94,11 @@ from atq_tpu_torch.train.schedules_lr import (
     step_lr_schedule,
     warmup_cosine_schedule,
 )
-from atq_tpu_torch.utils.jax_interop import save_checkpoint, to_jax_variables
+from atq_tpu_torch.utils.jax_interop import (
+    load_checkpoint as jax_load_checkpoint,
+    save_checkpoint,
+    to_jax_variables,
+)
 from atq_tpu_torch.utils.platform import resolve_device
 from atq_tpu_torch.utils.profile_step import (
     TRAIN_SPAN,
@@ -505,23 +510,53 @@ def _to_device(array: np.ndarray, device) -> torch.Tensor:
     return t.pin_memory().to(device, non_blocking=True)
 
 
-@torch.inference_mode()
-def _run_eval(model, loader, device):
-    """``(accuracy %, mean loss)`` over a loader of normalized batches; the
-    sums stay on the device until the end."""
-    model.eval()
-    loss = torch.zeros((), device=device)
-    correct = torch.zeros((), dtype=torch.long, device=device)
-    count = 0
+def build_eval_step(model, packed=None):
+    """``eval_step((images, labels))``: ``model``'s eval-mode forward on a
+    batch on its device and the JAX step's sums for it, left on the
+    device: ``{"loss": mean cross-entropy × rows, "correct": rows whose
+    argmax is the label, "count": rows}``. With ``packed``, an exported
+    collection (serve/packed_model.py ``export_packed_collection``), the
+    step runs a copy of ``model`` whose quantized layers serve from their
+    2-bit planes, as JAX passes its 'packed' collection to every apply;
+    ``model`` itself is left as it was."""
+    if packed:
+        from atq_tpu_torch.serve.packed_model import attach_packed_collection
+
+        model = copy.deepcopy(model)
+        attach_packed_collection(model, packed)
+
+    @torch.inference_mode()
+    def eval_step(batch):
+        images, labels = batch
+        model.eval()
+        logits = model(images)
+        n = labels.shape[0]
+        return {"loss": _cross_entropy(logits, labels) * n,
+                "correct": (logits.argmax(-1) == labels).sum(),
+                # A fill on the device: a host tensor copied there would
+                # make the host wait for the stream on every batch.
+                "count": torch.full((), n, dtype=torch.int32,
+                                    device=labels.device)}
+
+    return eval_step
+
+
+def _run_eval(eval_step, loader, device):
+    """``(accuracy %, mean loss)`` over a loader of normalized batches,
+    each through ``eval_step`` (:func:`build_eval_step`); the sums stay on
+    the device until one read at the end."""
+    totals = {}
     for images, labels in loader:
-        x = _to_device(images, device)
-        y = _to_device(labels, device).long()
-        logits = model(x)
-        loss += _cross_entropy(logits, y) * y.shape[0]
-        correct += (logits.argmax(-1) == y).sum()
-        count += y.shape[0]
-    return (100.0 * correct.item() / max(1, count),
-            loss.item() / max(1, count))
+        m = eval_step((_to_device(images, device),
+                       _to_device(labels, device).long()))
+        totals = {k: totals[k] + v if k in totals else v
+                  for k, v in m.items()}
+    if not totals:
+        return 0.0, 0.0
+    correct, loss, count = torch.stack([
+        totals[k].double() for k in ("correct", "loss", "count")]).tolist()
+    count = max(1.0, count)
+    return 100.0 * correct / count, loss / count
 
 
 class _StepClock:
@@ -766,7 +801,8 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
         base_acc = 100.0 * totals.get("base_correct", 0) / max(1, count)
         results["train_accuracies"].append(train_acc)
         with atq_sh.whole():
-            val_acc = from_rank0(_run_eval(atq_model, val_loader, device)[0])
+            val_acc = from_rank0(_run_eval(build_eval_step(atq_model),
+                                          val_loader, device)[0])
         results["val_accuracies"].append(val_acc)
         tb.scalars(epoch + 1, {
             "train_acc": train_acc, "base_acc": base_acc,
@@ -810,8 +846,10 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
     if prof is not None:  # no epoch ran
         stop_trace(prof, device)
     with atq_sh.whole(), base_sh.whole():
-        test_acc, _ = _run_eval(atq_model, test_loader, device)
-        base_test_acc, _ = _run_eval(base_model, test_loader, device)
+        test_acc, _ = _run_eval(build_eval_step(atq_model), test_loader,
+                                device)
+        base_test_acc, _ = _run_eval(build_eval_step(base_model),
+                                     test_loader, device)
     if multi is not None:
         # The efficiency figures below time one process's forward: whole
         # copies on every rank, whose forward is no collective.
@@ -866,3 +904,46 @@ def train_classifier(cfg: ClassifierConfig, loaders=None, verbose=True):
              "generator": step_gen, "mesh": mesh,
              "sharded": (atq_sh, base_sh)}
     return state, results
+
+
+def _restore(node, path, data):
+    if node is None:
+        return None
+    if isinstance(node, dict):
+        return {k: _restore(v, path + (str(k),), data)
+                for k, v in node.items()}
+    if isinstance(node, tuple) and hasattr(node, "_fields"):  # named tuple
+        return type(node)(*(_restore(getattr(node, f), path + (f,), data)
+                            for f in node._fields))
+    if isinstance(node, (list, tuple)):
+        return type(node)(_restore(v, path + (str(i),), data)
+                          for i, v in enumerate(node))
+    name = "/".join(path)
+    if name not in data:
+        return node
+    t = torch.from_numpy(data[name])
+    return t.to(node.device) if isinstance(node, torch.Tensor) else t
+
+
+def load_checkpoint(path: str, template=None):
+    """A ``.npz`` checkpoint of the JAX layout (keys are '/'-joined paths),
+    as the JAX trainer's reader gives it, with tensors for arrays.
+
+    Without ``template``: the nested dict by path segments
+    (utils/jax_interop.py ``load_checkpoint``), enough for params, quant
+    and batch_stats. With one (nested dicts, lists, tuples and named
+    tuples, e.g. an optimizer's state): the same structure, each leaf
+    replaced by the file's array at its key path (a dict key, a sequence
+    index, a named tuple's field name), on the leaf's device when the leaf
+    is a tensor; a leaf whose path the file lacks is kept, and ``None``
+    stays ``None``."""
+    if template is None:
+        def to_tensors(node):
+            if isinstance(node, dict):
+                return {k: to_tensors(v) for k, v in node.items()}
+            return torch.from_numpy(node)
+
+        return to_tensors(jax_load_checkpoint(path))
+    with np.load(path) as f:
+        data = {k: np.asarray(f[k]) for k in f.files}
+    return _restore(template, (), data)

@@ -5,7 +5,8 @@ MFU = the model's required FLOPs per step / seconds per step / the card's
 dense bf16 tensor-core peak. The peak is NVIDIA's H100 SXM data sheet
 figure, 989 TFLOP/s dense BF16 (without sparsity), at the 700 W power
 limit; a card run below that limit reaches less. The JAX package's TPU
-table has no counterpart here.
+table has no counterpart here: :func:`peak_flops_per_chip` reads the
+card's name where JAX reads the device kind.
 
 :func:`counted_flops` takes the place of XLA's cost analysis
 (``compiled_flops``): it counts one call with
@@ -35,6 +36,18 @@ def peak_flops_per_device(device_name: str) -> Optional[float]:
         if key in device_name:
             return peak
     return None
+
+
+def peak_flops_per_chip(device=None) -> Optional[float]:
+    """Peak dense bf16 FLOP/s of ``device`` (default: the current CUDA
+    device), by its name; None on the CPU, on a host without a GPU, or for
+    a card not in the table."""
+    import torch
+
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type != "cuda" or not torch.cuda.is_available():
+        return None
+    return peak_flops_per_device(torch.cuda.get_device_name(dev))
 
 
 def mfu(flops_per_step: Optional[float], seconds_per_step: float,

@@ -41,6 +41,12 @@
                                    # SPEC of artifacts in, counts out),
                                    # which serve_aot runs as a process of
                                    # its own
+    python3 chip_smoke.py --amp-modules [OUT]
+                                   # the readings behind
+                                   # train_retrieval_amp's module limits
+                                   # (text tower, fusion, projectors) at
+                                   # seeds 0-2: card twice, CPU at 1
+                                   # thread, planted faults; JSON in OUT
     python3 chip_smoke.py --retrieval-scan-step0 [OUT]
                                    # the readings behind
                                    # train_retrieval_scan's step-0 limits
@@ -87,6 +93,14 @@ Phases, one JSON line each; any failure exits non-zero:
                 through the packed ternary matmul kernel; also checked
                 against dense within the bf16-correction tolerance
                 (rtol/atol 2e-2).
+  packed_classifier
+                serve.PackedClassifier (the classifier's deployment form:
+                dense conv features, the head from 2-bit planes) on the
+                card on serve_packed's checkpoint: one batch of 256
+                synthetic Fashion-MNIST images (serve_packed's 64 first)
+                within rtol/atol 1e-4 of the same class on the CPU and of
+                serve_packed's /predict logits, 2 packed-kernel launches,
+                and memory_footprint_bytes (equal on both devices).
   serve_retrieval
                 python -m atq_tpu_torch.serve --task retrieval --packed
                 --use_residual in-process at the README's widths (ResNet-18
@@ -233,6 +247,12 @@ Phases, one JSON line each; any failure exits non-zero:
                 the card's index preloaded by serve --index_file,
                 each of its 40 images its own /search top-1; launches
                 equal to the batches' packed layers or order statistics.
+                Then the text tower module by module, dense and --packed
+                (a line a module: each module's output on the card in the
+                card's forward and on the CPU's inputs against the CPU's,
+                a packed layer's terms, each attention's largest score and
+                its scores' distance; the summary names the module where
+                the distance grows), the embedding within 1e-3.
   train_retrieval_scan
                 --scan_layers at the recipe's widths. (a) Step 0
                 (train_retrieval's set-up: dropout 0, optimal alphas) of
@@ -270,7 +290,13 @@ Phases, one JSON line each; any failure exits non-zero:
                 faults (every BatchNorm in bf16; the convolutions left in
                 float32) must fail the eval limits; no limit of the train
                 step can tell them from a correct card (the CPU at 1
-                thread against 8 reads as far as they do). The train
+                thread against 8 reads as far as they do). Then the text
+                tower, the fusion and the projectors each alone on the
+                CPU's inputs in eval mode (outputs and the backward of
+                fixed cotangents), held by the same ratio within
+                AMP_MODULE_LIMIT, with those faults carried over (the
+                module's products in float32, its LayerNorms in bf16),
+                each of which must fail its module's limit. The train
                 step's thresholds and ternary patterns under AMP equal
                 float32's bit for bit (56 each), every threshold on a
                 float32 weight; 27 order-statistic launches. Then GradCache
@@ -1611,6 +1637,115 @@ def phase_serve(name, path, packed, images, reference):
     return logits, launches
 
 
+# serve_packed's PackedClassifier (serve/packed_model.py): one batch of
+# PACKED_CLF_BATCH synthetic Fashion-MNIST images (serve_packed's 64 first,
+# the test split's first images after them) through the classifier's
+# deployment form, within PACKED_CLF_TOL (serve_dense's tolerance, rtol and
+# atol) of the same class on the CPU and of serve_packed's /predict logits.
+PACKED_CLF_BATCH, PACKED_CLF_TOL = 256, 1e-4
+
+
+def _host_syncs(fn):
+    """``fn()``'s result and the number of times it made the host wait
+    for the card (torch.cuda.set_sync_debug_mode's warnings)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchronizing" in str(w.message) for w in caught)
+
+
+def eval_syncs(model, images, labels):
+    """The host waits of the classifier's eval loop (train/classifier.py
+    ``_run_eval`` over ``build_eval_step``), which the trainer's
+    validation and ``python -m atq_tpu_torch.evaluate`` run, over one
+    batch and over four, after a first call (whose one-off set-up may
+    wait once more): one read at the end, none a batch. A planted
+    ``.item()`` must count one; the model's bare forward is read beside."""
+    from atq_tpu_torch.train.classifier import _run_eval, build_eval_step
+
+    dev = torch.device("cuda")
+    step = build_eval_step(model)
+    _, first = _host_syncs(lambda: _run_eval(step, [(images, labels)], dev))
+    counts = {}
+    for n in (1, 4):
+        loader = [(images, labels)] * n
+        _, counts[n] = _host_syncs(lambda: _run_eval(step, loader, dev))
+    _, planted = _host_syncs(lambda: torch.zeros((), device=dev).item())
+    x = torch.as_tensor(images, device=dev)
+    with torch.inference_mode():
+        _, forward = _host_syncs(lambda: model(x))
+    if planted != 1 or counts != {1: 1, 4: 1}:
+        raise AssertionError(f"eval loop syncs {counts}, planted "
+                             f"{planted}")
+    return {"eval_first_call": first, "eval_1_batch": counts[1],
+            "eval_4_batches": counts[4],
+            "planted_item": planted, "forward": forward}
+
+
+def phase_packed_classifier(path, served_images, served_logits):
+    """``PackedClassifier`` on the card on serve_packed's checkpoint: one
+    batch against its CPU plain path and the served logits, its kernel
+    launches (the packed matmul, once a head layer) and its
+    ``memory_footprint_bytes``; and the eval loop's host waits
+    (:func:`eval_syncs`) on its model."""
+    from atq_tpu_torch.data.mnist import FASHION_STATS, synthetic_test_set
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.serve import PackedClassifier
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    ckpt = load_checkpoint(path)
+    more = synthetic_test_set("fashion_mnist", PACKED_CLF_BATCH)[0][
+        :PACKED_CLF_BATCH - len(served_images)].astype(np.float32) / 255.0
+    mean, std = FASHION_STATS
+    x = ((np.concatenate([served_images, more]) - mean) / std)[..., None]
+    args = (ckpt["params"], ckpt["quant"], ckpt["batch_stats"])
+    card = PackedClassifier(*args, use_rpb=True, hidden_size=128,
+                            device="cuda")
+    cpu = PackedClassifier(*args, use_rpb=True, hidden_size=128,
+                           device="cpu")
+    card(x)  # first batch: cuDNN set-up
+    torch.cuda.synchronize()
+    _reset_launches()
+    t0 = time.perf_counter()
+    got = card(x)
+    torch.cuda.synchronize()
+    batch_ms = (time.perf_counter() - t0) * 1e3
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    got, want = got.cpu().numpy(), cpu(x).numpy()
+    served = got[:len(served_images)]
+    if got.shape != (PACKED_CLF_BATCH, 10) or not np.isfinite(got).all():
+        raise AssertionError(f"PackedClassifier: bad logits {got.shape}")
+    np.testing.assert_allclose(got, want, rtol=PACKED_CLF_TOL,
+                               atol=PACKED_CLF_TOL,
+                               err_msg="PackedClassifier vs its CPU path")
+    np.testing.assert_allclose(served, served_logits, rtol=PACKED_CLF_TOL,
+                               atol=PACKED_CLF_TOL,
+                               err_msg="PackedClassifier vs /predict")
+    if launches != {"ternary_matmul": 2}:
+        raise AssertionError(f"PackedClassifier launches {launches}")
+    footprint = card.memory_footprint_bytes()
+    if footprint != cpu.memory_footprint_bytes():
+        raise AssertionError("PackedClassifier footprint card vs CPU")
+    labels = np.random.default_rng(0).integers(
+        0, 10, PACKED_CLF_BATCH).astype(np.int64)
+    syncs = eval_syncs(card.model, x.astype(np.float32), labels)
+    emit({"phase": "packed_classifier", "batch": PACKED_CLF_BATCH,
+          "max_abs_err_vs_cpu": float(np.abs(got - want).max()),
+          "max_abs_err_vs_served": float(np.abs(served
+                                               - served_logits).max()),
+          "tol": PACKED_CLF_TOL, "launches": launches,
+          "batch_ms": batch_ms,
+          "memory_footprint_bytes": footprint, "eval_host_syncs": syncs})
+    return launches
+
+
 def make_retrieval_checkpoint(tmpdir):
     """A seeded README-width retrieval model as a JAX-layout .npz, with a
     vocab.json beside it built from the synthetic corpus's training split.
@@ -2112,6 +2247,140 @@ def _search_own_images(ret_path, index_file, first):
                                       for a in answers))}
 
 
+# evaluate's text embeddings, card against CPU, module by module (the
+# trained retrieval checkpoint, dense and --packed, the test split's text
+# batch at the evaluation's batch): each module's output on the card in
+# the card's own forward ("chained") and run again on the card on the
+# CPU's inputs to it ("local"), against the CPU's, by max |difference|
+# beside the CPU output's max |value|; a packed layer's terms
+# (serve/packed_model.py ``_packed_terms``: the kernel, the ELL and COO
+# sums) on the CPU's inputs; each attention's largest |score| (q·kᵀ/√d on
+# the CPU) and its scores' distance on the CPU's q and k (the attention's
+# own product, as nn/attention.py computes it). ``grows_at`` is the first
+# module whose chained distance, relative to its output's scale, reaches
+# a tenth of the embedding's.
+TEXT_LAYER_MODULES = ("norm1", "self_attn.q_proj", "self_attn.k_proj",
+                      "self_attn.v_proj", "self_attn.out_proj", "self_attn",
+                      "norm2", "linear1", "linear2", "")
+TEXT_HEADS = 8
+
+
+def _text_module_names(n_layers):
+    names = ["text_encoder.embedding", "text_encoder.embed_norm"]
+    for i in range(n_layers):
+        names += [f"text_encoder.layers_{i}" + (f".{m}" if m else "")
+                  for m in TEXT_LAYER_MODULES]
+    return names + ["text_encoder.norm", "text_encoder.attention_pool_0",
+                    "text_encoder.attention_pool_2", "text_encoder",
+                    "text_projector", "text_norm"]
+
+
+def _to_device(obj, dev):
+    if isinstance(obj, torch.Tensor):
+        return obj.to(dev)
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_to_device(o, dev) for o in obj)
+    if isinstance(obj, dict):
+        return {k: _to_device(v, dev) for k, v in obj.items()}
+    return obj
+
+
+def _recorded_forward(model, names, fn):
+    """``fn()`` with each named module's (args, kwargs, output) of the call
+    recorded, by name."""
+    store, handles = {}, []
+    for name in names:
+        def hook(mod, args, kwargs, out, name=name):
+            store[name] = (args, kwargs, out)
+
+        handles.append(model.get_submodule(name).register_forward_hook(
+            hook, with_kwargs=True))
+    try:
+        with torch.inference_mode():
+            out = fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return out, store
+
+
+def _max_abs(a, b=None):
+    d = a.float() if b is None else a.float().cpu() - b.float().cpu()
+    return float(d.abs().max())
+
+
+def text_tower_modules(ckpt, data_dir, packed):
+    """The module-by-module reading of the text tower above on ``ckpt``
+    (dense, or ``packed``): a line each, then the summary, returned."""
+    from atq_tpu_torch.data.flickr8k import prepare_flickr8k_dataloaders
+    from atq_tpu_torch.evaluate import build_parser as eval_parser
+    from atq_tpu_torch.serve.__main__ import build_retrieval
+    from atq_tpu_torch.serve.packed_model import _packed_terms
+    from atq_tpu_torch.train.retrieval import _batch_to
+    from atq_tpu_torch.utils.jax_interop import load_checkpoint
+
+    argv = [a for a in RETRIEVAL_ARGV if packed or a != "--packed"]
+    args = eval_parser().parse_args(argv + ["--checkpoint", ckpt])
+    _, _, loader, vocab_size, _ = prepare_flickr8k_dataloaders(
+        batch_size=EVAL_BATCH, image_size=IMAGE_SIZE, max_length=SEQ_LEN,
+        root_dir=data_dir, vocab_file=os.path.join(os.path.dirname(ckpt),
+                                                   "vocab.json"))
+    weights = load_checkpoint(ckpt)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    models = {d: build_retrieval(args, weights, "parity", d, vocab_size)
+              for d in (cuda, cpu)}
+    ids, lengths = _batch_to(next(iter(loader)), cpu)[1:3]
+    names = _text_module_names(models[cpu].text_encoder.num_layers)
+    outs = {d: _recorded_forward(models[d], names,
+                                 lambda d=d: models[d].encode_text(
+                                     ids.to(d), lengths.to(d)))
+            for d in (cuda, cpu)}
+    mode = "packed" if packed else "dense"
+    lines = []
+    for name in names:
+        args_, kwargs, ref = outs[cpu][1][name]
+        mod = models[cuda].get_submodule(name)
+        with torch.inference_mode():
+            local = mod(*_to_device(args_, cuda), **_to_device(kwargs, cuda))
+        line = {"module": name, "local": _max_abs(local, ref),
+                "chained": _max_abs(outs[cuda][1][name][2], ref),
+                "ref": _max_abs(ref)}
+        entry = getattr(mod, "packed_entry", None)
+        if entry is not None:
+            x = args_[0].reshape(-1, args_[0].shape[-1])
+            cpu_entry = models[cpu].get_submodule(name).packed_entry
+            with torch.inference_mode():
+                got = _packed_terms(entry, x.to(cuda))
+                want = _packed_terms(cpu_entry, x)
+            line["terms"] = {k: _max_abs(got[k], want[k]) for k in want}
+        if name.endswith(".self_attn"):
+            q, k = (mod._split(outs[cpu][1][f"{name}.{p}_proj"][2],
+                               ids.shape[0]) for p in "qk")
+            scale = 1.0 / mod.head_dim ** 0.5
+            with torch.inference_mode():
+                scores = [torch.matmul(q.to(d), k.to(d).transpose(-1, -2))
+                          * scale for d in (cuda, cpu)]
+            line["max_abs_score"] = _max_abs(scores[1])
+            line["score_local"] = _max_abs(*scores)
+        emit({"phase": "evaluate_text_modules", "mode": mode, **line})
+        lines.append(line)
+    final = _max_abs(outs[cuda][0], outs[cpu][0])
+    scale = _max_abs(outs[cpu][0])
+    grows_at = next((ln["module"] for ln in lines
+                     if ln["chained"] / max(ln["ref"], 1e-30)
+                     >= 0.1 * final / scale), None) if final else None
+    largest = max(lines, key=lambda ln: ln["local"] / max(ln["ref"], 1e-30))
+    summary = {"mode": mode, "rows": int(ids.shape[0]),
+               "text_max_abs_err": final, "limit": RETRIEVAL_ATOL,
+               "grows_at": grows_at,
+               "largest_local": {k: largest[k] for k in
+                                 ("module", "local", "ref")}}
+    emit({"phase": "evaluate_text_modules", **summary})
+    if not final <= RETRIEVAL_ATOL:
+        raise AssertionError(f"evaluate text tower ({mode}): {final}")
+    return summary
+
+
 def phase_evaluate(clf_path, ret_path, tmp):
     """``python -m atq_tpu_torch.evaluate``'s main() on the card on the
     trained checkpoints (train_dense's classifier, train_retrieval's
@@ -2194,6 +2463,10 @@ def phase_evaluate(clf_path, ret_path, tmp):
                              f"(limit {RETRIEVAL_ATOL})")
     search = _search_own_images(ret_path, os.path.join(tmp, "index_cuda.npz"),
                                 first)
+    t = time.perf_counter()
+    text_modules = [text_tower_modules(ret_path, data_dir, packed)
+                    for packed in (False, True)]
+    text_modules_seconds = time.perf_counter() - t
     batches = -(-CLF_EVAL_IMAGES // EVAL_BATCH)
     ret_batches = -(-RET_EVAL_ROWS // EVAL_BATCH)
     want_launches = {
@@ -2214,6 +2487,8 @@ def phase_evaluate(clf_path, ret_path, tmp):
                         "text_max_abs_err": text_err,
                         "embedding_limit": RETRIEVAL_ATOL},
           "search": search, "launches": launches,
+          "text_modules": text_modules,
+          "text_modules_seconds": text_modules_seconds,
           "seconds_by_run": {f"{n}_{d}": s for (n, d), (_, s) in
                              runs.items()},
           "seconds": time.perf_counter() - t0})
@@ -3199,14 +3474,15 @@ def _retrieval_path_layers(model):
 
 def _retrieval_step0_setup(tmp, optimal_alphas=True, amp=False, dropout=0.0,
                            n=RETRIEVAL_BATCH, raw_uint8=False,
-                           moe_experts=0):
+                           moe_experts=0, seed=0):
     """The README-width model on the CPU with ``dropout`` (0 by default),
     after --reinit_model and epoch 0 of the gradual schedule, at optimal
     alphas (or at the recipe's alpha 1), with ``compute_dtype=bfloat16``
     when ``amp`` (the same weights), with ``moe_experts`` experts a text
     layer (and the config's aux term) when above 0, and the first ``n``
     synthetic training pairs as float images (normalized, unflipped), or as
-    uint8 images when ``raw_uint8``."""
+    uint8 images when ``raw_uint8``; the init from ``seed`` (the reinit
+    from 99 + ``seed``)."""
     from atq_tpu_torch.core.quantize import adaptive_ternary_quantization
     from atq_tpu_torch.core.schedules import GradualQuantizationScheduler
     from atq_tpu_torch.data.flickr8k import Flickr8kDataset
@@ -3234,8 +3510,8 @@ def _retrieval_step0_setup(tmp, optimal_alphas=True, amp=False, dropout=0.0,
         use_residual=True, max_seq_length=SEQ_LEN, dropout=dropout,
         text_moe_experts=moe_experts,
         compute_dtype=torch.bfloat16 if amp else None, device="cpu",
-        generator=torch.Generator().manual_seed(0))
-    reinit_model_(model, torch.Generator().manual_seed(99))
+        generator=torch.Generator().manual_seed(seed))
+    reinit_model_(model, torch.Generator().manual_seed(99 + seed))
     GradualQuantizationScheduler(2, warmup_epochs=2).step(
         model, 0, retrieval_sparsity_plan(cfg))
     if not optimal_alphas:
@@ -4014,6 +4290,169 @@ def _same_quantizer(amp_calls, f32_calls):
     return {"thresholds": n["thresholds"][0], "patterns": n["patterns"][0]}
 
 
+# AMP by module (phase train_retrieval_amp): the eval comparison above
+# can tell a fault only at the ResNet leaves, since one-ulp flips carried
+# through the whole model read as much as a fault elsewhere. So each of
+# the text tower (token ids in, pooled features out), the fusion
+# (models/fusion.py, on the CPU AMP run's two embeddings) and the
+# projectors (the image encoder's head, the text projector and the image
+# projector with their LayerNorms, on the CPU AMP run's trunk features and
+# text features; the similarity matrix and both embeddings out) runs
+# alone, in eval mode, on the CPU's inputs, with the backward of
+# <outputs, fixed cotangents> to its parameters; each is held by
+# _amp_ratios' measure, sum|card - cpu_bf16| / sum|cpu_bf16 - cpu_f32|,
+# over its outputs and over its gradients, within AMP_MODULE_LIMIT. The
+# ResNet's planted faults carried over: the module's products left in
+# float32 (every quantized layer's compute dtype dropped) and its
+# LayerNorms in bf16; each must fail its module's limit.
+# `--amp-modules` takes the readings at seeds 0-2.
+AMP_MODULES = ("text_tower", "fusion", "projectors")
+AMP_MODULE_FAULTS = ("products_f32", "norm_bf16")
+# Readings (--amp-modules, seeds 0-2, one H100 80GB HBM3 at 700 W; the
+# card's runs repeat bit for bit, the CPU at 1 thread reads 0 against 8):
+# correct card, outputs / gradients: text tower 0.102-0.201 / 0.429-0.491
+# (four layers of attention carry the flips on), fusion 0-0.059 /
+# 0.008-0.164, projectors below 1e-4 / 1e-4; products in float32 1.0 /
+# 1.0 everywhere; LayerNorms in bf16: text tower 1.29-1.41 / 1.23-1.33,
+# fusion 1.15-1.27 / 1.13-1.26, projectors 0.98-1.14 / 1.40-1.50.
+AMP_MODULE_LIMIT = {"text_tower": {"outputs": 0.5, "grads": 0.75},
+                    "fusion": {"outputs": 0.3, "grads": 0.5},
+                    "projectors": {"outputs": 0.1, "grads": 0.1}}
+AMP_MODULE_SEEDS = (0, 1, 2)
+
+
+class _Passthrough(torch.nn.Module):
+    """An encoder that hands its input on (the projectors' run)."""
+
+    def forward(self, x, *args, **kwargs):
+        return x
+
+
+def _amp_module_inputs(amp_model, batch):
+    """The CPU AMP run's inputs to each module (eval mode), float32."""
+    from atq_tpu_torch.train.retrieval import _batch_to
+
+    images, ids, lengths = _batch_to(batch, torch.device("cpu"))
+    with torch.no_grad():
+        feats = amp_model.image_encoder.base_model(images).float()
+        text = amp_model.text_encoder(ids, lengths).float()
+        img, txt = amp_model(images, ids, lengths, return_embeddings=True,
+                             train=False)
+    return {"text_tower": (ids, lengths),
+            "fusion": (img.float(), txt.float()),
+            "projectors": (feats, text)}
+
+
+@contextlib.contextmanager
+def _norm_bf16():
+    """The planted fault: every LayerNorm computed in bf16."""
+    from atq_tpu_torch.nn.attention import LayerNorm32
+
+    def forward(self, x):
+        bf = torch.bfloat16
+        return torch.nn.functional.layer_norm(
+            x.to(bf), self.normalized_shape, self.weight.to(bf),
+            self.bias.to(bf), self.eps).float()
+
+    with mock.patch.object(LayerNorm32, "forward", forward):
+        yield
+
+
+def _amp_module_run(model, module, inputs, device, seed, fault=None):
+    """``module``'s outputs and parameter gradients (the backward of
+    <outputs, cotangents drawn from ``seed``>) of a copy of ``model`` on
+    ``device`` in eval mode, on ``inputs``; ``fault`` plants
+    ``products_f32`` or ``norm_bf16``."""
+    import copy
+
+    dev = torch.device(device)
+    m = copy.deepcopy(model).to(dev).eval()
+    if fault == "products_f32":
+        for mod in m.modules():
+            if getattr(mod, "dtype", None) == torch.bfloat16:
+                mod.dtype = None
+    x = _to_device(inputs, dev)
+    with (_norm_bf16() if fault == "norm_bf16"
+          else contextlib.nullcontext()):
+        if module == "text_tower":
+            outs = [m.text_encoder(*x)]
+        elif module == "fusion":
+            outs = [m.fusion({"image": x[0], "text": x[1]})]
+        else:
+            m.image_encoder.base_model = _Passthrough()
+            m.text_encoder = _Passthrough()
+            outs = list(m(*x, return_embeddings=True)) + [m(*x)]
+        g = torch.Generator().manual_seed(5 + seed)
+        cots = [torch.randn(o.shape, generator=g).to(dev) for o in outs]
+        sum((o.float() * c).sum() for o, c in zip(outs, cots)).backward()
+    grads = {n: p.grad.detach().double().cpu()
+             for n, p in m.named_parameters() if p.grad is not None}
+    return [o.detach().double().cpu() for o in outs], grads
+
+
+def _module_ratios(got, amp, f32):
+    """Over the outputs and over the gradients: sum|got - amp| /
+    sum|amp - f32|."""
+    def ratio(g, a, f):
+        return (sum((x - y).abs().sum().item() for x, y in zip(g, a))
+                / sum((y - z).abs().sum().item() for y, z in zip(a, f)))
+
+    keys = sorted(amp[1])
+    return {"outputs": ratio(got[0], amp[0], f32[0]),
+            "grads": ratio([got[1][k] for k in keys],
+                           [amp[1][k] for k in keys],
+                           [f32[1][k] for k in keys])}
+
+
+def amp_module_readings(tmp, seeds=(0,), again=False, cpu_threads=(),
+                        faults=AMP_MODULE_FAULTS):
+    """Each module's ratios at each seed: the card's AMP run (twice with
+    ``again``), the CPU's AMP run at each of ``cpu_threads`` and the
+    planted faults, against the CPU's AMP run, each with its verdict."""
+    out = {}
+    threads = torch.get_num_threads()
+    for seed in seeds:
+        model, batch, _ = _retrieval_step0_setup(tmp, seed=seed)
+        amp_model, _, _ = _retrieval_step0_setup(tmp, amp=True, seed=seed)
+        inputs = _amp_module_inputs(amp_model, batch)
+        for module in AMP_MODULES:
+            def run(m, device, fault=None):
+                return _amp_module_run(m, module, inputs[module], device,
+                                       seed, fault)
+
+            ref, f32 = run(amp_model, "cpu"), run(model, "cpu")
+            got = {"card_amp": run(amp_model, "cuda")}
+            if again:
+                got["card_amp_again"] = run(amp_model, "cuda")
+            for n in cpu_threads:
+                torch.set_num_threads(n)
+                try:
+                    got[f"cpu_amp_{n}_threads"] = run(amp_model, "cpu")
+                finally:
+                    torch.set_num_threads(threads)
+            for fault in faults:
+                got[f"card_amp_{fault}"] = run(amp_model, "cuda", fault)
+            for name, result in got.items():
+                r = _module_ratios(result, ref, f32)
+                r["within_limit"] = _amp_within(r, AMP_MODULE_LIMIT[module])
+                out.setdefault(module, {}).setdefault(name, {})[seed] = r
+    return out
+
+
+def _amp_module_check(tmp):
+    """train_retrieval_amp's module comparisons at seed 0: a correct card
+    within each module's limit, each planted fault beyond it."""
+    readings = amp_module_readings(tmp)
+    for module, runs in readings.items():
+        for name, by_seed in runs.items():
+            if by_seed[0]["within_limit"] != (name == "card_amp"):
+                raise AssertionError(
+                    f"AMP {module} {name}: {by_seed[0]} against "
+                    f"{AMP_MODULE_LIMIT[module]}")
+    return {m: {n: r[0] for n, r in runs.items()}
+            for m, runs in readings.items()}
+
+
 def _gradcache_grads(model, batch, cfg, mode, fused=False):
     """One step (no update) of a copy of ``model`` on the card: ``mode``
     ``gradcache`` (cfg.grad_accum_steps microbatches), ``oracle`` (the
@@ -4217,6 +4656,8 @@ def phase_train_retrieval_amp(tmp, drill):
             raise AssertionError(f"planted fault {fault} passes the AMP "
                                  f"eval limits: {json.dumps(r)}")
     del runs, model
+    amp["modules"] = _amp_module_check(tmp)
+    amp["module_limits"] = AMP_MODULE_LIMIT
     amp_s = time.perf_counter() - t0
 
     t1 = time.perf_counter()
@@ -5539,7 +5980,10 @@ def main(argv=None):
     readings_modes = {"--retrieval-step0": retrieval_step0_readings,
                       "--retrieval-amp-step0": retrieval_amp_step0_readings,
                       "--retrieval-scan-step0":
-                          lambda tmp: scan_step0_readings(tmp)[0]}
+                          lambda tmp: scan_step0_readings(tmp)[0],
+                      "--amp-modules": lambda tmp: amp_module_readings(
+                          tmp, AMP_MODULE_SEEDS, again=True,
+                          cpu_threads=(1,))}
     if argv[:1] and argv[0] in readings_modes:
         resolve_device("cuda")
         os.environ["ATQ_NO_DOWNLOAD"] = "1"
@@ -5574,6 +6018,7 @@ def main(argv=None):
                                               images, refs[True])
         np.testing.assert_allclose(packed, dense, rtol=2e-2, atol=2e-2,
                                    err_msg="packed vs dense")
+        phase_packed_classifier(path, images, packed)
         t0 = time.perf_counter()
         ret_path, vocab, corpus = make_retrieval_checkpoint(tmp)
         req = retrieval_requests(vocab, corpus)

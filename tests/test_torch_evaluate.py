@@ -15,17 +15,27 @@
 - ``--moe_experts 2``: an MoE checkpoint of the same widths, ``--packed``
   (the expert planes stay dense): R@K equal.
 - The ``--output`` keys, and the grad-mode and tokenizer-stamp exits.
+- A trained text tower (the port's trainer, one epoch at those widths
+  and learning rate 1e-3, whose attention scores reach ~100), dense and
+  ``--packed``, module by module against JAX's on the test split's
+  captions: each module of the port run on the inputs JAX gave its own
+  (flax's captured intermediates) within TOWER_RTOL of that output's
+  largest |value|, and the text embeddings within TOWER_ATOL. The card
+  against the CPU is read the same way by chip_smoke.py (phase
+  evaluate's text_modules).
 """
 
 import gzip
 import json
 import os
 import sys
+from unittest import mock
 
 import jax
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -34,6 +44,12 @@ from data.flickr8k_fixture import make_fixture  # noqa: E402
 import evaluate as jax_evaluate  # noqa: E402
 from atq_tpu.models.image_classifier import (  # noqa: E402
     ATQImageClassifier as JaxClassifier,
+)
+from atq_tpu.models.retrieval import (  # noqa: E402
+    ATQMultimodalRetrieval as JaxRetrieval,
+)
+from atq_tpu.serve.packed_model import (  # noqa: E402
+    export_packed_collection as jax_export_packed_collection,
 )
 from atq_tpu.nn.transformer import stack_layer_params  # noqa: E402
 from atq_tpu.train.classifier import _save_checkpoint  # noqa: E402
@@ -47,10 +63,23 @@ from atq_tpu_torch.data.mnist import _make, _templates  # noqa: E402
 from atq_tpu_torch.models.retrieval import (  # noqa: E402
     ATQMultimodalRetrieval,
 )
-from atq_tpu_torch.utils.jax_interop import save_checkpoint  # noqa: E402
+from atq_tpu_torch.nn.attention import lengths_to_padding_mask  # noqa: E402
+from atq_tpu_torch.serve.packed_model import (  # noqa: E402
+    attach_packed_collection,
+    export_packed_collection,
+)
+from atq_tpu_torch.train.retrieval import main as train_main  # noqa: E402
+from atq_tpu_torch.utils.jax_interop import (  # noqa: E402
+    load_checkpoint,
+    save_checkpoint,
+)
 
 LOSS_RTOL = 1e-5
 EMB_TOL = 1e-4
+# The trained tower (readings at one thread: the embeddings 9.4e-7 dense,
+# 1.9e-6 packed; the worst module, the whole tower from the token ids,
+# 2.3e-6 and 4.3e-6 of its scale).
+TOWER_RTOL, TOWER_ATOL = 1e-5, 1e-5
 RET_WIDTHS = ["--embed_dim", "32", "--hidden_dim", "64",
               "--max_seq_length", "12", "--image_size", "32",
               "--batch_size", "8"]
@@ -227,3 +256,123 @@ def test_tokenizer_stamp_exit(retrieval, tmp_path):
         evaluate.main(["--task", "retrieval", "--checkpoint", path,
                        "--use_residual", "--data_dir", data, "--vocab_file",
                        str(stamped), "--device", "cpu"] + RET_WIDTHS)
+
+
+@pytest.fixture(scope="module")
+def trained(retrieval, tmp_path_factory):
+    """The port's trainer, one epoch on the fixture at RET_WIDTHS' widths;
+    its best_model.npz, read back, and the test split's first batch."""
+    _, _, data = retrieval
+    out = str(tmp_path_factory.mktemp("trained"))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    # The latency reading and the curves' plot come after the training and
+    # read nothing back into it: left out, they save ~5 s.
+    try:
+        with mock.patch("atq_tpu_torch.train.retrieval._latency_ms",
+                        return_value=1.0), \
+                mock.patch("atq_tpu_torch.train.retrieval."
+                           "_plot_training_curves"):
+            train_main(["--device", "cpu", "--data_dir", data, "--epochs",
+                        "1", "--use_residual", "--learning_rate", "1e-3",
+                        "--output_dir", out] + RET_WIDTHS)
+    finally:
+        torch.set_num_threads(threads)
+    _, _, loader, vocab_size, _ = prepare_flickr8k_dataloaders(
+        batch_size=64, image_size=32, max_length=12, root_dir=data,
+        vocab_file=os.path.join(out, "vocab.json"))
+    batch = next(iter(loader))
+    return (load_checkpoint(os.path.join(out, "best_model.npz")),
+            vocab_size, np.asarray(batch[1]), np.asarray(batch[2]))
+
+
+def _jax_text_outputs(ckpt, vocab_size, ids, lengths, packed):
+    """JAX's text embeddings and every module's output on the way, by
+    dotted module path (flax's captured intermediates)."""
+    model = JaxRetrieval(vocab_size=vocab_size, embed_dim=32, hidden_dim=64,
+                         use_residual=True)
+    variables = {k: v for k, v in ckpt.items() if isinstance(v, dict)}
+    if packed:
+        variables["packed"] = jax_export_packed_collection(
+            ckpt["params"], ckpt["quant"])
+    emb, state = jax.jit(lambda v, i, n: model.apply(
+        v, i, n, method=JaxRetrieval.encode_text,
+        capture_intermediates=True, mutable=["intermediates"]))(
+            variables, ids, lengths)
+    flat = {}
+
+    def walk(node, path):
+        for k, v in node.items():
+            if k == "__call__":
+                flat[".".join(path)] = np.asarray(v[0])
+            elif isinstance(v, dict):
+                walk(v, path + [k])
+
+    walk(jax.device_get(state["intermediates"]), [])
+    return np.asarray(emb), flat
+
+
+@pytest.mark.parametrize("packed", [False, True], ids=["dense", "packed"])
+def test_trained_text_tower_matches_jax_module_by_module(trained, packed):
+    ckpt, vocab_size, ids, lengths = trained
+    model = ATQMultimodalRetrieval(vocab_size=vocab_size, embed_dim=32,
+                                   hidden_dim=64, max_seq_length=12,
+                                   use_residual=True, device="cpu")
+    model.load_jax_variables(ckpt)
+    if packed:
+        attach_packed_collection(model, export_packed_collection(
+            ckpt["params"], ckpt["quant"], device="cpu"))
+    want, jx = _jax_text_outputs(ckpt, vocab_size, ids, lengths, packed)
+    te = model.text_encoder
+    mask = lengths_to_padding_mask(torch.as_tensor(lengths), ids.shape[1])
+
+    def t(name):
+        return torch.from_numpy(jx[name].copy())
+
+    # (port module, its inputs from JAX's outputs, JAX's output of it)
+    cases = [(te.embed_norm, (t("text_encoder.embedding"),), {},
+              "text_encoder.embed_norm")]
+    h = t("text_encoder.embed_norm") + te.positional_encoding[
+        :, :ids.shape[1]]
+    for i in range(te.num_layers):
+        name = f"text_encoder.layers_{i}"
+        layer = getattr(te, f"layers_{i}")
+        n1 = t(f"{name}.norm1")
+        cases += [
+            (layer.norm1, (h,), {}, f"{name}.norm1"),
+            (layer.self_attn, (n1, n1, n1), {"key_padding_mask": mask},
+             f"{name}.self_attn"),
+            (layer.linear1, (t(f"{name}.norm2"),), {}, f"{name}.linear1"),
+            (layer.linear2, (F.gelu(t(f"{name}.linear1")),), {},
+             f"{name}.linear2"),
+            (layer, (h,), {"src_key_padding_mask": mask}, name)]
+        h = t(name)
+    cases += [
+        (te.norm, (h,), {}, "text_encoder.norm"),
+        (te.attention_pool_0, (t("text_encoder.norm"),), {},
+         "text_encoder.attention_pool_0"),
+        (te.attention_pool_2, (torch.tanh(t(
+            "text_encoder.attention_pool_0")),), {},
+         "text_encoder.attention_pool_2"),
+        (te, (torch.as_tensor(ids), torch.as_tensor(lengths)), {},
+         "text_encoder"),
+        (model.text_projector, (t("text_encoder"),), {}, "text_projector"),
+        (model.text_norm, (t("text_projector"),), {}, "text_norm")]
+    assert {name for *_, name in cases} <= set(jx)
+    with torch.inference_mode():
+        for module, args, kwargs, name in cases:
+            got = module(*args, **kwargs).numpy()
+            ref = jx[name]
+            assert got.shape == ref.shape, name
+            np.testing.assert_allclose(got, ref, rtol=0,
+                                       atol=TOWER_RTOL * np.abs(ref).max(),
+                                       err_msg=name)
+        got = model.encode_text(torch.as_tensor(ids),
+                                torch.as_tensor(lengths)).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=TOWER_ATOL)
+    # Trained: the attention scores are far from the seeded model's.
+    q = t("text_encoder.layers_0.self_attn.q_proj").reshape(
+        *ids.shape, 8, 4)
+    k = t("text_encoder.layers_0.self_attn.k_proj").reshape(
+        *ids.shape, 8, 4)
+    assert torch.einsum("bqhd,bkhd->bhqk", q, k).abs().max() / 2 > 20
