@@ -23,8 +23,8 @@ PIL, imported only on that branch.
 The JAX package also tries ``nltk.word_tokenize`` when NLTK's punkt data is
 installed; on cleaned captions that branch is token-identical to the
 vendored one (tests/test_tokenizer_parity.py), so the port leaves it out and
-stamps vocab files ``vendored-ptb`` (or ``split``). The samples plot
-(``visualize_flickr8k_samples``) is not ported.
+stamps vocab files ``vendored-ptb`` (or ``split``). The samples plot is
+:func:`visualize_flickr8k_samples`.
 """
 
 from __future__ import annotations

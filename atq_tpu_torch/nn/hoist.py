@@ -11,6 +11,18 @@ the weights they are given. Ternary decisions are bit-identical to the
 per-layer path, and the alpha/STE/TTQ gradient rules are the batched
 equivalents of the per-layer ones.
 
+Under tensor parallelism (parallel/sharded_model.py) a stacked weight holds
+this rank's out-features shard, its (L, out/tp, in) rows, and a shard alone
+cannot give the layer's threshold or optimal alpha. :func:`whole_layers`
+gathers each sharded layer's stacked weight over the 'model' group first
+(JAX's GSPMD takes the batched order statistic on the whole stacked weight
+too), so each rank computes the whole effective weights, every ternary
+decision equal to the unsharded stack's, and each layer keeps its rank's
+rows of them (nn/layers.py ``_finish``). The weight's gather has the true
+adjoint as its backward and the layer's scalars (alpha, TTQ's wp and wn)
+are carried into the group, their gradients summed over it: the same rule
+as the unhoisted layers' ``_whole``.
+
 The same function, with ``batched=False``, builds one layer's effective
 weights; the stack uses it for the 'save_quantized' remat policy without
 hoisting (quantize outside the checkpointed layer, so the backward reuses
@@ -35,6 +47,11 @@ from atq_tpu_torch.core.quantize import (
     ternary_threshold,
 )
 from atq_tpu_torch.nn.layers import DEFAULT_SPARSITY
+from atq_tpu_torch.parallel.collectives import (
+    copy_to_model,
+    gather_model_rows,
+    gather_model_shards,
+)
 
 
 def effective_weight(node: Dict[str, torch.Tensor], grad_mode: str, dtype,
@@ -87,6 +104,31 @@ def _nodes(tensors: Dict[str, torch.Tensor]):
                 if k.startswith(prefix) and "." not in k[len(prefix):]}
         if "weight" in node:
             yield prefix, node
+
+
+def whole_layers(tensors: Dict[str, torch.Tensor],
+                 template) -> Dict[str, torch.Tensor]:
+    """A stack's flat name -> stacked tensor dict with each ternary layer
+    that holds an out-features shard in ``template`` (a structure copy of
+    one layer whose projections carry their ``tp``) made whole: its
+    (L, out/tp, in) weight gathered along the out axis (differentiable,
+    :func:`gather_model_shards`), its precision mask gathered, and its
+    parameters of the whole layer (alpha, wp, wn) carried into the group
+    (:func:`copy_to_model`). Without shards the dict comes back as it
+    is."""
+    out = dict(tensors)
+    for prefix, node in _nodes(tensors):
+        shard = getattr(template.get_submodule(prefix[:-1]), "tp", None)
+        if shard is None:
+            continue
+        for leaf, t in node.items():
+            if leaf == "weight":
+                out[prefix + leaf] = gather_model_shards(t, shard, dim=1)
+            elif leaf == "precision_mask":
+                out[prefix + leaf] = gather_model_rows(t, shard, dim=1)
+            elif leaf in ("alpha", "wp", "wn"):
+                out[prefix + leaf] = copy_to_model(t, shard)
+    return out
 
 
 def effective_weights(tensors: Dict[str, torch.Tensor], grad_mode: str,

@@ -65,10 +65,10 @@ from atq_tpu_torch.nn.initializers import (
     kaiming_uniform_torch_,
 )
 from atq_tpu_torch.parallel.collectives import (
-    all_gather_embeddings,
     copy_to_model,
     gather_features,
     gather_model_rows,
+    gather_model_shards,
     rand_rows,
 )
 from atq_tpu_torch.utils.platform import resolve_device
@@ -267,7 +267,7 @@ class _QuantizedLinear(nn.Module):
         if name == "precision_mask":
             return gather_model_rows(t, self.tp)
         if name == "weight":
-            return all_gather_embeddings(t, self.tp.group)
+            return gather_model_shards(t, self.tp)
         return copy_to_model(t, self.tp)
 
 

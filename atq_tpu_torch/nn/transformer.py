@@ -20,6 +20,9 @@ atq_tpu/nn/transformer.py).
   pass (nn/hoist.py) reads the (L, out, in) tensors as they lie. Each step
   unbinds them once and runs one layer at a time through
   ``torch.func.functional_call`` on a structure-only copy of the layer.
+  Under tensor parallelism the hoisted pass gathers each sharded stacked
+  weight first, so its thresholds are the whole stack's, and each layer
+  keeps its shard's rows of the effective weight.
   Remat checkpoints each layer (``torch.utils.checkpoint``,
   non-reentrant):
 
@@ -61,7 +64,11 @@ from atq_tpu_torch.nn.attention import (
     _proj,
     lengths_to_padding_mask,
 )
-from atq_tpu_torch.nn.hoist import effective_weights, thresholds
+from atq_tpu_torch.nn.hoist import (
+    effective_weights,
+    thresholds,
+    whole_layers,
+)
 from atq_tpu_torch.nn.initializers import normal_std_
 from atq_tpu_torch.nn.layers import _QuantizedLinear, _use_fused, dropout
 from atq_tpu_torch.parallel.collectives import active_data_shard
@@ -322,12 +329,11 @@ class ScannedTernaryStack(nn.Module):
                 generator: Optional[torch.Generator] = None):
         tensors = _tensors(self.scan.layer)
         if self.hoist_quant:
-            if _tensor_parallel(self._templates[0]):
-                raise NotImplementedError(
-                    "hoisted quantization of out-features shards: the "
-                    "thresholds need the gathered weights")
+            # Under tensor parallelism the effective weights are whole
+            # (nn/hoist.py whole_layers); each layer keeps its shard's rows.
             tensors = {**tensors, **effective_weights(
-                tensors, self.grad_mode, self.dtype, batched=True)}
+                whole_layers(tensors, self._templates[0]), self.grad_mode,
+                self.dtype, batched=True)}
         per_layer = {name: t.unbind(0) for name, t in tensors.items()}
         kwargs = {"src_mask": src_mask,
                   "src_key_padding_mask": src_key_padding_mask,

@@ -79,13 +79,13 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
 
 class _AllGather(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return all_gather_dim(x, 0, group)
+    def forward(ctx, x, dim, group):
+        ctx.dim, ctx.group = dim, group
+        return all_gather_dim(x, dim, group)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter_dim(g, 0, ctx.group), None
+        return reduce_scatter_dim(g, ctx.dim, ctx.group), None, None
 
 
 class _AllReduceSum(torch.autograd.Function):
@@ -195,7 +195,7 @@ def all_gather_embeddings(embeddings: torch.Tensor, group=None):
     in rank order; differentiable (the backward sums over the ranks)."""
     if group_size(group) == 1:
         return embeddings
-    return _AllGather.apply(embeddings, group)
+    return _AllGather.apply(embeddings, 0, group)
 
 
 def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -320,6 +320,17 @@ def gather_features(y: torch.Tensor, shard: ModelShard) -> torch.Tensor:
     return gather_replicated(y, -1, shard.group)
 
 
-def gather_model_rows(x: torch.Tensor, shard: ModelShard) -> torch.Tensor:
-    """The whole tensor from its out-features (dim 0) shards, no gradient."""
-    return all_gather_dim(x.detach(), 0, shard.group)
+def gather_model_rows(x: torch.Tensor, shard: ModelShard,
+                      dim: int = 0) -> torch.Tensor:
+    """The whole tensor from its out-features shards along ``dim`` (0 for
+    a layer's (out, in) weight, 1 for a scanned stack's (L, out, in)), no
+    gradient."""
+    return all_gather_dim(x.detach(), dim, shard.group)
+
+
+def gather_model_shards(x: torch.Tensor, shard: ModelShard,
+                        dim: int = 0) -> torch.Tensor:
+    """:func:`gather_model_rows` with the gather's true adjoint as its
+    backward: the whole gradient summed over the 'model' group, each rank
+    keeping its own shard."""
+    return _AllGather.apply(x, dim, shard.group)

@@ -11,7 +11,9 @@ each leaf's placement is the one the JAX trainer gives it, then:
   stack's stacked (L, out, in) ones) shards the module's own tensor, and
   the layer gets a ``ModelShard`` (nn/layers.py runs its tensor-parallel
   forward; the scanned stack's structure copies get it, and each layer
-  runs plain, nn/transformer.py ``run_layer``);
+  runs plain, nn/transformer.py ``run_layer``, or under ``hoist_quant``
+  pre-quantized on its rows of the whole effective weight, nn/hoist.py
+  ``whole_layers``);
 - an axis over 'data' (``--fsdp``) keeps only this rank's block at rest
   (:attr:`optim_params` hands those blocks to the optimizer; the EMA and the
   moments live on them too). :meth:`gather` all-gathers the module's
@@ -182,10 +184,10 @@ class ShardedModel:
         through."""
         if e.model_dim == 0:
             return [e.module]
-        if e.model_dim != 1 or ".scan.layer." not in e.name:
+        if e.model_dim != 1 or ".scan.layer." not in "." + e.name:
             return []
-        stack_path, rel = e.name.split(".scan.layer.", 1)
-        stack = self.model.get_submodule(stack_path)
+        stack_path, rel = ("." + e.name).split(".scan.layer.", 1)
+        stack = self.model.get_submodule(stack_path[1:])
         rel = rel.rsplit(".", 1)[0]
         return [t.get_submodule(rel) for t in stack._templates]
 

@@ -20,7 +20,8 @@ def resolve_device(device=None) -> torch.device:
 
     On CUDA, TF32 is switched off for matmuls and cuDNN convolutions: the
     JAX reference computes in float32, and cuDNN would otherwise run the
-    convolutions in TF32 by default.
+    convolutions in TF32 by default. And the run repeats bit for bit, as
+    the reference's does on its TPU (:func:`deterministic_backends`).
     """
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
@@ -33,6 +34,16 @@ def resolve_device(device=None) -> torch.device:
             torch.cuda.set_device(dev)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        deterministic_backends()
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def deterministic_backends() -> None:
+    """cuDNN on algorithms that repeat bit for bit, chosen without
+    benchmarking. Its default filter gradient of a float32 convolution
+    sums in no fixed order, so a trained checkpoint would differ from one
+    run to the next. The port's own kernels repeat."""
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False

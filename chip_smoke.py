@@ -22,7 +22,7 @@
                                    # the readings behind encoder_step0's
                                    # limits at seeds 0-2 (fused as shipped,
                                    # the forward swapped for its plain
-                                   # version, for float64 and for two
+                                   # version, for float64 and for three
                                    # planted faults) from DIR's package
                                    # (this tree by default)
     python3 chip_smoke.py --retrieval-step0 [OUT]
@@ -55,8 +55,15 @@
     python3 chip_smoke.py --scale-out
                                    # the build and phase scale_out alone
                                    # on every card of the machine
+    python3 chip_smoke.py --repeat [OUT]
+                                   # the readings behind phase repeat:
+                                   # each main path's step 0 twice (the
+                                   # gradient leaves that differ) under
+                                   # the default and the control, the
+                                   # ops use_deterministic_algorithms
+                                   # names, then the phase; JSON in OUT
     (--scale-out-checks and --scale-out-runs are the torchrun ranks that
-    phase scale_out starts)
+    phase scale_out starts, --repeat-runs phase repeat's second runs)
 
 Phases, one JSON line each; any failure exits non-zero:
 
@@ -100,7 +107,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 synthetic Fashion-MNIST images (serve_packed's 64 first)
                 within rtol/atol 1e-4 of the same class on the CPU and of
                 serve_packed's /predict logits, 2 packed-kernel launches,
-                and memory_footprint_bytes (equal on both devices).
+                and memory_footprint_bytes (equal on both devices, and
+                to PACKED_CLF_FOOTPRINT on every host; the seeded
+                checkpoint's leaves printed by their sha256 beside the
+                host's torch version).
   serve_retrieval
                 python -m atq_tpu_torch.serve --task retrieval --packed
                 --use_residual in-process at the README's widths (ResNet-18
@@ -182,7 +192,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 layer, which sums a whole layer's bf16 roundings) within
                 1e-2 of the largest (AMP_ALPHA_ATOL), with the attention in
                 bfloat16 as a planted fault that must fail them (it does at
-                this seed, not at every seed). Under AMP no limit tells one
+                this seed, not at every seed); in float32 also the
+                attention backward with mma.sync's truncating sums in
+                place of step sums (built apart; a reading, which the
+                float32 limits do not catch). Under AMP no limit tells one
                 TF32 pass from a correct forward: bf16 roundings of
                 activations flip with the attention's last bits (PERF.md,
                 PR 14). The float32 step's counted FLOPs (utils/flops.py
@@ -259,9 +272,8 @@ Phases, one JSON line each; any failure exits non-zero:
                 the scanned model against the unrolled one on the same
                 weights,
                 dense and with ATQ_FUSED=1, each within train_retrieval's
-                fused-vs-dense limits and also bit for bit but for
-                ResNet-18's leaves (loss, embeddings, every other gradient;
-                cuDNN's filter gradients do not repeat bit for bit: the
+                fused-vs-dense limits and also bit for bit (loss,
+                embeddings, every gradient, ResNet-18's included: the
                 comment above SCAN_LAYERS); under ATQ_FUSED=1
                 every projection, stacked or not, runs the fused kernels.
                 A planted fault (layers 1 and 2 of the stacked linear1
@@ -296,7 +308,10 @@ Phases, one JSON line each; any failure exits non-zero:
                 fixed cotangents), held by the same ratio within
                 AMP_MODULE_LIMIT, with those faults carried over (the
                 module's products in float32, its LayerNorms in bf16),
-                each of which must fail its module's limit. The train
+                each of which must fail its module's limit, and for the
+                text tower a third, its first attention's softmax in bf16
+                (AMP_TEXT_FAULTS); the largest ratio of one leaf is
+                printed beside. The train
                 step's thresholds and ternary patterns under AMP equal
                 float32's bit for bit (56 each), every threshold on a
                 float32 weight; 27 order-statistic launches. Then GradCache
@@ -364,6 +379,21 @@ Phases, one JSON line each; any failure exits non-zero:
                 space-to-depth stem are printed, not held (the comment
                 above REWRITE_TOL says why).
 
+  repeat        the same seeded short run twice in one call (the second
+                in a process of its own, started beside serve_aot's
+                --traced-aot process): python -m
+                atq_tpu_torch.train.retrieval's main() on the recipe for
+                20 steps, with --use_amp --grad_accum_steps 2 for 20
+                steps, and one epoch of python -m atq_tpu_torch.train's
+                on the classifier recipe, dense and with ATQ_FUSED=1;
+                every leaf of every checkpoint both runs write (the .npz
+                files and the training state) equal bit for bit. pairs/s
+                and imgs/s beside a control run with cuDNN's deterministic
+                and benchmark flags at PyTorch's defaults (the retrieval
+                recipe and the dense classifier), and ResNet-18's and the
+                classifier's convolutions forward and backward timed under
+                both settings, with the kernels each alone launches.
+
   scale_out     the multi-GPU scale-out on all N cards of the machine
                 (torch.cuda.device_count()) in two torchrun launches.
                 First the checks, over NCCL at world N, or at N = 1 over
@@ -384,7 +414,14 @@ Phases, one JSON line each; any failure exits non-zero:
                 one-process port on the same card (gloo carries the
                 collectives of CUDA tensors but not their point-to-point
                 sends, so over gloo the ring and the pipeline run on host
-                tensors). Then, through torchrun --nproc_per_node N (one
+                tensors); and the hoisted text stack under tensor
+                parallelism: bert-base widths at 2 layers (encoder_step0's
+                float32 step, --attn fused --hoist), tp = the world,
+                against the one-GPU hoisted stack within the step-0
+                limits above (its envelope: the embedding table scaled by
+                1 ± 1e-6), the planted fault failing, and 6 batched order
+                statistics (one a weight kind) and no single one in each
+                rank's forward. Then, through torchrun --nproc_per_node N (one
                 process a card, NCCL; at N = 1 world 1, where no process
                 group starts, as JAX's init_distributed does nothing for
                 one process), a short epoch of python -m
@@ -457,6 +494,7 @@ line {"ok": true, "device": {...}}. Without a GPU, or without the rest of
 the repo beside it, the script exits non-zero and prints no result.
 """
 
+import atexit
 import contextlib
 import dataclasses
 import importlib
@@ -1515,31 +1553,66 @@ def phase_kernels():
 
 
 def make_checkpoint(tmpdir):
-    """A seeded full-width RPB classifier as a JAX-layout .npz. BatchNorm
-    statistics are drawn too, and each head layer's alpha is set to the
+    """A seeded full-width RPB classifier as a JAX-layout .npz. Its random
+    leaves are drawn from numpy's RandomState(0), whose streams numpy
+    keeps fixed, and not from a torch.Generator, whose CPU streams differ
+    between torch versions (every random leaf of this checkpoint differed
+    between torch 2.11 and 2.13): so the same seed gives the same
+    checkpoint, and the same packed footprint (PACKED_CLF_FOOTPRINT), on
+    every host. The kernels and biases are uniform in ±1/√fan_in (the
+    ternary layers' own init; the convolutions' drawn alike), the
+    precision masks the top |w| of those weights,
+    the BatchNorm statistics drawn too, and each head layer's alpha the
     quantizer's optimal alpha, as a trained checkpoint would hold it."""
     from atq_tpu_torch.core.quantize import adaptive_ternary_quantization
     from atq_tpu_torch.models.image_classifier import ATQImageClassifier
+    from atq_tpu_torch.nn.layers import _precision_mask
     from atq_tpu_torch.utils.jax_interop import (
         save_checkpoint,
         to_jax_variables,
     )
 
-    gen = torch.Generator().manual_seed(0)
     model = ATQImageClassifier(use_rpb=True, hidden_size=128,
-                               sparsity_target=0.3, device="cpu",
-                               generator=gen)
+                               sparsity_target=0.3, device="cpu")
+    rng = np.random.RandomState(0)
+
+    def draw(t, low, high):
+        t.copy_(torch.from_numpy(rng.uniform(low, high, tuple(t.shape))
+                                 .astype(np.float32)))
+
     with torch.no_grad():
+        for conv in (model.features.conv1, model.features.conv2,
+                     model.classifier_0, model.classifier_3):
+            bound = conv.weight[0].numel() ** -0.5
+            draw(conv.weight, -bound, bound)
+            draw(conv.bias, -bound, bound)
         for bn in (model.features.bn1, model.features.bn2):
-            bn.running_mean.normal_(0.0, 0.1, generator=gen)
-            bn.running_var.uniform_(0.5, 1.5, generator=gen)
+            bn.running_mean.copy_(torch.from_numpy(rng.normal(
+                0.0, 0.1, bn.num_features).astype(np.float32)))
+            draw(bn.running_var, 0.5, 1.5)
         for layer in (model.classifier_0, model.classifier_3):
+            layer.precision_mask.copy_(_precision_mask(
+                layer.weight, layer.precision_ratio))
             _, a = adaptive_ternary_quantization(
                 layer.weight, sparsity_target=layer.sparsity_target)
             layer.alpha.fill_(float(a))
     path = os.path.join(tmpdir, "atq_model_fashion_mnist.npz")
     save_checkpoint(to_jax_variables(model.state_dict()), path)
     return path
+
+
+def checkpoint_digests(path):
+    """Each leaf of a JAX-layout .npz checkpoint by its sha256 (16 hex
+    digits), with this host's torch version and CPU capability: the seeded
+    checkpoint's leaves compared across hosts."""
+    import hashlib
+
+    with np.load(path, allow_pickle=False) as z:
+        leaves = {k: hashlib.sha256(z[k].tobytes()).hexdigest()[:16]
+                  for k in sorted(z.files)}
+    return {"torch": torch.__version__,
+            "cpu_capability": torch.backends.cpu.get_cpu_capability(),
+            "leaves": leaves}
 
 
 def cpu_reference(path, packed, images):
@@ -1643,6 +1716,9 @@ def phase_serve(name, path, packed, images, reference):
 # deployment form, within PACKED_CLF_TOL (serve_dense's tolerance, rtol and
 # atol) of the same class on the CPU and of serve_packed's /predict logits.
 PACKED_CLF_BATCH, PACKED_CLF_TOL = 256, 1e-4
+# make_checkpoint's packed footprint, the same on every host (its
+# docstring): the packed head's bytes as the JAX export counts them.
+PACKED_CLF_FOOTPRINT = 200964
 
 
 def _host_syncs(fn):
@@ -1733,6 +1809,10 @@ def phase_packed_classifier(path, served_images, served_logits):
     footprint = card.memory_footprint_bytes()
     if footprint != cpu.memory_footprint_bytes():
         raise AssertionError("PackedClassifier footprint card vs CPU")
+    if footprint["packed_bytes"] != PACKED_CLF_FOOTPRINT:
+        raise AssertionError(f"PackedClassifier footprint {footprint} on "
+                             f"this host, {PACKED_CLF_FOOTPRINT} packed "
+                             "bytes expected from the seeded checkpoint")
     labels = np.random.default_rng(0).integers(
         0, 10, PACKED_CLF_BATCH).astype(np.int64)
     syncs = eval_syncs(card.model, x.astype(np.float32), labels)
@@ -1742,7 +1822,8 @@ def phase_packed_classifier(path, served_images, served_logits):
                                                - served_logits).max()),
           "tol": PACKED_CLF_TOL, "launches": launches,
           "batch_ms": batch_ms,
-          "memory_footprint_bytes": footprint, "eval_host_syncs": syncs})
+          "memory_footprint_bytes": footprint, "eval_host_syncs": syncs,
+          "checkpoint_sha256": checkpoint_digests(path)})
     return launches
 
 
@@ -3097,12 +3178,16 @@ def _calibrate_alphas(model):
                 mod.alpha.copy_(a.reshape(mod.alpha.shape))
 
 
-def _encoder_step0(device, use_amp, attn, hoist, seed=0, forward=None):
+def _encoder_step0(device, use_amp, attn, hoist, seed=0, forward=None,
+                   backward_lib=None):
     """Loss and every gradient of step 0 of the port's QAT step at
     ENCODER_STEP0 on ``device``, from the ``seed`` init with calibrated
     alphas. ``forward``, a function of plain PyTorch, takes the place of
     the attention kernel's wrapper (a reading or a planted fault); the step
-    must call it."""
+    must call it. ``backward_lib`` (a library of
+    :func:`_truncating_attention_backward`) runs the attention backward
+    in place of the package's build; the step must launch it."""
+    from atq_tpu_torch.ops import _build
     from atq_tpu_torch.ops import fused_attention as fa
     from atq_tpu_torch.train.scale import build_step
 
@@ -3110,7 +3195,14 @@ def _encoder_step0(device, use_amp, attn, hoist, seed=0, forward=None):
                                    attn_impl=attn, hoist_quant=hoist,
                                    device=device, seed=seed)
     _calibrate_alphas(state[0])
-    if forward is None:
+    if backward_lib is not None:
+        lib = _PlantedBackward(_build.load_library(), backward_lib)
+        with mock.patch.object(fa, "load_library", lambda: lib):
+            state, loss = step(state)
+        if not lib.calls:
+            raise AssertionError("encoder step 0: the planted attention "
+                                 "backward was never launched")
+    elif forward is None:
         state, loss = step(state)
     else:
         calls = [0]
@@ -3127,6 +3219,82 @@ def _encoder_step0(device, use_amp, attn, hoist, seed=0, forward=None):
     grads = {n: (p.grad if p.grad is not None else torch.zeros_like(p))
              .detach().cpu() for n, p in state[0].named_parameters()}
     return float(loss), grads
+
+
+class _PlantedBackward:
+    """The package's kernel library, with ``atq_attention_backward`` taken
+    from ``planted`` (counted in ``calls``)."""
+
+    def __init__(self, real, planted):
+        self._real, self._planted, self.calls = real, planted, 0
+
+    def __getattr__(self, name):
+        if name == "atq_attention_backward":
+            self.calls += 1
+            return self._planted.atq_attention_backward
+        return getattr(self._real, name)
+
+
+# The planted fault of the float32 encoder step: the attention backward
+# with mma.sync's own accumulation, which truncates toward zero, in place
+# of step sums (csrc/tf32x3.cuh mma_step_sum), as the backward first ran on
+# the tensor cores. Built from this checkout's sources under a name of its
+# own in the package's build directory; the package's build is untouched.
+_STEP_SUM = """  float part[4] = {};
+  if (kSplit) {
+    mma_tf32(part, a_lo, b_hi);
+    mma_tf32(part, a_hi, b_lo);
+  }
+  mma_tf32(part, a_hi, b_hi);
+#pragma unroll
+  for (int e = 0; e < 4; ++e) acc[e] = __fadd_rn(acc[e], part[e]);
+"""
+_TRUNCATING_SUM = """  if (kSplit) {
+    mma_tf32(acc, a_lo, b_hi);
+    mma_tf32(acc, a_hi, b_lo);
+  }
+  mma_tf32(acc, a_hi, b_hi);
+"""
+
+
+def _compile_truncating_backward():
+    """``csrc/fused_attention.cu`` built alone with the truncating sums
+    (the comment above _STEP_SUM) into
+    ``_build/planted_truncating_sums/``; the library's path. The full run
+    starts it beside phase build."""
+    from atq_tpu_torch.ops import _build
+
+    out = _build.BUILD_DIR / "planted_truncating_sums"
+    out.mkdir(parents=True, exist_ok=True)
+    header = (_build.CSRC / "tf32x3.cuh").read_text()
+    if header.count(_STEP_SUM) != 1:
+        raise AssertionError("tf32x3.cuh: mma_step_sum's body changed; "
+                             "the planted fault no longer applies")
+    (out / "tf32x3.cuh").write_text(header.replace(_STEP_SUM,
+                                                   _TRUNCATING_SUM))
+    shutil.copy(_build.CSRC / "fused_attention.cu", out)
+    so = out / "libatq_planted_truncating_attention.so"
+    proc = subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-shared",
+                           "-o", str(so), str(out / "fused_attention.cu")],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode:
+        raise AssertionError(f"planted build failed:\n{proc.stdout}"
+                             f"{proc.stderr}")
+    return so
+
+
+def _truncating_attention_backward(so=None):
+    """The planted library (``so``, or :func:`_compile_truncating_backward`
+    now), loaded, its backward declared as the package's."""
+    import ctypes
+
+    from atq_tpu_torch.ops import _build
+
+    lib = ctypes.CDLL(str(so or _compile_truncating_backward()))
+    real = _build.load_library().atq_attention_backward
+    lib.atq_attention_backward.argtypes = real.argtypes
+    lib.atq_attention_backward.restype = real.restype
+    return lib
 
 
 def _forward_f64(q, k, v, scale, bias=None):
@@ -3216,8 +3384,9 @@ def encoder_step0_readings(out, tree="."):
     version and for float64 (correct forwards), for one TF32 pass a
     product and for the attention in bfloat16 (planted faults). In float32,
     against the CPU's plain step: fused+hoisted as it ships and with one
-    TF32 pass. Each with _step0_diffs and the phase's verdict. JSON in
-    ``out``."""
+    TF32 pass, and with the attention backward's truncating sums (the
+    comment above _STEP_SUM). Each with _step0_diffs and the phase's
+    verdict. JSON in ``out``."""
     out = os.path.abspath(out)
     tree = _enter_tree(tree, "--encoder-step0")
     from atq_tpu_torch.ops.fused_attention import forward_plain
@@ -3229,7 +3398,9 @@ def encoder_step0_readings(out, tree="."):
                     "fault_one_tf32_pass": _forward_one_tf32_pass,
                     "fault_bf16": _forward_bf16}
     f32_variants = {"fused_hoist": None,
-                    "fault_one_tf32_pass": _forward_one_tf32_pass}
+                    "fault_one_tf32_pass": _forward_one_tf32_pass,
+                    "fault_truncating_backward": "truncating"}
+    truncating = _truncating_attention_backward()
     limits = {"amp": (AMP_LOSS_RTOL, AMP_GRAD_RTOL, AMP_GRAD_ATOL,
                       AMP_ALPHA_ATOL),
               "f32": (STEP_LOSS_RTOL, GRAD_RTOL, GRAD_ATOL)}
@@ -3256,7 +3427,11 @@ def encoder_step0_readings(out, tree="."):
                                   "verdict": verdict(name, run, amp_ref,
                                                      "amp")}
         for name, forward in f32_variants.items():
-            run = _encoder_step0("cuda", False, "fused", True, seed, forward)
+            run = (_encoder_step0("cuda", False, "fused", True, seed,
+                                  backward_lib=truncating)
+                   if forward == "truncating" else
+                   _encoder_step0("cuda", False, "fused", True, seed,
+                                  forward))
             row["f32_" + name] = {**_step0_diffs(run, cpu),
                                   "verdict": verdict(name, run, cpu, "f32")}
         readings["seeds"][seed] = row
@@ -3265,7 +3440,7 @@ def encoder_step0_readings(out, tree="."):
         json.dump(readings, f, indent=1)
 
 
-def phase_encoder_step0():
+def phase_encoder_step0(truncating_so=None):
     """Step 0 at bert-base widths (2 layers, batch 8, sequence 256):
     fused+hoisted on the card against the CPU's plain versions in float32,
     then fused+hoisted against einsum+unhoisted on the card under AMP;
@@ -3299,6 +3474,15 @@ def phase_encoder_step0():
         "encoder step 0 card vs cpu, one TF32 pass",
         _encoder_step0("cuda", False, "fused", True,
                        forward=_forward_one_tf32_pass), cpu, *f32_limits)
+    truncating = _encoder_step0(
+        "cuda", False, "fused", True,
+        backward_lib=_truncating_attention_backward(truncating_so))
+    try:
+        _compare_encoder("truncating backward", truncating, cpu, *f32_limits)
+        verdict = "pass"
+    except AssertionError as e:
+        verdict = str(e).splitlines()[0]
+    truncating = {**_step0_diffs(truncating, cpu), "verdict": verdict}
     amp_einsum = _encoder_step0("cuda", True, "einsum", False)
     amp = _compare_encoder(
         "encoder step 0 fused+hoist vs einsum (AMP)",
@@ -3309,6 +3493,7 @@ def phase_encoder_step0():
         amp_einsum, *amp_limits)
     emit({"phase": "encoder_step0", "config": ENCODER_STEP0,
           "card_vs_cpu_f32": f32, "fault_one_tf32_pass_f32": f32_fault,
+          "fault_truncating_backward_f32": truncating,
           "fused_hoist_vs_einsum_amp": amp, "fault_bf16_amp": amp_fault,
           "launches_card_f32": launches,
           "counted_flops": {"card": card_flops, "cpu": cpu_flops},
@@ -3792,11 +3977,10 @@ def phase_train_retrieval(tmp):
 # outside). Readings (--retrieval-scan-step0 and the phase's line; one
 # H100 80GB HBM3 at 700 W), dense and fused alike: the two run the same
 # operations in the same order, so loss, embeddings and every gradient
-# leaf off ResNet-18's trunk equal bit for bit; the trunk's leaves differ
-# by up to 5.6e-6 of a leaf's L2 norm, as the unrolled step differs from
-# itself run again (5.6e-6: cuDNN's filter gradients sum in no fixed
-# order). So both modes are held bit for bit off the trunk and, everywhere,
-# within train_retrieval's fused-vs-dense limits (RET_GRAD_TOL_FUSED,
+# leaf equal bit for bit, ResNet-18's too, since cuDNN's deterministic
+# mode (the entry points' default) fixes the order of its filter
+# gradients' sums. So both modes are held bit for bit and within
+# train_retrieval's fused-vs-dense limits (RET_GRAD_TOL_FUSED,
 # RET_LEAF_TOL_FUSED). The planted fault reads 0.32 of the largest
 # gradient in both modes.
 SCAN_LAYERS = 4
@@ -3885,14 +4069,14 @@ def scan_step0_readings(tmp):
 
 def _scan_step0_check(readings, results):
     """The verdicts of train_retrieval_scan (a): the scanned step against
-    the unrolled one bit for bit off the trunk and within the fused
+    the unrolled one bit for bit, the trunk included, and within the fused
     limits; the planted fault past both; raises past them."""
     out = {}
     for mode, (unrolled, scan, fault) in results.items():
         r = readings[mode]
-        if not r["scanned"]["bit_equal_off_trunk"]:
+        if not r["scanned"]["bit_equal"]:
             raise AssertionError(f"scanned step 0 ({mode}) is not the "
-                                 f"unrolled one bit for bit off the trunk: "
+                                 f"unrolled one bit for bit: "
                                  f"{json.dumps(r['scanned'])}")
         _compare_retrieval_step0(f"scanned step 0 ({mode})", scan, unrolled,
                                  RET_GRAD_TOL_FUSED, RET_LEAF_TOL_FUSED)
@@ -3908,7 +4092,7 @@ def _scan_step0_check(readings, results):
         else:
             raise AssertionError(f"planted fault ({mode}) meets the fused "
                                  f"limits: the check cannot tell it")
-        out[mode] = {**r, "held": "bit for bit off the trunk, fused limits"}
+        out[mode] = {**r, "held": "bit for bit, fused limits"}
     return out
 
 
@@ -4308,6 +4492,9 @@ def _same_quantizer(amp_calls, f32_calls):
 # `--amp-modules` takes the readings at seeds 0-2.
 AMP_MODULES = ("text_tower", "fusion", "projectors")
 AMP_MODULE_FAULTS = ("products_f32", "norm_bf16")
+# A smaller fault, the text tower's alone: one op in bf16 that AMP keeps in
+# float32, the first self-attention's softmax (_one_softmax_bf16).
+AMP_TEXT_FAULTS = ("softmax_bf16",)
 # Readings (--amp-modules, seeds 0-2, one H100 80GB HBM3 at 700 W; the
 # card's runs repeat bit for bit, the CPU at 1 thread reads 0 against 8):
 # correct card, outputs / gradients: text tower 0.102-0.201 / 0.429-0.491
@@ -4358,11 +4545,34 @@ def _norm_bf16():
         yield
 
 
+def _one_softmax_bf16(tower):
+    """The planted fault ``softmax_bf16``: the first self-attention of the
+    text tower ``tower`` takes its softmax in bf16 (its float32 scores
+    rounded to bf16, the softmax computed in bf16, then widened). Returns
+    the list its calls are counted in."""
+    from atq_tpu_torch.nn.attention import TernaryMultiheadAttention
+
+    attn = next(m for m in tower.modules()
+                if isinstance(m, TernaryMultiheadAttention))
+    inner, softmax, calls = attn.forward, torch.softmax, []
+
+    def bf16_softmax(x, *args, **kwargs):
+        calls.append(1)
+        return softmax(x.to(torch.bfloat16), *args, **kwargs).float()
+
+    def forward(*args, **kwargs):
+        with mock.patch.object(torch, "softmax", bf16_softmax):
+            return inner(*args, **kwargs)
+
+    attn.forward = forward
+    return calls
+
+
 def _amp_module_run(model, module, inputs, device, seed, fault=None):
     """``module``'s outputs and parameter gradients (the backward of
     <outputs, cotangents drawn from ``seed``>) of a copy of ``model`` on
     ``device`` in eval mode, on ``inputs``; ``fault`` plants
-    ``products_f32`` or ``norm_bf16``."""
+    ``products_f32``, ``norm_bf16`` or ``softmax_bf16``."""
     import copy
 
     dev = torch.device(device)
@@ -4371,6 +4581,8 @@ def _amp_module_run(model, module, inputs, device, seed, fault=None):
         for mod in m.modules():
             if getattr(mod, "dtype", None) == torch.bfloat16:
                 mod.dtype = None
+    softmax_calls = (_one_softmax_bf16(m.text_encoder)
+                     if fault == "softmax_bf16" else None)
     x = _to_device(inputs, dev)
     with (_norm_bf16() if fault == "norm_bf16"
           else contextlib.nullcontext()):
@@ -4385,6 +4597,8 @@ def _amp_module_run(model, module, inputs, device, seed, fault=None):
         g = torch.Generator().manual_seed(5 + seed)
         cots = [torch.randn(o.shape, generator=g).to(dev) for o in outs]
         sum((o.float() * c).sum() for o, c in zip(outs, cots)).backward()
+    if softmax_calls is not None and not softmax_calls:
+        raise AssertionError("softmax_bf16: the planted softmax never ran")
     grads = {n: p.grad.detach().double().cpu()
              for n, p in m.named_parameters() if p.grad is not None}
     return [o.detach().double().cpu() for o in outs], grads
@@ -4392,16 +4606,21 @@ def _amp_module_run(model, module, inputs, device, seed, fault=None):
 
 def _module_ratios(got, amp, f32):
     """Over the outputs and over the gradients: sum|got - amp| /
-    sum|amp - f32|."""
+    sum|amp - f32|; and the leaf with the largest such ratio of its own
+    (``grads_leaf_max``, a reading)."""
     def ratio(g, a, f):
         return (sum((x - y).abs().sum().item() for x, y in zip(g, a))
                 / sum((y - z).abs().sum().item() for y, z in zip(a, f)))
 
     keys = sorted(amp[1])
+    leaf = max(((k, ratio([got[1][k]], [amp[1][k]], [f32[1][k]]))
+                for k in keys if (amp[1][k] - f32[1][k]).abs().sum() > 0),
+               key=lambda kv: kv[1])
     return {"outputs": ratio(got[0], amp[0], f32[0]),
             "grads": ratio([got[1][k] for k in keys],
                            [amp[1][k] for k in keys],
-                           [f32[1][k] for k in keys])}
+                           [f32[1][k] for k in keys]),
+            "grads_leaf_max": leaf}
 
 
 def amp_module_readings(tmp, seeds=(0,), again=False, cpu_threads=(),
@@ -4430,7 +4649,8 @@ def amp_module_readings(tmp, seeds=(0,), again=False, cpu_threads=(),
                     got[f"cpu_amp_{n}_threads"] = run(amp_model, "cpu")
                 finally:
                     torch.set_num_threads(threads)
-            for fault in faults:
+            for fault in faults + (AMP_TEXT_FAULTS
+                                   if module == "text_tower" else ()):
                 got[f"card_amp_{fault}"] = run(amp_model, "cuda", fault)
             for name, result in got.items():
                 r = _module_ratios(result, ref, f32)
@@ -5195,6 +5415,317 @@ def phase_resnet_rewrites():
           "seconds": time.perf_counter() - t0})
 
 
+# Phase repeat: the same seeded short run twice in one call, as the
+# reference's runs repeat on its TPU. Each main training path: the
+# retrieval recipe (20 steps at batch 16), --use_amp with GradCache (20
+# steps at batch 16 in two microbatches of 8) and one epoch of the
+# classifier recipe, dense and with ATQ_FUSED=1. Every leaf of every
+# checkpoint the two runs write (the .npz files and the training state)
+# must be equal bit for bit. The full run makes the second runs in a
+# process of its own, beside serve_aot's --traced-aot process, where no
+# time is read (start_repeat_runs).
+# The rates (pairs/s, imgs/s) are read beside a control run with cuDNN's
+# two flags at PyTorch's defaults (_torch_default_backends) on the
+# retrieval recipe and the dense classifier, in the order deterministic,
+# control, deterministic.
+REPEAT_STEPS = 20
+REPEAT_RUNS = {
+    "retrieval": ("retrieval", [a if RETRIEVAL_TRAIN_ARGV[i - 1] not in (
+        "--epochs", "--synthetic_images") else
+        {"--epochs": "1", "--synthetic_images": "80"}[
+            RETRIEVAL_TRAIN_ARGV[i - 1]]
+        for i, a in enumerate(RETRIEVAL_TRAIN_ARGV)]
+        + ["--checkpoint_freq", "1"], True),
+    "retrieval_amp": ("retrieval", [a if RETRIEVAL_AMP_ARGV[i - 1] not in (
+        "--batch_size", "--grad_accum_steps") else
+        {"--batch_size": "16", "--grad_accum_steps": "2"}[
+            RETRIEVAL_AMP_ARGV[i - 1]]
+        for i, a in enumerate(RETRIEVAL_AMP_ARGV)]
+        + ["--synthetic_images", "80", "--checkpoint_freq", "1"], False),
+    "classifier_dense": ("classifier", RECIPE + [
+        "--epochs", "1", "--subset-fraction", "0.25"], True),
+    "classifier_fused": ("classifier", RECIPE + [
+        "--epochs", "1", "--subset-fraction", "0.25"], False),
+}
+
+
+@contextlib.contextmanager
+def _torch_default_backends():
+    """The control of phase repeat: cuDNN's deterministic and benchmark
+    flags at PyTorch's defaults (both off), which the entry points'
+    resolve_device does not set again inside the block."""
+    from atq_tpu_torch.utils import platform
+
+    def defaults():
+        torch.backends.cudnn.deterministic = False
+        torch.backends.cudnn.benchmark = False
+
+    defaults()
+    try:
+        with mock.patch.object(platform, "deterministic_backends",
+                               defaults):
+            yield
+    finally:
+        platform.deterministic_backends()
+
+
+def _checkpoint_leaves(out_dir):
+    """``{file/leaf: array}`` of every checkpoint a run wrote under
+    ``out_dir``: each .npz file's arrays and each training state's leaves
+    (train/checkpoint.py), as numpy arrays or reprs."""
+    from atq_tpu_torch.train.checkpoint import _leaves
+
+    out = {}
+    for root, _, files in os.walk(out_dir):
+        for f in sorted(files):
+            path = os.path.join(root, f)
+            rel = os.path.relpath(path, out_dir)
+            if f.endswith(".npz"):
+                with np.load(path, allow_pickle=False) as z:
+                    out.update({f"{rel}/{k}": z[k] for k in z.files})
+            elif f.startswith("step_"):
+                state = torch.load(path, weights_only=False)
+                for leaf_path, leaf in _leaves(state):
+                    out[f"{rel}/{leaf_path}"] = (
+                        leaf.detach().cpu().numpy()
+                        if isinstance(leaf, torch.Tensor) else repr(leaf))
+    return out
+
+
+def _leaf_diffs(a, b):
+    """The leaves of two runs' checkpoints that are not equal bit for bit
+    (or missing from one), each with its largest |difference|."""
+    diffs = {}
+    for k in sorted(set(a) | set(b)):
+        x, y = a.get(k), b.get(k)
+        if x is None or y is None:
+            diffs[k] = "missing"
+        elif isinstance(x, str) or isinstance(y, str):
+            if x != y:
+                diffs[k] = "differs"
+        elif x.shape != y.shape or x.dtype != y.dtype:
+            diffs[k] = f"{x.dtype}{x.shape} vs {y.dtype}{y.shape}"
+        elif x.tobytes() != y.tobytes():
+            diffs[k] = float(np.abs(x.astype(np.float64)
+                                    - y.astype(np.float64)).max())
+    return diffs
+
+
+def _repeat_run(kind, argv, out_dir, tmp, fused):
+    """One seeded run of a trainer's main() into ``out_dir``: its rate
+    (pairs/s or imgs/s, the epoch's), wall seconds and checkpoint
+    leaves."""
+    if kind == "retrieval":
+        from atq_tpu_torch.train.retrieval import main as retrieval_main
+
+        argv = argv + ["--output_dir", out_dir, "--data_dir",
+                       os.path.join(tmp, "no_flickr8k")]
+    else:
+        from atq_tpu_torch.train.__main__ import main as train_main
+
+        argv = argv + ["--checkpoint-dir", out_dir, "--plots-dir",
+                       os.path.join(out_dir, "plots"), "--data-dir",
+                       os.path.join(tmp, "data")]
+    os.environ["ATQ_FUSED"] = "1" if fused else "0"
+    t0 = time.perf_counter()
+    try:
+        if kind == "retrieval":
+            state, _, _ = retrieval_main(argv)
+            stats = state["stats"]
+            steps = len(stats["step_losses"][0])
+            rate = {"pairs_per_s": stats["pairs_per_sec"][0]}
+        else:
+            _, results = train_main(argv)
+            steps = len(results["step_losses"][0])
+            rate = {"imgs_per_s": results["imgs_per_sec"][0]}
+    finally:
+        os.environ["ATQ_FUSED"] = "0"
+    return {**rate, "steps": steps, "wall_s": time.perf_counter() - t0,
+            "cudnn_deterministic": torch.backends.cudnn.deterministic,
+            "leaves": _checkpoint_leaves(out_dir)}
+
+
+def _conv_cost(iters=10):
+    """What cuDNN's deterministic mode costs the convolutions: ResNet-18's
+    forward and backward at the retrieval recipe's batch (16 images of
+    160x160, float32, train mode) and the classifier's convolution
+    features at its batch (256 of 28x28), ms a call (CUDA events) under
+    the deterministic default and the control, in turns deterministic,
+    control, control, deterministic; and the kernels of each setting that
+    the other does not launch, with their device ms a call."""
+    from atq_tpu_torch.models.image_classifier import ATQImageClassifier
+    from atq_tpu_torch.models.resnet import resnet18_features
+
+    gen = torch.Generator().manual_seed(0)
+    cases = {
+        "resnet18_b16_160": (resnet18_features(device="cuda", generator=gen),
+                             torch.randn(16, 160, 160, 3, generator=gen)),
+        "classifier_features_b256": (
+            ATQImageClassifier(use_rpb=True, device="cuda",
+                               generator=gen).features,
+            torch.randn(256, 28, 28, 1, generator=gen))}
+    out = {}
+    for name, (net, x) in cases.items():
+        net.train()
+        x = x.cuda()
+
+        def fn():
+            net.zero_grad(set_to_none=True)
+            net(x).square().sum().backward()
+
+        ms = {"deterministic": [], "control": []}
+        kernels = {}
+        for tag in ("deterministic", "control", "control", "deterministic"):
+            with (_torch_default_backends() if tag == "control"
+                  else contextlib.nullcontext()):
+                ms[tag].append(time_ms(fn, iters=iters, warmup=3))
+                if tag not in kernels:
+                    kernels[tag] = device_ms_by_kernel(fn, iters=5) or {}
+        only = {tag: {k: v for k, v in rows.items()
+                      if k not in kernels[other]}
+                for (tag, rows), other in zip(kernels.items(),
+                                              ("control", "deterministic"))}
+        out[name] = {"ms": ms, "kernels_only_in": only}
+    return out
+
+
+def repeat_runs(tmp, out):
+    """The second run of each of phase repeat's paths (``{name}_b`` under
+    ``tmp/repeat``), in a process of its own, which the full run starts
+    beside serve_aot's --traced-aot process (no time is read there): each
+    run's summary, its checkpoint leaves left on disk, as JSON in
+    ``out``."""
+    got = {}
+    for name, (kind, argv, _) in REPEAT_RUNS.items():
+        r = _repeat_run(kind, argv, os.path.join(tmp, "repeat", f"{name}_b"),
+                        tmp, name.endswith("_fused"))
+        got[name] = {k: v for k, v in r.items() if k != "leaves"}
+    with open(out, "w") as f:
+        json.dump(got, f)
+
+
+def start_repeat_runs(tmp):
+    """:func:`repeat_runs` started in a process of its own; returns what
+    :func:`phase_repeat` waits for."""
+    out = os.path.join(tmp, "repeat_b.json")
+    log = open(os.path.join(tmp, "repeat_b.log"), "w")
+    here = os.path.abspath(__file__)
+    proc = subprocess.Popen([sys.executable, here, "--repeat-runs", tmp,
+                             out], stdout=log, stderr=subprocess.STDOUT,
+                            cwd=os.path.dirname(here))
+    atexit.register(proc.kill)  # a phase failed before phase repeat
+    return proc, out, log
+
+
+def phase_repeat(tmp, second=None):
+    """Phase repeat (the comment above REPEAT_STEPS). ``second``, from
+    :func:`start_repeat_runs`, holds the second runs, made in a process of
+    their own; without it they run here, after the first."""
+    t0 = time.perf_counter()
+    line = {"phase": "repeat", "conv_cost": _conv_cost(), "runs": {}}
+    bad = {}
+    b_runs = None
+    if second is not None:
+        proc, out, log = second
+        rc = proc.wait(timeout=DRILL_TIMEOUT_S)
+        log.close()
+        if rc:
+            with open(log.name) as f:
+                raise AssertionError(f"repeat: the second runs' process "
+                                     f"exited {rc}: {f.read()[-3000:]}")
+        with open(out) as f:
+            b_runs = json.load(f)
+        line["second_runs"] = "a process of their own, beside serve_aot"
+    for name, (kind, argv, control) in REPEAT_RUNS.items():
+        fused = name.endswith("_fused")
+        order = ["a", "control"] if control else ["a"]
+        if b_runs is None:
+            order.append("b")
+        got = {}
+        for tag in order:
+            out_dir = os.path.join(tmp, "repeat", f"{name}_{tag}")
+            with (_torch_default_backends() if tag == "control"
+                  else contextlib.nullcontext()):
+                got[tag] = _repeat_run(kind, argv, out_dir, tmp, fused)
+        if b_runs is not None:
+            got["b"] = {**b_runs[name], "leaves": _checkpoint_leaves(
+                os.path.join(tmp, "repeat", f"{name}_b"))}
+        diffs = _leaf_diffs(got["a"]["leaves"], got["b"]["leaves"])
+        summary = {tag: {k: v for k, v in r.items() if k != "leaves"}
+                   for tag, r in got.items()}
+        summary["leaves"] = len(got["a"]["leaves"])
+        summary["leaves_differing"] = diffs
+        if control:
+            summary["control_leaves_differing"] = len(_leaf_diffs(
+                got["a"]["leaves"], got["control"]["leaves"]))
+        if name.startswith("retrieval") and \
+                summary["a"]["steps"] != REPEAT_STEPS:
+            raise AssertionError(f"repeat {name}: {summary['a']['steps']} "
+                                 f"steps, expected {REPEAT_STEPS}")
+        if diffs or not summary["leaves"]:
+            bad[name] = diffs or "no checkpoint leaves"
+        line["runs"][name] = summary
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if bad:
+        raise AssertionError(f"repeat: leaves differ between two runs: "
+                             f"{json.dumps(bad)[:4000]}")
+    return line
+
+
+def repeat_readings(tmp):
+    """The readings behind phase repeat: each main path's step 0 run twice
+    on the card (retrieval in float32 and under AMP, the bert-base encoder
+    step at 2 layers under AMP with --attn fused --hoist, the classifier
+    dense and fused), the gradient leaves not equal bit for bit, under the
+    deterministic default and under the control; the operations that
+    ``torch.use_deterministic_algorithms(True, warn_only=True)`` names on
+    each of those steps; then the phase itself."""
+    import warnings
+
+    model, batch, cfg = _retrieval_step0_setup(tmp)
+    amp_model, _, _ = _retrieval_step0_setup(tmp, amp=True)
+    clf_batch = _step0_batch()
+
+    def grads(result):  # as numpy arrays, for _leaf_diffs
+        g = result[3] if len(result) == 5 else result[-1]
+        return {k: v.numpy() for k, v in g.items()}
+
+    steps = {
+        "retrieval": lambda: _retrieval_step0(model, batch, cfg, "cuda",
+                                              False),
+        "retrieval_amp": lambda: _retrieval_step0(amp_model, batch, cfg,
+                                                  "cuda", False),
+        "encoder_amp": lambda: _encoder_step0("cuda", True, "fused", True),
+        "classifier_dense": lambda: _step0("cuda", False, clf_batch),
+        "classifier_fused": lambda: _step0("cuda", True, clf_batch),
+    }
+    out = {"step0": {}, "flagged_ops": {}}
+    for name, step in steps.items():
+        row = {}
+        for tag, ctx in (("deterministic", contextlib.nullcontext),
+                         ("control", _torch_default_backends)):
+            with ctx():
+                a, b = grads(step()), grads(step())
+            row[tag] = _leaf_diffs(a, b)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        out["flagged_ops"][name] = sorted({
+            str(w.message).splitlines()[0] for w in caught
+            if "deterministic" in str(w.message)})
+        out["step0"][name] = row
+        emit({"repeat_step0": name, **row,
+              "flagged_ops": out["flagged_ops"][name]})
+    line = phase_repeat(tmp)
+    out["phase"] = line
+    return out
+
+
 COMPARE_MM = tuple((m, n, k) for m in (MAX_BATCH, 1) for n, k in MM_SHAPES) \
     + ((128, 128, 8704),)
 PACKED_KERNELS = ("ternary_matmul", "ternary_matmul32", "ternary_matmul_rpb")
@@ -5582,6 +6113,54 @@ def _scale_step0(spec, device):
     return out
 
 
+def _hoist_tp_step0(device, tp, scale=1.0):
+    """Step 0 (no update) of ENCODER_STEP0 in float32 with --attn fused
+    --hoist, its text stack's projections sharded over a 'model' group of
+    ``tp`` ranks (the world; one process at tp 1), alphas calibrated as in
+    encoder_step0, the embedding table scaled by ``scale`` (the envelope's
+    perturbation): a reading in _scale_compare's form (loss, the logits
+    twice, every gradient whole, the forward's launches) and the forward's
+    launches on every rank."""
+    import torch.distributed as dist
+    import torch.nn.functional as F
+
+    from atq_tpu_torch.ops import kernel_launches
+    from atq_tpu_torch.parallel.mesh import make_mesh
+    from atq_tpu_torch.parallel.sharded_model import ShardedModel
+    from atq_tpu_torch.train.scale import N_CLASSES, VOCAB, build_step
+
+    _, _, (model, _), _ = build_step(*ENCODER_STEP0, use_amp=False,
+                                     attn_impl="fused", hoist_quant=True,
+                                     device=device, seed=0)
+    _calibrate_alphas(model)
+    with torch.no_grad():
+        model.Embed_0.weight.mul_(scale)
+    sharded = ShardedModel(model, make_mesh(1, tp))
+    seq, batch = ENCODER_STEP0[4], ENCODER_STEP0[5]
+    rng = np.random.RandomState(0)  # build_step's batch at seed 0
+    tokens = torch.from_numpy(rng.randint(0, VOCAB, (batch, seq))).to(device)
+    labels = torch.from_numpy(rng.randint(0, N_CLASSES, (batch,))).to(device)
+    _reset_launches()
+    logits = model(tokens)
+    launches = {k: v for k, v in kernel_launches().items() if v}
+    loss = F.cross_entropy(logits, labels.long())
+    loss.backward()
+    sharded.reduce_grads()
+    grads = sharded.to_full([t.grad if t.grad is not None
+                             else torch.zeros_like(t)
+                             for _, t in sharded.optim_params])
+    names = [n for n, _ in model.named_parameters()]
+    ranks = [launches]
+    if tp > 1:
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, launches)
+    logits = logits.detach().double().cpu()
+    reading = (loss.item(), logits, logits,
+               {n: g.detach().double().cpu() for n, g in zip(names, grads)},
+               launches)
+    return {"reading": reading, "rank_launches": ranks}
+
+
 def scale_out_checks(spec_path, out_path, backend):
     """Worker (every rank): step 0 of the spec's configs, then the parallel
     library, over the world (``backend`` nccl, a card a rank, or gloo, the
@@ -5597,7 +6176,8 @@ def scale_out_checks(spec_path, out_path, backend):
     dist.init_process_group(backend, init_method="env://")
     spec = torch.load(spec_path, weights_only=False)
     out = {"step0": _scale_step0(spec, dev),
-           "library": _scale_library(dev, backend)}
+           "library": _scale_library(dev, backend),
+           "hoist_tp": _hoist_tp_step0(dev, dist.get_world_size())}
     _rank0_write(out_path, out)
     dist.destroy_process_group()
 
@@ -5838,6 +6418,7 @@ def phase_scale_out(tmp):
         else:
             raise AssertionError(f"scale_out {name}: the planted fault "
                                  "(every dα dropped) passed")
+    hoist_tp = _hoist_tp_check(got["hoist_tp"], world)
     library = got["library"]
     bad = {k: v for k, v in library["max_abs_diff"].items()
            if not v <= LIBRARY_TOL}
@@ -5881,12 +6462,42 @@ def phase_scale_out(tmp):
         _scale_run_checks(name, run, step0.get(name))
     emit({"phase": "scale_out", "cards": n, "backend": "nccl",
           "checks_backend": backend, "checks_world": world,
-          "checks": [f"step0 {k}" for k in sorted(step0)] + ["library"]
+          "checks": [f"step0 {k}" for k in sorted(step0)]
+          + [f"hoist_tp{world}", "library"]
           + [f"run {k}" for k in sorted(runs)],
-          "step0": step0, "library": library, "checks_torchrun_s": checks_s,
+          "step0": step0, "library": library, "hoist_tp": hoist_tp,
+          "checks_torchrun_s": checks_s,
           "runs": runs, "runs_torchrun_s": runs_s,
           "seconds": time.perf_counter() - t0})
     return dict(runs[f"dp{n}"]["launches"])
+
+
+def _hoist_tp_check(got, world):
+    """The hoisted text stack at tp = ``world`` (the checks' ranks) against
+    the one-GPU hoisted stack on the same card, within _scale_compare's
+    limits (its envelope: the one-GPU step with the embedding table scaled
+    by 1 ± 1e-6); every rank's forward launches the batched order
+    statistic once a weight kind (ENCODER_PER_STEP) and no single one."""
+    one = _hoist_tp_step0("cuda", 1)["reading"]
+    env = [_hoist_tp_step0("cuda", 1, 1 + e)["reading"]
+           for e in (1e-6, -1e-6)]
+    out = _scale_compare(f"hoist_tp{world}", got["reading"], one, env)
+    want = ENCODER_PER_STEP["batched_order_stat"]
+    for rank, launches in enumerate(got["rank_launches"]):
+        if launches.get("batched_order_stat") != want or \
+                launches.get("order_stat", 0):
+            raise AssertionError(f"hoist_tp{world} rank {rank}'s forward "
+                                 f"launches {launches}, expected {want} "
+                                 "batched order statistics")
+    try:
+        _scale_compare("planted", _planted(got["reading"], "alpha"), one, env)
+    except AssertionError:
+        pass
+    else:
+        raise AssertionError(f"hoist_tp{world}: the planted fault (every "
+                             "dα dropped) passed")
+    return {**out, "rank_forward_launches": got["rank_launches"],
+            "one_gpu_forward_launches": one[4]}
 
 
 def _scale_compare(what, got, want, env):
@@ -5970,8 +6581,9 @@ def main(argv=None):
         traced_aot(*argv[1:])
         return 0
     workers = {"--scale-out-checks": scale_out_checks,
-               "--scale-out-runs": scale_out_runs}
-    if argv[:1] and argv[0] in workers:  # a torchrun rank of scale_out
+               "--scale-out-runs": scale_out_runs,
+               "--repeat-runs": repeat_runs}
+    if argv[:1] and argv[0] in workers:  # scale_out's ranks, repeat's runs
         os.environ["ATQ_NO_DOWNLOAD"] = "1"
         workers[argv[0]](*argv[1:])
         return 0
@@ -5983,7 +6595,8 @@ def main(argv=None):
                           lambda tmp: scan_step0_readings(tmp)[0],
                       "--amp-modules": lambda tmp: amp_module_readings(
                           tmp, AMP_MODULE_SEEDS, again=True,
-                          cpu_threads=(1,))}
+                          cpu_threads=(1,)),
+                      "--repeat": repeat_readings}
     if argv[:1] and argv[0] in readings_modes:
         resolve_device("cuda")
         os.environ["ATQ_NO_DOWNLOAD"] = "1"
@@ -5999,6 +6612,9 @@ def main(argv=None):
     resolve_device("cuda")  # TF32 off for the cuDNN convs and matmuls
     os.environ["ATQ_NO_DOWNLOAD"] = "1"  # the synthetic data; no network
     smi = _smi()
+    # encoder_step0's planted library compiles beside phase build.
+    truncating_so = None if argv else ThreadPoolExecutor(1).submit(
+        _compile_truncating_backward)
     phase_build(smi)
     if argv[:1] == ["--scale-out"]:  # the build and scale_out alone
         with tempfile.TemporaryDirectory() as tmp:
@@ -6033,7 +6649,10 @@ def main(argv=None):
         rpb_launches = phase_dense_correction(
             ret_path, req, {**ret_ref, "sparse_image": img,
                             "sparse_text": txt}, path, images, packed)
+        second_runs = []
+
         def drill():
+            second_runs.append(start_repeat_runs(tmp))
             t = time.perf_counter()
             return _drill(tmp), time.perf_counter() - t
 
@@ -6045,7 +6664,7 @@ def main(argv=None):
                                      cpu_step0)
         fused_launches, _ = phase_train("train_fused", True, tmp, batch,
                                         dense_step0)
-        phase_encoder_step0()
+        phase_encoder_step0(truncating_so.result())
         encoder_launches = phase_train_encoder(tmp)
         phase_train_retrieval(tmp)
         eval_launches = phase_evaluate(
@@ -6055,6 +6674,7 @@ def main(argv=None):
         phase_train_retrieval_amp(tmp, drill_result)
         moe_launches = phase_train_retrieval_moe(tmp)
         phase_resnet_rewrites()
+        phase_repeat(tmp, second_runs[0])
         scale_launches = phase_scale_out(tmp)
 
     sources = {

@@ -355,3 +355,62 @@ def trainer_main(module, argv):
     cfg = config_from_args(build_parser().parse_args(argv))
     _, results = train_classifier(cfg, loaders=loaders, verbose=False)
     return results["step_losses"]
+
+
+# ------------------------------------------------------- hoisted stack
+
+
+def hoisted_stacks(specs):
+    """A ScannedTernaryStack(hoist_quant=True) forward and backward per
+    spec, from a port state dict (``state``) on ``x`` with the padding
+    mask ``pad``, over a mesh of the world at ``tp`` (dp 1; one process at
+    tp 1); the loss is ``sum(y · cot)``, fixed cotangents. Returns the
+    loss, the output, every parameter's gradient whole (port names), each
+    call of the batched threshold in the forward (the stacked weight it
+    was given and the thresholds it returned) and the count of per-layer
+    threshold calls in the forward and backward (none when every layer
+    runs pre-quantized)."""
+    from unittest import mock
+
+    from atq_tpu_torch.core import quantize
+    from atq_tpu_torch.nn.transformer import ScannedTernaryStack
+    from atq_tpu_torch.parallel.mesh import make_mesh
+    from atq_tpu_torch.parallel.sharded_model import ShardedModel
+
+    out = []
+    for spec in specs:
+        stack = ScannedTernaryStack(**spec["config"], hoist_quant=True,
+                                    device="cpu")
+        stack.load_state_dict({k: torch.from_numpy(v)
+                               for k, v in spec["state"].items()})
+        sharded = ShardedModel(stack, make_mesh(1, spec["tp"]))
+        calls, single = [], []
+        batched = quantize.ternary_threshold_batched
+        threshold = quantize.ternary_threshold
+
+        def recorded(weights, *args, **kwargs):
+            thr = batched(weights, *args, **kwargs)
+            calls.append((weights.detach().clone(), thr.clone()))
+            return thr
+
+        def counted(*args, **kwargs):
+            single.append(1)
+            return threshold(*args, **kwargs)
+
+        with mock.patch.object(quantize, "ternary_threshold_batched",
+                               recorded), \
+                mock.patch.object(quantize, "ternary_threshold", counted):
+            y = stack(torch.from_numpy(spec["x"]),
+                      src_key_padding_mask=torch.from_numpy(spec["pad"]))
+            loss = (y * torch.from_numpy(spec["cot"])).sum()
+            loss.backward()
+        sharded.reduce_grads()
+        tensors = [t for _, t in sharded.optim_params]
+        grads = sharded.to_full([t.grad if t.grad is not None
+                                 else torch.zeros_like(t) for t in tensors])
+        names = [n for n, _ in stack.named_parameters()]
+        out.append(_numpy({"loss": float(loss.detach()), "y": y,
+                           "grads": dict(zip(names, grads)),
+                           "thresholds": calls,
+                           "single_thresholds": len(single)}))
+    return out
